@@ -23,12 +23,28 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    four sharing a 256-token prefix, 32 new tokens each, drained twice.
    Every decode tick must launch K1 once per layer;
 6. parity: a full-width 2-layer float32 model drains the same requests on
-   the card (K1) and on the CPU (plain path); the tokens must agree.
+   the card (K1) and on the CPU (plain path); the tokens must agree;
+7. K2: the ``flash_attention`` kernel against its plain version: phi4-mini's
+   geometry (24/8 heads, D 128), gemma-2b's (8/1, D 256), a ragged length,
+   window 96, softcap 30 and a non-causal cross length, in float32
+   (tolerance 2e-4) and bfloat16 (3e-2, and within one bfloat16 rounding
+   of the float32 plain version);
+8. K2 time at the dense phase's largest prefill (B 1, 24/8 heads, S 512,
+   D 128, bf16, causal), beside its plain version, SDPA and its bound;
+9. dense serve: full-width phi4-mini-3.8b (bf16, random weights from a
+   seeded generator) through ``ServeEngine(cache_backend="dense")`` with
+   ``attn_impl="pallas"``: the same 16 requests, batch 8, max_len 1024, 32
+   new tokens each, drained twice.  Every prefill must launch K2 once per
+   layer;
+10. dense parity: a full-width 2-layer float32 phi4-mini drains the parity
+   requests densely on the card (K2) and on the CPU (plain path); the
+   tokens must agree.
 
 It ends with the kernels' JSON line, the card line and the result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
 """
+import gc
 import json
 import os
 import subprocess
@@ -41,6 +57,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor rate
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 BF16_ROUNDING = 2.0 ** -8          # bfloat16 unit roundoff
 L2_BYTES = 50 * 2**20
 
@@ -215,6 +232,98 @@ def k1_time(torch, pa, ref, card):
 
 
 # ---------------------------------------------------------------------------
+# K2: flash_attention
+# ---------------------------------------------------------------------------
+
+def k2_cases():
+    """(name, B, Hq, Hkv, Sq, Skv, D, kwargs); every row sees a key."""
+    return [
+        ("phi4-mini", 1, 24, 8, 512, 512, 128, {}),
+        ("gemma-2b", 1, 8, 1, 512, 512, 256, {}),
+        ("ragged", 2, 24, 8, 333, 333, 128, {}),
+        ("window-96", 1, 8, 2, 300, 300, 128, dict(window=96)),
+        ("softcap-30", 1, 8, 1, 200, 200, 256, dict(softcap=30.0)),
+        ("cross-noncausal", 2, 24, 8, 100, 356, 128, dict(causal=False)),
+    ]
+
+
+def k2_check(torch, fa, ref):
+    """Every case in both dtypes against the plain version; returns the
+    largest absolute error seen."""
+    gen = torch.Generator().manual_seed(2)
+    dev = torch.device("cuda")
+    worst = 0.0
+    for name, b, hq, hkv, sq, skv, d, kw in k2_cases():
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            q = torch.randn((b, hq, sq, d), generator=gen).to(dev, dtype)
+            k, v = (torch.randn((b, hkv, skv, d), generator=gen
+                                ).to(dev, dtype) for _ in range(2))
+            got = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention(q, k, v, **kw)
+            g, w = got.float(), want.float()
+            check(bool(torch.isfinite(g).all()), f"K2 {name} {dname}: "
+                  "non-finite output")
+            err = float((g - w).abs().max())
+            tol = FLASH_TOL[dname]
+            ok = bool(((g - w).abs() <= tol + tol * w.abs()).all())
+            tight = ""
+            if dname == "bfloat16":
+                w32 = ref.flash_attention(q.float(), k.float(), v.float(),
+                                          **kw)
+                err32 = float((g - w32).abs().max())
+                ok32 = bool(((g - w32).abs()
+                             <= TOL["float32"] + BF16_ROUNDING * w32.abs()
+                             ).all())
+                tight = (f" err_vs_f32_plain={err32:.3e} "
+                         f"tol_f32_plus_one_rounding=1e-4+2^-8*|w| "
+                         f"ok_f32_plain={ok32}")
+                ok = ok and ok32
+            print(f"[K2] case={name} dtype={dname} B={b} Hq={hq} Hkv={hkv} "
+                  f"Sq={sq} Skv={skv} D={d} {kw or ''} max_abs_err={err:.3e} "
+                  f"tol={tol}{tight} ok={ok}", flush=True)
+            check(ok, f"K2 {name} {dname}: max_abs_err {err} over {tol}, "
+                  "or more than one bfloat16 rounding from the float32 "
+                  "plain version")
+            worst = max(worst, err)
+    return worst
+
+
+def k2_time(torch, fa, ref, card):
+    import torch.nn.functional as F
+    b, hq, hkv, s, d = 1, 24, 8, 512, 128
+    itemsize = 2
+    moved = (2 * hq + 2 * hkv) * b * s * d * itemsize    # q, k, v, o
+    copies = -(-3 * L2_BYTES // moved)
+    gen = torch.Generator().manual_seed(3)
+    dev = torch.device("cuda")
+    sets = [tuple(torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+                  for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                (b, hkv, s, d)))
+            for _ in range(copies)]
+    ms = time_ms(torch, lambda *a: fa.flash_attention(*a), sets)
+    plain_ms = time_ms(torch, lambda *a: ref.flash_attention(*a), sets)
+    library_ms = time_ms(torch, lambda qq, kk, vv:
+                         F.scaled_dot_product_attention(
+                             qq, kk, vv, is_causal=True, enable_gqa=True),
+                         sets)
+    # bound: q, k, v read once and o written once (bytes), or the causal
+    # q.k and p.v products at the bf16 peak (operations); the larger
+    ops = 2 * b * hq * s * s * d
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[K2 time] shape=B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16 causal "
+          f"input_copies={copies} card='{card}' ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} bound_by={bound_by} "
+          f"achieved_TFLOPs={ops / ms / 1e9:.2f}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
 
@@ -237,8 +346,9 @@ def make_requests(np, Request, vocab, seed, n, lens, shared_len, shared_at,
 
 def timed_engine_class(torch, ServeEngine):
     class TimedEngine(ServeEngine):
-        """Accumulates wall time of prefill chunks and decode windows, each
-        closed by a device synchronise."""
+        """Accumulates wall time of prefills (paged chunks or whole dense
+        prompts) and decode windows, each closed by a device
+        synchronise."""
 
         def _init_state(self):
             super()._init_state()
@@ -249,6 +359,13 @@ def timed_engine_class(torch, ServeEngine):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             super()._prefill_tick(slot)
+            torch.cuda.synchronize()
+            self.prefill_s += time.perf_counter() - t0
+
+        def _prefill_into_slot(self, slot, req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._prefill_into_slot(slot, req)
             torch.cuda.synchronize()
             self.prefill_s += time.perf_counter() - t0
 
@@ -295,13 +412,23 @@ def _prepare_prefill(eng, reqs):
     return lambda: eng._prefill_tick(0)
 
 
-def profile_window(torch, eng, reqs):
-    """Device busy share of one decode window and of one prefill chunk."""
+def _prepare_dense_prefill(eng, reqs):
+    """The longest prompt, prefilled whole into slot 0 of an empty batch."""
+    eng.reset()
+    req = max(reqs, key=lambda r: r.prompt.shape[0])
+    req.out_tokens.clear()
+    return lambda: eng._prefill_into_slot(0, req)
+
+
+def profile_window(torch, eng, reqs, steps=(("decode window", _prepare_decode),
+                                            ("prefill chunk",
+                                             _prepare_prefill))):
+    """Device busy share of each profiled step: by default one decode
+    window and one prefill chunk."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     lines = []
-    for label, prepare in (("decode window", _prepare_decode),
-                           ("prefill chunk", _prepare_prefill)):
+    for label, prepare in steps:
         fn = prepare(eng, reqs)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -433,6 +560,112 @@ def parity_phase(torch, np):
           f"{outs['cuda']}")
 
 
+def dense_serve_phase(torch, np, card):
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import RuntimeFlags, build
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tune.plan import next_pow2
+
+    cfg = ARCHS["phi4-mini-3.8b"]
+    n_attn = cfg.num_layers
+    t0 = time.perf_counter()
+    bundle = build(cfg, RuntimeFlags(attn_impl="pallas"))
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[model] arch={cfg.name} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} dtype={cfg.param_dtype} "
+          f"params={n_params} init_s={time.perf_counter() - t0:.2f}",
+          flush=True)
+    eng = timed_engine_class(torch, ServeEngine)(bundle, params, 8, 1024,
+                                                 cache_backend="dense")
+    reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
+                         (0, 9, 12, 15), 32)
+    buckets = sorted({min(next_pow2(max(8, r.prompt.shape[0])), 1024)
+                      for r in reqs})
+    launches = 0
+    for run in ("first", "warm"):
+        fa.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        dt = drain(torch, eng, reqs)
+        launches = fa.LAUNCHES
+        st = eng.stats
+        check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+              f"dense {run} drain: a request missed its budget")
+        check(all(0 <= t < cfg.vocab_size for r in reqs
+                  for t in r.out_tokens),
+              f"dense {run} drain: token out of range")
+        check(st.prefills == len(reqs), f"dense {run} drain: {st.prefills} "
+              f"prefills for {len(reqs)} requests")
+        check(launches == n_attn * st.prefills,
+              f"dense {run} drain: K2 launches {launches} != {n_attn} x "
+              f"{st.prefills} prefills")
+        print(f"[dense serve] run={run} card='{card}' requests={len(reqs)} "
+              f"batch={eng.bsz} max_len={eng.max_len} "
+              f"tokens_out={st.tokens_out} seconds={dt:.3f} "
+              f"tok_s={st.tokens_out / dt:.1f} prefills={st.prefills} "
+              f"ms_per_prefill={1e3 * eng.prefill_s / st.prefills:.3f} "
+              f"prefill_buckets={buckets} "
+              f"prefill_retraces={st.prefill_retraces} "
+              f"decode_steps={st.decode_steps} "
+              f"decode_dispatches={st.decode_dispatches} "
+              f"ms_per_decode_tick={1e3 * eng.decode_s / st.decode_steps:.3f} "
+              f"prompt_tokens={st.prompt_tokens} "
+              f"kv_cache_GiB={eng.kv_bytes() / 2**30:.3f} "
+              f"k2_launches={launches} "
+              f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}",
+              flush=True)
+    for line in profile_window(torch, eng, reqs, steps=(
+            ("dense decode window", _prepare_decode),
+            ("dense prefill S512", _prepare_dense_prefill))):
+        print(line, flush=True)
+    return launches
+
+
+def dense_parity_phase(torch, np):
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import RuntimeFlags, build
+    from repro_torch.serve import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = override(ARCHS["phi4-mini-3.8b"], num_layers=2,
+                   param_dtype="float32", compute_dtype="float32")
+    flags = RuntimeFlags(attn_impl="pallas")
+    cpu = build(cfg, flags, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(1))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        bundle = cpu if dev == "cpu" else build(cfg, flags, device="cuda")
+        p = params if dev == "cpu" else _to(params, "cuda")
+        eng = ServeEngine(bundle, p, 4, 128, cache_backend="dense",
+                          device=dev)
+        reqs = make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40), 17,
+                             (0, 4), 8)
+        before = fa.LAUNCHES
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_to_completion()
+        outs[dev] = [r.out_tokens for r in reqs]
+        if dev == "cuda":
+            check(fa.LAUNCHES - before == 2 * eng.stats.prefills,
+                  "dense parity drain on the card did not run K2 in every "
+                  "prefill layer")
+        check(all(len(t) == 8 for t in outs[dev]), f"{dev}: budget missed")
+        del eng, p
+    same = outs["cpu"] == outs["cuda"]
+    print(f"[dense parity] arch=phi4-mini-3.8b full width, 2 layers, "
+          f"float32, dense cache, attn_impl=pallas "
+          f"requests={len(outs['cpu'])} tokens_each=8 "
+          f"cuda_equals_cpu={same}", flush=True)
+    check(same, f"greedy tokens differ: cpu {outs['cpu']} cuda "
+          f"{outs['cuda']}")
+
+
 # ---------------------------------------------------------------------------
 
 def main():
@@ -441,6 +674,7 @@ def main():
         import torch
         import repro_torch  # noqa: F401
         from repro_torch.kernels import build as kbuild
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import paged_attention as pa
         from repro_torch.kernels import ref
     except ImportError as e:
@@ -468,6 +702,14 @@ def main():
         timing = k1_time(torch, pa, ref, card)
         launches = serve_phase(torch, np, card)
         parity_phase(torch, np)
+        gc.collect()                 # the gemma-2b engine and weights go
+        torch.cuda.empty_cache()
+        k2_err = k2_check(torch, fa, ref)
+        k2_timing = k2_time(torch, fa, ref, card)
+        k2_launches = dense_serve_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dense_parity_phase(torch, np)
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1
@@ -477,7 +719,14 @@ def main():
               launches=launches, max_abs_err=err, ms=timing["ms"],
               plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
               bound_by=timing["bound_by"], library_ms=timing["library_ms"])
-    print(json.dumps({"kernels": [k1]}))
+    k2 = dict(name="flash_attention", route="cuda",
+              source="src/repro_torch/kernels/csrc/flash_attention.cu",
+              replaces="src/repro/kernels/flash_attention.py:128",
+              launches=k2_launches, max_abs_err=k2_err, ms=k2_timing["ms"],
+              plain_ms=k2_timing["plain_ms"], bound_ms=k2_timing["bound_ms"],
+              bound_by=k2_timing["bound_by"],
+              library_ms=k2_timing["library_ms"])
+    print(json.dumps({"kernels": [k1, k2]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,38 @@ import torch
 NEG_INF = -1e30
 
 
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    scale=None):
+    """The plain version of the ``flash_attention`` kernel, with the
+    kernel's semantics.  q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) ->
+    (B, Hq, Sq, D) in q's dtype; query head h reads kv head h // (Hq/Hkv).
+
+    The causal mask is aligned top-left (query i sees keys <= i, as the
+    Pallas kernel's ``q_pos = i``; ``repro.kernels.ref.attention`` aligns
+    it bottom-right instead, so the two agree only when Sq == Skv).  The
+    window keeps keys with ``q_pos - k_pos < window``.  A row that sees no
+    key is exactly 0."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, g, sq, d).float() * scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
 def decode_attention(q, k, v, valid_len, *, softcap=None, scale=None):
     """q: (B,Hq,D); k/v: (B,T,Hkv,D); valid_len (B,) -> (B,Hq,D)."""
     b, hq, d = q.shape

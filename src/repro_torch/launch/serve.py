@@ -1,12 +1,14 @@
-"""Serving launcher: the paged continuous-batching engine over fresh
-weights drawn from a seeded generator, on the card.
+"""Serving launcher: the continuous-batching engine over fresh weights
+drawn from a seeded generator, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
         --requests 16 --batch 8 --max-len 1024 --max-new 32
 
-``--smoke`` serves the same architecture at smoke width; ``--device cpu``
-runs the plain PyTorch path on the CPU (without it, a host with no card is
-an error).
+``--cache`` picks the KV backend (``auto`` lets the engine pick: paged);
+prefill attention is the reference launcher's, ``chunked`` with 64-token
+blocks.  ``--smoke`` serves the same architecture at smoke width;
+``--device cpu`` runs the plain PyTorch path on the CPU (without it, a
+host with no card is an error).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, smoke_config
-from repro_torch.models import build
+from repro_torch.models import RuntimeFlags, build
 from repro_torch.serve import Request, ServeEngine
 
 
@@ -34,16 +36,22 @@ def main(argv=None) -> int:
                     help="decode ticks per host sync")
     ap.add_argument("--seed", type=int, default=0,
                     help="weights + traffic seed")
+    ap.add_argument("--cache", default="auto",
+                    choices=("auto", "dense", "paged"),
+                    help="KV backend; auto lets the engine pick")
     ap.add_argument("--device", default=None,
                     help="default: cuda (a host without a card is an error)")
     args = ap.parse_args(argv)
 
     cfg = smoke_config(ARCHS[args.arch]) if args.smoke else ARCHS[args.arch]
-    bundle = build(cfg, device=args.device)
+    flags = RuntimeFlags(attn_impl="chunked", attn_bq=64, attn_bkv=64)
+    bundle = build(cfg, flags, device=args.device)
     gen = torch.Generator(device=bundle.device).manual_seed(args.seed)
     params = bundle.init(gen)
     eng = ServeEngine(bundle, params, args.batch, args.max_len,
-                      window=args.window, device=args.device)
+                      window=args.window,
+                      cache_backend=None if args.cache == "auto" else args.cache,
+                      device=args.device)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size,
@@ -55,9 +63,10 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
     where = (torch.cuda.get_device_name(bundle.device)
              if bundle.device.type == "cuda" else str(bundle.device))
-    print(f"{cfg.name}{' (smoke)' if args.smoke else ''} on {where}: "
-          f"{stats.tokens_out} tokens in {dt:.2f}s "
+    print(f"{cfg.name}{' (smoke)' if args.smoke else ''} on {where}, "
+          f"{eng.backend} cache: {stats.tokens_out} tokens in {dt:.2f}s "
           f"({stats.tokens_out / dt:.1f} tok/s), prefills={stats.prefills}, "
+          f"prefill_retraces={stats.prefill_retraces}, "
           f"prefill_chunks={stats.prefill_chunks}, "
           f"decode_steps={stats.decode_steps}, "
           f"decode_dispatches={stats.decode_dispatches}, "

@@ -1,2 +1,3 @@
-"""Models: the ATTN + DENSE decoder on a paged KV cache."""
+"""Models: the ATTN + DENSE decoder on a dense or a paged KV cache."""
 from repro_torch.models.registry import ModelBundle, build  # noqa: F401
+from repro_torch.models.transformer import RuntimeFlags  # noqa: F401

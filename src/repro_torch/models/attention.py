@@ -1,26 +1,48 @@
-"""GQA/MQA attention over a paged KV cache: the plain gather-then-attend
-path that chunked prefill takes (decode goes through the
-``paged_attention`` kernel, :mod:`repro_torch.kernels.ops`).
+"""GQA/MQA attention with interchangeable inner loops, as in
+``repro.models.attention``:
 
-Causal masks, sliding windows, softcap, GQA grouping and per-batch
-absolute offsets, as in ``repro.models.attention``.
+- ``naive``   — materialized scores in float32; decode (Sq = 1) always
+                takes it, and chunked prefill over a paged cache gathers
+                the pages and calls it (:func:`paged_gather_attention`);
+- ``chunked`` — blockwise online softmax (the paper's `nest` blocking) in
+                plain PyTorch, forward only;
+- ``pallas``  — the ``flash_attention`` kernel (K2): CUDA on the card, its
+                plain version on the CPU (:mod:`repro_torch.kernels.ops`).
+
+Causal masks, sliding windows, softcap, GQA grouping and absolute
+position offsets, as in the reference.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 
 NEG_INF = -1e30
+# the blocks of ``chunked`` when AttnParams leaves them unset (the
+# reference derives them from its tuned KernelPlan, which is not ported;
+# blocks change rounding, never the math)
+DEFAULT_BLOCK = 64
 
 
 class AttnParams(NamedTuple):
+    impl: str = "chunked"          # naive | chunked | pallas
     causal: bool = True
     window: Optional[int] = None
     softcap: Optional[float] = None
     scale: Optional[float] = None
+    bq: Optional[int] = None       # chunked's blocks; None = DEFAULT_BLOCK
+    bkv: Optional[int] = None
+
+
+def resolve_blocks(p: AttnParams) -> tuple:
+    """(bq, bkv) for ``chunked``: explicit AttnParams win."""
+    return (p.bq if p.bq is not None else DEFAULT_BLOCK,
+            p.bkv if p.bkv is not None else DEFAULT_BLOCK)
 
 
 def _mask(q_pos, k_pos, causal, window, kv_valid_len=None):
@@ -85,3 +107,82 @@ def paged_gather_attention(q, k_pages, v_pages, page_table, p: AttnParams,
     vd = vd.reshape(b, n * page, *v_pages.shape[2:])
     return naive_attention(q, kd.to(q.dtype), vd.to(q.dtype), p,
                            q_offset=q_offset, kv_valid_len=kv_valid_len)
+
+
+def chunked_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
+    """Online-softmax double loop over (bq, bkv) blocks, forward only (the
+    reference's custom VJP waits for training).  q: (B,Sq,Hq,D); k/v:
+    (B,Skv,Hkv,D) -> (B,Sq,Hq,D).  ``q_offset``/``kv_valid_len`` are
+    scalars.  Non-divisible lengths are padded and masked; every kv block
+    is visited, as in the reference (a block masked for a whole row adds
+    p = 1 terms that the row's first live block wipes with alpha = 0)."""
+    b, orig_sq, hq, d = q.shape
+    orig_skv, hkv = k.shape[1], k.shape[2]
+    bq, bkv = resolve_blocks(p)
+    bq, bkv = min(bq, orig_sq), min(bkv, orig_skv)
+    pad_q, pad_kv = (-orig_sq) % bq, (-orig_skv) % bkv
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_kv:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+        if kv_valid_len is None:
+            kv_valid_len = orig_skv
+    kv_valid_len = None if kv_valid_len is None else int(kv_valid_len)
+    q_offset = int(q_offset)
+    scale = p.scale if p.scale is not None else d ** -0.5
+    g = hq // hkv
+    nq, nkv = q.shape[1] // bq, k.shape[1] // bkv
+    dev = q.device
+    qb = q.reshape(b, nq, bq, hkv, g, d).float() * scale
+    kb = k.reshape(b, nkv, bkv, hkv, d).float()
+    vb = v.reshape(b, nkv, bkv, hkv, d).float()
+    outs = []
+    for i in range(nq):
+        m = torch.full((b, bq, hkv, g), NEG_INF, device=dev)
+        l = torch.zeros((b, bq, hkv, g), device=dev)
+        acc = torch.zeros((b, bq, hkv, g, d), device=dev)
+        q_pos = q_offset + i * bq + torch.arange(bq, device=dev)[:, None]
+        for j in range(nkv):
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qb[:, i], kb[:, j])
+            s = common.softcap(s, p.softcap)
+            k_pos = j * bkv + torch.arange(bkv, device=dev)[None, :]
+            msk = _mask(q_pos, k_pos, p.causal, p.window, kv_valid_len)
+            s = torch.where(msk[None, :, None, None, :], s, NEG_INF)
+            m_n = torch.maximum(m, s.amax(dim=-1))
+            pr = torch.exp(s - m_n[..., None])
+            alpha = torch.exp(m - m_n)
+            l = l * alpha + pr.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqhgk,bkhd->bqhgd", pr, vb[:, j])
+            m = m_n
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs, dim=1).reshape(b, nq * bq, hq, d)
+    return out[:, :orig_sq].to(q.dtype)
+
+
+def pallas_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
+    """Full-sequence prefill through the ``flash_attention`` kernel (K2),
+    whose causal mask is aligned top-left: no offset, no valid length."""
+    if not (isinstance(q_offset, int) and q_offset == 0
+            and kv_valid_len is None):
+        raise ValueError("the pallas path serves full-block prefill "
+                         "(q_offset 0, no kv_valid_len); decode uses naive")
+    o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=p.causal,
+                             window=p.window, softcap=p.softcap,
+                             scale=p.scale)
+    return o.transpose(1, 2)
+
+
+IMPLS = {
+    "naive": naive_attention,
+    "chunked": chunked_attention,
+    "pallas": pallas_attention,
+}
+
+
+def attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
+    if q.shape[1] == 1:  # decode: one query, naive
+        return naive_attention(q, k, v, p, q_offset, kv_valid_len)
+    return IMPLS[p.impl](q, k, v, p, q_offset, kv_valid_len)

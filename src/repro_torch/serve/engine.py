@@ -1,14 +1,22 @@
-"""Continuous-batching serving engine over a paged KV cache, greedy.
+"""Continuous-batching serving engine over a dense or a paged KV cache,
+greedy.
 
-The port of ``repro.serve.engine.ServeEngine`` with its paged backend:
+The port of ``repro.serve.engine.ServeEngine`` with its two backends:
 slot-based scheduling over a fixed decode batch, each slot one request at
-its own position.  Prefill appends k/v into fixed-size pages in chunks (a
-long prompt never stalls the decode tick), decode runs the
-``paged_attention`` kernel against a device-resident (batch, max_pages)
-table, and finished requests release their pages at once, so admission is
-bounded by live tokens.  Prompts sharing a prefix share read-only pages
-(chain-hashed prefix cache); pool exhaustion is backpressure (requests stay
-queued), never a crash.
+its own position.
+
+- ``paged`` (the default): prefill appends k/v into fixed-size pages in
+  chunks (a long prompt never stalls the decode tick), decode runs the
+  ``paged_attention`` kernel against a device-resident (batch, max_pages)
+  table, and finished requests release their pages at once, so admission
+  is bounded by live tokens.  Prompts sharing a prefix share read-only
+  pages (chain-hashed prefix cache); pool exhaustion is backpressure
+  (requests stay queued), never a crash.
+- ``dense``: the per-slot ``(batch, max_len)`` cache.  A request's whole
+  prompt is prefilled in one step (right-padded to a power-of-two bucket;
+  with ``attn_impl="pallas"`` through the ``flash_attention`` kernel) and
+  its cache is written into the slot's rows; decode attends over the
+  slot's rows up to its position.
 
 ``decode_many(n)`` runs up to n decode ticks as one window: a Python loop
 of device steps with per-slot budgets masked on the device (a masked slot
@@ -17,8 +25,8 @@ tokens and positions staying on the device, and one host sync per window
 when the token block is read back.
 
 Not ported yet: preemption and the host tier, speculative decoding,
-sampling beyond greedy, tensor/data parallelism, the dense backend, ring
-pages for sliding windows, int8 KV.
+sampling beyond greedy, tensor/data parallelism, ring pages for sliding
+windows, int8 KV, CUDA-graph capture of the decode window.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ATTN
 from repro_torch.models.registry import ModelBundle
 from repro_torch.serve.kvcache import (PageAllocator, PoolExhausted,
                                        PrefixIndex, page_hashes)
@@ -55,6 +64,7 @@ class ServeStats:
     tokens_out: int = 0
     decode_dispatches: int = 0       # decode windows (one host sync each)
     prefill_chunks: int = 0          # chunked-prefill steps
+    prefill_retraces: int = 0        # distinct prefill shapes met
     prompt_tokens: int = 0           # prompt tokens admitted
     prefix_hit_tokens: int = 0       # prompt tokens served from shared pages
     pages_peak: int = 0              # peak pages_in_use over the run
@@ -62,21 +72,27 @@ class ServeStats:
 
 
 class ServeEngine:
-    """Continuous-batching engine over the paged KV cache, greedy.
+    """Continuous-batching engine over a dense or paged KV cache, greedy.
 
     ``window`` is the decode window: ``run_to_completion`` advances every
-    active slot up to ``window`` tokens per host sync.  Prefill chunks pad
-    to the next power of two (right padding is masked in a full-attention
-    stack).  ``page_size=None`` derives the page from
-    the pool's dtype and head width (:func:`repro_torch.tune.
-    derive_paged_plan`); ``num_pages=None`` sizes the pool at the dense
-    footprint plus the reserved null page — shrink it to admit by live
-    tokens and exercise backpressure.  ``prefill_chunk`` caps prompt tokens
-    per prefill step.  ``device`` is ``cuda`` unless named; it must be the
-    bundle's device."""
+    active slot up to ``window`` tokens per host sync.  ``bucket_prompts``
+    pads dense prompts / paged prefill chunks to the next power of two
+    (default: on for full-attention stacks, where right padding is masked;
+    every stack the port accepts is one).  ``cache_backend`` is
+    ``"dense"``, ``"paged"``, or ``None`` (paged wherever
+    :meth:`ModelBundle.paged_supported` allows).
+
+    Paged knobs: ``page_size=None`` derives the page from the pool's dtype
+    and head width (:func:`repro_torch.tune.derive_paged_plan`);
+    ``num_pages=None`` sizes the pool at the dense footprint plus the
+    reserved null page — shrink it to admit by live tokens and exercise
+    backpressure.  ``prefill_chunk`` caps prompt tokens per prefill step.
+    ``device`` is ``cuda`` unless named; it must be the bundle's device."""
 
     def __init__(self, bundle: ModelBundle, params, batch_size: int,
                  max_len: int, *, window: int = 8,
+                 bucket_prompts: Optional[bool] = None,
+                 cache_backend: Optional[str] = None,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  prefill_chunk: int = 32,
@@ -85,19 +101,34 @@ class ServeEngine:
         if bundle.device != self.device:
             raise ValueError(f"the bundle runs on {bundle.device}, the "
                              f"engine on {self.device}")
+        if cache_backend is None:
+            cache_backend = "paged" if bundle.paged_supported() else "dense"
+        elif cache_backend not in ("dense", "paged"):
+            raise ValueError(f"unknown cache_backend {cache_backend!r}")
+        elif cache_backend == "paged" and not bundle.paged_supported():
+            raise ValueError(f"{bundle.cfg.name}: the paged KV backend does "
+                             "not serve this stack")
+        self.backend = cache_backend
         self.bundle = bundle
         self.params = params
         self.bsz = batch_size
         self.max_len = max_len
         self.window = max(1, window)
         cfg = bundle.cfg
-        self.plan = derive_paged_plan(max_len=max_len,
-                                      head_dim=cfg.resolved_head_dim,
-                                      dtype=cfg.compute_dtype)
-        self.page = int(page_size or self.plan.page_size)
-        self.pages_per_seq = -(-max_len // self.page)
-        self.num_pages = int(num_pages or 1 + batch_size * self.pages_per_seq)
-        self.prefill_chunk = max(8, prefill_chunk)
+        self.bucket_prompts = (self._bucketable(cfg) if bucket_prompts is None
+                               else bucket_prompts)
+        if self.backend == "paged":
+            self.plan = derive_paged_plan(max_len=max_len,
+                                          head_dim=cfg.resolved_head_dim,
+                                          dtype=cfg.compute_dtype)
+            self.page = int(page_size or self.plan.page_size)
+            self.pages_per_seq = -(-max_len // self.page)
+            self.num_pages = int(num_pages
+                                 or 1 + batch_size * self.pages_per_seq)
+            self.prefill_chunk = max(8, prefill_chunk)
+        # prefill shapes met so far (dense prompt buckets, paged chunk
+        # buckets); survives reset(), as the reference's compiled shapes do
+        self._seen_prefill_shapes: set = set()
         self._init_state()
 
     def _init_state(self) -> None:
@@ -108,24 +139,47 @@ class ServeEngine:
         self.slots: List[Optional[Request]] = [None] * self.bsz
         self.queue: List[Request] = []
         self.stats = ServeStats()
+        self._pending: Dict[int, int] = {}   # slot -> next prefill offset
+        if self.backend == "dense":
+            self.cache = self.bundle.init_cache(self.bsz, self.max_len)
+            return
         self.alloc = PageAllocator(self.num_pages, self.page, reserved=1)
         self.prefix = PrefixIndex()
         self.cache = self.bundle.init_paged_cache(self.num_pages, self.page)
         self._htable = np.zeros((self.bsz, self.pages_per_seq), np.int32)
         self._sync_table()
-        self._pending: Dict[int, int] = {}       # slot -> next prefill offset
         self._hashes: Dict[int, List[str]] = {}  # rid -> full-page hashes
 
     def reset(self) -> None:
         """Clear all serving state: cache, pool, prefix index, slots, queue
         and stats (benchmarks drain once to warm up, reset, then time a
-        steady-state drain)."""
+        steady-state drain).  The prefill shapes already met stay met, so
+        a warm drain counts only new ones."""
         self._init_state()
 
     def _sync_table(self) -> None:
         """Publish the host table mirror as the device table."""
         self._table = torch.as_tensor(self._htable).to(self.device)
         self._table_dirty = False
+
+    @staticmethod
+    def _bucketable(cfg) -> bool:
+        """Right padding is mask-safe only when every mixer is full causal
+        attention: a windowed ring would evict real tokens for pad, and a
+        recurrent state would absorb the pad tokens."""
+        if cfg.enc_dec or cfg.frontend:
+            return False
+        specs = tuple(cfg.layer_pattern) + tuple(cfg.remainder_specs)
+        return all(s.mixer == ATTN and s.sliding_window is None
+                   for s in specs)
+
+    def kv_bytes(self) -> int:
+        """Allocated device bytes of the KV cache (both backends)."""
+        def leaves(tree):
+            for v in tree.values():
+                yield from (leaves(v) if isinstance(v, dict) else (v,))
+        return int(sum(t.numel() * t.element_size()
+                       for t in leaves(self.cache)))
 
     # ------------------------------------------------------------------
     def add_request(self, req: Request) -> None:
@@ -142,7 +196,58 @@ class ServeEngine:
                                     self.alloc.pages_in_use)
 
     # ------------------------------------------------------------------
-    # admission + chunked prefill
+    # dense prefill (whole prompt, one step)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _scatter_slot_cache(cache, cache1, slot: int):
+        """Write a single-request prefill cache into the batch cache at
+        ``slot``, in place.  Stacked leaves (under ``blocks``) carry batch
+        at axis 1, remainder leaves at axis 0; a prompt shorter than
+        ``max_len`` leaves zeros after it (masked by the decode step's
+        valid length).  Returns the batch cache."""
+        for part, lead in (("blocks", (slice(None),)), ("rem", ())):
+            for name, layer in cache[part].items():
+                for n, tgt in layer.items():
+                    upd = cache1[part][name][n][lead + (0,)]
+                    row = tgt[lead + (slot,)]
+                    s = upd.shape[len(lead)]
+                    row[lead + (slice(0, s),)] = upd.to(tgt.dtype)
+                    row[lead + (slice(s, None),)] = 0
+        return cache
+
+    def _prefill_into_slot(self, slot: int, req: Request) -> None:
+        """Prefill a request's whole prompt in one step (right-padded to a
+        power-of-two bucket of at least 8, at most ``max_len``), write its
+        cache into the slot's rows and seed decoding from its last
+        logits."""
+        prompt = req.prompt
+        s = int(prompt.shape[0])
+        if s > self.max_len:
+            raise ValueError(f"prompt ({s}) exceeds max_len ({self.max_len})")
+        width = (min(next_pow2(max(8, s)), self.max_len)
+                 if self.bucket_prompts else s)
+        if width not in self._seen_prefill_shapes:
+            self._seen_prefill_shapes.add(width)
+            self.stats.prefill_retraces += 1
+        padded = np.zeros((1, width), np.int64)
+        padded[0, :s] = prompt
+        dev = self.device
+        cache1, logits = self.bundle.prefill(
+            self.params, dict(tokens=torch.as_tensor(padded).to(dev),
+                              valid_len=s))
+        self.cache = self._scatter_slot_cache(self.cache, cache1, slot)
+        self.slots[slot] = req
+        self.pos[slot] = s
+        self._hpos[slot] = s
+        tok0 = int(select_greedy(logits)[0])
+        req.out_tokens.append(tok0)
+        self.stats.prompt_tokens += s
+        self.stats.tokens_out += 1
+        self.tokens[slot, 0] = tok0
+        self.stats.prefills += 1
+
+    # ------------------------------------------------------------------
+    # paged admission + chunked prefill
     # ------------------------------------------------------------------
     def _paged_admit_slot(self, slot: int, req: Request) -> None:
         """Attach the cached prompt prefix (shared read-only pages), then
@@ -196,7 +301,11 @@ class ServeEngine:
         s = int(prompt.shape[0])
         off = self._pending[slot]
         c = min(self.prefill_chunk, s - off)
-        cb = min(next_pow2(max(8, c)), self.prefill_chunk)
+        cb = (min(next_pow2(max(8, c)), self.prefill_chunk)
+              if self.bucket_prompts else c)
+        if ("chunk", cb) not in self._seen_prefill_shapes:
+            self._seen_prefill_shapes.add(("chunk", cb))
+            self.stats.prefill_retraces += 1
         chunk = np.zeros((1, cb), np.int64)
         chunk[0, :c] = prompt[off:off + c]
         row = self.alloc.tables[req.rid]
@@ -231,12 +340,16 @@ class ServeEngine:
         self.stats.prefills += 1
 
     def _admit(self) -> None:
-        """FIFO admission into free slots (backpressure on a full pool),
-        then one prefill chunk for every pending slot, lowest slot first."""
+        """FIFO admission into free slots.  Dense: each admitted prompt is
+        prefilled at once.  Paged: backpressure on a full pool, then one
+        prefill chunk for every pending slot, lowest slot first."""
         while self.queue:
             slot = self._free_slot()
             if slot is None:
                 break
+            if self.backend == "dense":
+                self._prefill_into_slot(slot, self.queue.pop(0))
+                continue
             try:
                 self._paged_admit_slot(slot, self.queue[0])
             except PoolExhausted:
@@ -297,14 +410,19 @@ class ServeEngine:
         """n decode ticks on the device.  ``steps`` (B,) caps each slot:
         past its budget a slot is masked — its token and position freeze,
         and its cache write re-stores the same k/v at the frozen position
-        (or lands on the null page for a retired row).  Returns the (n, B)
-        token block, -1 where masked."""
+        (or, paged, lands on the null page for a retired row).  Returns the
+        (n, B) token block, -1 where masked."""
         out = torch.full((n, self.bsz), -1, dtype=torch.int64,
                          device=self.device)
         for i in range(n):
             act = steps > i
-            logits, self.cache = self.bundle.paged_decode_step(
-                self.params, self.cache, self.tokens, self.pos, self._table)
+            if self.backend == "dense":
+                logits, self.cache = self.bundle.decode_step(
+                    self.params, self.cache, self.tokens, self.pos)
+            else:
+                logits, self.cache = self.bundle.paged_decode_step(
+                    self.params, self.cache, self.tokens, self.pos,
+                    self._table)
             nxt = select_greedy(logits)
             self.tokens = torch.where(act[:, None], nxt[:, None], self.tokens)
             self.pos = torch.where(act, self.pos + 1, self.pos)
@@ -316,7 +434,9 @@ class ServeEngine:
         masked on the device), then read the token block back with a single
         host sync.  Returns the number of tokens produced."""
         budgets = self._budgets(n)
-        blocked = self._reserve_window_pages(budgets)
+        blocked = (self._reserve_window_pages(budgets)
+                   if self.backend == "paged"
+                   else np.zeros((self.bsz,), bool))
         retired = 0
         for i, req in enumerate(self.slots):
             if req is None or budgets[i] != 0 or blocked[i] \
@@ -341,7 +461,7 @@ class ServeEngine:
                     free_pages=len(self.alloc.free))
             return 0
         n_run = min(n, next_pow2(top))
-        if self._table_dirty:
+        if self.backend == "paged" and self._table_dirty:
             self._sync_table()
         steps = torch.as_tensor(np.minimum(budgets, n_run).astype(np.int32)
                                 ).to(self.device)
@@ -364,11 +484,13 @@ class ServeEngine:
         return produced
 
     def _release_finished(self, i: int) -> None:
-        """Retire slot ``i``: its pages go back to the pool at once
+        """Retire slot ``i``.  Paged: its pages go back to the pool at once
         (prefix-pinned ones persist for future hits) and its table row
         reverts to the null page so masked writes stay harmless."""
         req = self.slots[i]
         self.slots[i] = None
+        if self.backend == "dense":
+            return
         self.alloc.release(req.rid)
         self._hashes.pop(req.rid, None)
         self._htable[i, :] = 0

@@ -80,6 +80,16 @@ def test_launcher_serves_on_an_explicit_cpu(capsys):
     assert "12 tokens" in out and "on cpu" in out
 
 
+def test_launcher_serves_a_dense_cache_on_an_explicit_cpu(capsys):
+    assert launch_serve.main(["--arch", "phi4-mini-3.8b", "--smoke",
+                              "--cache", "dense", "--device", "cpu",
+                              "--requests", "3", "--batch", "2",
+                              "--max-new", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "12 tokens" in out and "on cpu" in out and "dense cache" in out
+    assert "prefill_chunks=0" in out
+
+
 def test_engine_refuses_a_bundle_on_another_device():
     cfg = smoke_config(ARCHS["gemma-2b"])
     bundle = build(cfg, device="cpu")

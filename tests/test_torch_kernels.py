@@ -1,4 +1,4 @@
-"""The port's paged_attention against the reference's.
+"""The port's kernels' plain versions against the reference's kernels.
 
 On the CPU the port runs the plain PyTorch version
 (``repro_torch.kernels.ref``); it is held against the reference's Pallas
@@ -10,6 +10,13 @@ rounded to bfloat16 identically on both sides; the outputs differ by
 where each side rounds).  The CUDA kernel itself runs only on a card:
 ``test_torch_cuda.py`` holds it against the plain version there, on the
 same cases.
+
+``flash_attention`` (K2) likewise: the port's plain version against the
+reference's Pallas kernel in interpret mode, with the reference's blocks at
+16 or 32, at 2e-4 in float32 and 3e-2 in bfloat16 (the tolerances of
+``tests/test_kernels.py``'s flash tests).  Every row of these cases sees a
+key: where none does, the port returns 0 and the Pallas kernel a value
+that depends on its block padding, so such rows are not compared.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,10 +25,12 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
-from test_torch_cuda import CASES, TOL, make_inputs
+from test_torch_cuda import (CASES, FLASH_CASES, FLASH_TOL, TOL,
+                             make_flash_inputs, make_inputs)
 
 
 def _run_both(case, dtype):
@@ -116,3 +125,57 @@ def test_plain_decode_attention_matches_reference_oracle(dtype, softcap):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
                                atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (K2)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_plain_flash_attention_matches_reference_kernel(case, dtype):
+    name, b, hq, hkv, sq, skv, d, block, kw = case
+    arrays = make_flash_inputs(0, b, hq, hkv, sq, skv, d)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = jops.flash_attention(*(jnp.asarray(a, jdt) for a in arrays),
+                                bq=block, bkv=block, interpret=True, **kw)
+    got = tops.flash_attention(*(torch.from_numpy(a).to(tdt)
+                                 for a in arrays), **kw)
+    assert got.dtype == tdt and got.shape == (b, hq, sq, d)
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def test_plain_flash_attention_matches_oracle_at_equal_lengths():
+    """At Sq == Skv the two causal alignments agree: the reference's oracle
+    (bottom-right) and the kernel's semantics (top-left)."""
+    arrays = make_flash_inputs(1, 2, 4, 2, 40, 40, 16)
+    for kw in (dict(), dict(window=7), dict(softcap=5.0)):
+        want = jref.attention(*(jnp.asarray(a) for a in arrays), **kw)
+        got = tref.flash_attention(*(torch.from_numpy(a) for a in arrays),
+                                   **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_plain_flash_attention_rows_without_a_key_are_zero():
+    q, k, v = (torch.from_numpy(a)
+               for a in make_flash_inputs(2, 1, 4, 2, 20, 8, 16))
+    out = tref.flash_attention(q, k, v, window=4)
+    # causal + window 4 over 8 keys: rows 11.. see none
+    assert torch.count_nonzero(out[:, :, 11:]) == 0
+    assert bool((out[:, :, :11].abs().sum(-1) > 0).all())
+
+
+def test_cpu_flash_dispatch_takes_the_plain_path_and_kernel_refuses_cpu():
+    q, k, v = (torch.from_numpy(a)
+               for a in make_flash_inputs(3, 1, 4, 1, 9, 9, 64))
+    before = tfa.LAUNCHES
+    out = tops.flash_attention(q, k, v, softcap=3.0)
+    assert tfa.LAUNCHES == before
+    torch.testing.assert_close(out, tref.flash_attention(q, k, v, softcap=3.0),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q, k, v)

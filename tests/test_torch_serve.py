@@ -1,12 +1,18 @@
-"""The port's paged ServeEngine against the reference's, on the CPU.
+"""The port's ServeEngine against the reference's, on the CPU.
 
-Both engines serve the same bridged weights (gemma-2b's smoke config in
-float32) and the same request mixes, greedy.  The drains must be token for
-token identical, with the same scheduling counters: prefix hits, prefill
-chunks and decode windows.  The port's page size is pinned to the one the
-reference engine derived.  After every drain the port's allocator must
-conserve pages: every page is free or referenced, and what stays
+Paged: both engines serve the same bridged weights (gemma-2b's smoke
+config in float32) and the same request mixes, greedy.  The drains must be
+token for token identical, with the same scheduling counters: prefix hits,
+prefill chunks and decode windows.  The port's page size is pinned to the
+one the reference engine derived.  After every drain the port's allocator
+must conserve pages: every page is free or referenced, and what stays
 referenced is exactly the prefix cache's pins.
+
+Dense: phi4-mini's smoke config through both engines with
+``cache_backend="dense"``, prefill attention ``chunked`` and ``pallas``
+(blocks pinned at 16 on both sides), on mixes that queue, vary the prompt
+length across buckets up to ``max_len``, and meet budgets of 1 by prefill
+alone; tokens and counters (prefills and prefill shapes included) equal.
 """
 import jax
 import numpy as np
@@ -14,12 +20,14 @@ import pytest
 
 from repro.configs import ARCHS as J_ARCHS
 from repro.configs import smoke_config as j_smoke
+from repro.models import RuntimeFlags as JRuntimeFlags
 from repro.models import build as j_build
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import ARCHS as T_ARCHS
 from repro_torch.configs import smoke_config as t_smoke
+from repro_torch.models import RuntimeFlags as TRuntimeFlags
 from repro_torch.models import build as t_build
 from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TServeEngine
@@ -125,7 +133,7 @@ def test_greedy_drain_matches_reference(name):
     assert [len(t) for t in got] == budgets
     for field in ("prefix_hit_tokens", "prefill_chunks", "decode_dispatches",
                   "decode_steps", "tokens_out", "prefills", "pool_stalls",
-                  "pages_peak"):
+                  "pages_peak", "prefill_retraces"):
         assert getattr(teng.stats, field) == getattr(jeng.stats, field), field
     # the port leaves preemption out: the reference must not have used it
     assert jeng.stats.preemptions == 0
@@ -175,3 +183,92 @@ def test_page_rule_matches_reference(max_len, head_dim, dtype):
         want.kernel, want.bq, want.dtype, want.head_dim)
     if (max_len, head_dim, dtype) == (1024, 256, "bfloat16"):
         assert got.page_size == 8     # gemma-2b's pages on the card
+
+
+# ---------------------------------------------------------------------------
+# dense backend
+# ---------------------------------------------------------------------------
+
+_DENSE = {}
+
+
+def _dense_engines(impl):
+    """(reference engine, port engine), dense, phi4-mini smoke in float32;
+    cached per prefill attention impl, reset before each drain."""
+    if impl not in _DENSE:
+        jcfg = j_smoke(J_ARCHS["phi4-mini-3.8b"])
+        tcfg = t_smoke(T_ARCHS["phi4-mini-3.8b"])
+        jb = j_build(jcfg, JRuntimeFlags(attn_impl=impl, attn_bq=16,
+                                         attn_bkv=16))
+        jparams = jb.init(jax.random.PRNGKey(1))
+        tb = t_build(tcfg, TRuntimeFlags(attn_impl=impl, attn_bq=16,
+                                         attn_bkv=16), device="cpu")
+        tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg,
+                                    "cpu")
+        _DENSE[impl] = (
+            JServeEngine(jb, jparams, batch_size=BATCH, max_len=MAX_LEN,
+                         cache_backend="dense"),
+            TServeEngine(tb, tparams, BATCH, MAX_LEN, cache_backend="dense",
+                         device="cpu"))
+    return _DENSE[impl]
+
+
+def _dense_mix(name):
+    """waves = ([(prompt, max_new)], later wave)."""
+    if name == "queueing":        # five requests through two slots
+        ps = _prompts(6, [3, 13, 21, 9, 30])
+        return [(p, n) for p, n in zip(ps, [5, 3, 7, 4, 6])], []
+    if name == "varied-lengths":  # buckets 8, 8, 16, 64 and 64 = max_len
+        ps = _prompts(7, [1, 8, 9, 33, 57])
+        return ([(p, n) for p, n in zip(ps[:3], [4, 6, 3])],
+                [(p, n) for p, n in zip(ps[3:], [5, 9])])
+    if name == "budget-1":        # prefill alone meets every budget
+        ps = _prompts(8, [5, 17, 8])
+        return [(p, 1) for p in ps], [(ps[0][:4], 1)]
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "pallas"])
+@pytest.mark.parametrize("name", ["queueing", "varied-lengths", "budget-1"])
+def test_dense_greedy_drain_matches_reference(name, impl):
+    waves = _dense_mix(name)
+    jeng, teng = _dense_engines(impl)
+    assert teng.backend == jeng.backend == "dense"
+    jeng._seen_prefill_shapes.clear()   # count every bucket in both drains
+    teng._seen_prefill_shapes.clear()
+    want = _drive(jeng, JRequest, waves)
+    got = _drive(teng, TRequest, waves)
+    assert got == want
+    # the cache-length guard stops a request at max_len - 1 positions
+    assert [len(t) for t in got] == [min(n, MAX_LEN - len(p))
+                                     for wave in waves for p, n in wave]
+    for field in ("prefills", "prefill_retraces", "decode_dispatches",
+                  "decode_steps", "tokens_out", "prompt_tokens"):
+        assert getattr(teng.stats, field) == getattr(jeng.stats, field), field
+    assert teng.stats.prefill_chunks == 0 and teng.stats.pages_peak == 0
+    assert teng.kv_bytes() == jeng.kv_bytes()
+
+
+def test_dense_drain_without_buckets_matches_reference():
+    """bucket_prompts=False prefills each prompt at its own length: one
+    prefill shape per distinct length, in both engines."""
+    waves = _dense_mix("queueing")
+    jb_eng, tb_eng = _dense_engines("chunked")
+    jeng = JServeEngine(jb_eng.bundle, jb_eng.params, batch_size=BATCH,
+                        max_len=MAX_LEN, cache_backend="dense",
+                        bucket_prompts=False)
+    teng = TServeEngine(tb_eng.bundle, tb_eng.params, BATCH, MAX_LEN,
+                        cache_backend="dense", bucket_prompts=False,
+                        device="cpu")
+    want = _drive(jeng, JRequest, waves)
+    assert _drive(teng, TRequest, waves) == want
+    lengths = {len(p) for wave in waves for p, _ in wave}
+    assert teng.stats.prefill_retraces == jeng.stats.prefill_retraces \
+        == len(lengths)
+
+
+def test_dense_engine_refuses_an_unknown_backend():
+    _, teng = _dense_engines("chunked")
+    with pytest.raises(ValueError, match="cache_backend"):
+        TServeEngine(teng.bundle, teng.params, BATCH, MAX_LEN,
+                     cache_backend="ring", device="cpu")

@@ -38,7 +38,25 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    layer;
 10. dense parity: a full-width 2-layer float32 phi4-mini drains the parity
    requests densely on the card (K2) and on the CPU (plain path); the
-   tokens must agree.
+   tokens must agree;
+11. K4-K7 (``stream_copy``, ``strided_copy``, ``random_gather``,
+   ``pointer_chase``) against their plain versions on the card, exactly
+   (they copy): K4 in float32, bfloat16 and int8, copy and x2, several
+   tiles; K5 at strides coprime and not coprime with the block count; K6
+   with repeated LFSR indices, units of 2 B to 4 KiB and block_rows 4; K7
+   on chains sized for L1 (16 KiB), L2 (16 MiB) and HBM (256 MiB), one
+   chain and 64;
+12. K4-K7 time at the memory sweeps' card-scale shapes (1 GiB working
+   sets), each also checked exactly there, beside the plain version, one
+   PyTorch call where one computes the same function, and the bound; K7
+   as ns per hop in L1, L2 and HBM;
+13. memory: the seven ported sweeps (latency, outstanding, unit_size,
+   stride, burst, num_kernels, random) at card scale through
+   ``repro_torch.bench.run_sweeps``, every row printed.  The pointer chase
+   must be the slowest random-access row, no row may read above 105% of
+   3.35 TB/s, and each of K4-K7 must have launched;
+14. calibrate: the memory model's latency and bandwidth fitted to those
+   rows, beside the spec's.
 
 It ends with the kernels' JSON line, the card line and the result line.
 Any failure exits non-zero before the result line; so does a host without
@@ -46,6 +64,7 @@ a card, or a directory without the package.
 """
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -667,6 +686,278 @@ def dense_parity_phase(torch, np):
 
 
 # ---------------------------------------------------------------------------
+# K4-K7: the memory engines
+# ---------------------------------------------------------------------------
+
+MEMORY_SWEEPS = ("latency", "outstanding", "unit_size", "stride", "burst",
+                 "num_kernels", "random")
+PEAK_SHARE_LIMIT = 1.05            # no row may read above 105% of 3.35 TB/s
+
+
+def exact(torch, tag, desc, got, want):
+    """Copies: the kernel must equal its plain version bit for bit."""
+    torch.cuda.synchronize()
+    same = (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(got, want))
+    err = (float((got.float() - want.float()).abs().max())
+           if got.shape == want.shape and got.numel() else 0.0)
+    print(f"[{tag}] {desc} max_abs_err={err:.3e} exact={same}", flush=True)
+    check(same, f"{tag} {desc}: the kernel differs from its plain version")
+    return err
+
+
+def k4_check(torch, ops, ref):
+    gen = torch.Generator().manual_seed(4)
+    dev = torch.device("cuda")
+    worst = 0.0
+    tiles = [((128, 128), 8, 0), ((256, 512), 64, 0), ((64, 384), 8, 128),
+             ((96, 7), 32, 0), ((4096, 1024), 256, 0)]
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for shape, br, bc in tiles:
+            if dtype == torch.int8:
+                x = torch.randint(-128, 128, shape, generator=gen,
+                                  dtype=torch.int8).to(dev)
+            else:
+                x = (torch.randn(shape, generator=gen) * 40).to(dev, dtype)
+            for mode in ("copy", "rw"):
+                worst = max(worst, exact(
+                    torch, "K4", f"dtype={str(dtype)[6:]} shape={shape} "
+                    f"tile=({br},{bc}) mode={mode}",
+                    ops.stream_copy(x, block_rows=br, block_cols=bc,
+                                    mode=mode), ref.stream_copy(x, mode)))
+    return worst
+
+
+def k5_check(torch, ops, ref):
+    gen = torch.Generator().manual_seed(5)
+    dev = torch.device("cuda")
+    worst = 0.0
+    cases = [(torch.float32, (256, 64), br, s) for br in (4, 16)
+             for s in (1, 2, 3, 7, 15, 64)]       # 64 and 16 blocks
+    cases += [(torch.bfloat16, (96, 40), 8, 5), (torch.int8, (60, 3), 1, 6)]
+    for dtype, shape, br, stride in cases:
+        x = torch.randn(shape, generator=gen).mul(40).clamp(-127, 127)
+        x = x.to(dev, dtype)
+        nblocks = shape[0] // br
+        worst = max(worst, exact(
+            torch, "K5", f"dtype={str(dtype)[6:]} shape={shape} "
+            f"block_rows={br} nblocks={nblocks} stride={stride} "
+            f"coprime={math.gcd(stride, nblocks) == 1}",
+            ops.strided_copy(x, block_rows=br, stride=stride),
+            ref.strided_copy(x, block_rows=br, stride=stride)))
+    return worst
+
+
+def k6_check(torch, ops, ref):
+    gen = torch.Generator().manual_seed(6)
+    dev = torch.device("cuda")
+    worst = 0.0
+    # 1000 LFSR indices over 512 rows: duplicates by construction
+    idx = ops.lfsr_indices(1000, bits=16, device=dev) % 512
+    check(torch.unique(idx).numel() < idx.numel(), "K6 indices repeat")
+    for dtype, cols, br in ((torch.float32, 1, 1), (torch.float32, 16, 1),
+                            (torch.float32, 1024, 1), (torch.float32, 16, 4),
+                            (torch.bfloat16, 1, 1), (torch.int8, 3, 1),
+                            (torch.int8, 3, 4)):
+        x = torch.randn((512, cols), generator=gen).mul(40).clamp(-127, 127)
+        x = x.to(dev, dtype)
+        i = idx % (512 // br)
+        worst = max(worst, exact(
+            torch, "K6", f"dtype={str(dtype)[6:]} rows=512 unit_bytes="
+            f"{br * cols * x.element_size()} block_rows={br} "
+            f"indices={i.numel()} distinct={torch.unique(i).numel()}",
+            ops.random_gather(x, i, block_rows=br),
+            ref.random_gather(x, i, block_rows=br)))
+    return worst
+
+
+K7_LEVELS = (("L1", 1 << 12), ("L2", 1 << 22), ("HBM", 1 << 26))
+
+
+def k7_check(torch, ops, ref, pc):
+    dev = torch.device("cuda")
+    worst = 0.0
+    for level, n in K7_LEVELS:
+        table, builder = pc.chain(n, 7, dev)
+        worst = max(worst, exact(
+            torch, "K7", f"level={level} n={n} table_bytes={4 * n} "
+            f"chains=1 steps=8192 chain={builder}",
+            ops.pointer_chase(table, steps=8192),
+            ref.pointer_chase(table, 8192)))
+        del table
+    for level, n in ((lvl, n >> 6) for lvl, n in K7_LEVELS):
+        tables = torch.stack([pc.make_chain_randperm(n, c, dev)
+                              for c in range(64)])
+        worst = max(worst, exact(
+            torch, "K7", f"level={level} n={n} per chain, 64 chains "
+            f"({4 * 64 * n} bytes) steps=1024",
+            ops.pointer_chase(tables, steps=1024),
+            ref.pointer_chase(tables, 1024)))
+        del tables
+    return worst
+
+
+def best_ms(torch, engines, fn, *args, trials=5, flush=True):
+    """Best CUDA-event time of ``trials`` calls after one warm-up, the L2
+    flushed before each call unless ``flush`` is False."""
+    return 1e3 * min(engines.trial_walls(
+        fn, *args, device=torch.device("cuda"), trials=trials, flush=flush))
+
+
+def bound(moved):
+    return 1e3 * moved / HBM_BYTES_PER_S
+
+
+def k4_time(torch, ops, ref, engines, card):
+    x = torch.randn((1 << 18, 1024), device="cuda")
+    exact(torch, "K4", "dtype=float32 shape=(262144, 1024) tile=(256,1024) "
+          "mode=copy (timed shape)", ops.stream_copy(x), ref.stream_copy(x))
+    out = torch.empty_like(x)
+    ms = best_ms(torch, engines, lambda a: ops.stream_copy(a), x)
+    plain_ms = best_ms(torch, engines, lambda a: ref.stream_copy(a), x)
+    library_ms = best_ms(torch, engines, lambda a: out.copy_(a), x)
+    moved = 2 * x.numel() * 4
+    t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+             bound_ms=bound(moved), bound_by="bytes")
+    print(f"[K4 time] shape=262144x1024 float32 copy tile=256 rows (1 MiB) "
+          f"card='{card}' ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (Tensor.copy_) "
+          f"bound_ms={t['bound_ms']:.4f} bound_by=bytes "
+          f"achieved_GBps={moved / ms / 1e6:.1f}", flush=True)
+    return t
+
+
+def k5_time(torch, ops, ref, engines, card):
+    nblocks, br, cols, stride = (1 << 15) + 1, 8, 1024, 4
+    x = torch.randn((nblocks * br, cols), device="cuda")
+    exact(torch, "K5", f"dtype=float32 shape=({nblocks * br}, {cols}) "
+          f"block_rows={br} stride={stride} (timed shape)",
+          ops.strided_copy(x, block_rows=br, stride=stride),
+          ref.strided_copy(x, block_rows=br, stride=stride))
+    xf = x.reshape(nblocks, br * cols)
+    src = (torch.arange(nblocks, device="cuda") * stride) % nblocks
+    ms = best_ms(torch, engines, lambda a: ops.strided_copy(
+        a, block_rows=br, stride=stride), x)
+    plain_ms = best_ms(torch, engines, lambda a: ref.strided_copy(
+        a, block_rows=br, stride=stride), x)
+    library_ms = best_ms(torch, engines, lambda a: a.index_select(0, src), xf)
+    moved = 2 * x.numel() * 4
+    t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+             bound_ms=bound(moved), bound_by="bytes")
+    print(f"[K5 time] shape={nblocks * br}x{cols} float32 block_rows={br} "
+          f"stride={stride} card='{card}' ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"(index_select on the block view) bound_ms={t['bound_ms']:.4f} "
+          f"bound_by=bytes achieved_GBps={moved / ms / 1e6:.1f}", flush=True)
+    return t
+
+
+def k6_time(torch, ops, ref, engines, card):
+    rows, cols, n_idx = 1 << 24, 16, 1 << 20
+    x = torch.randn((rows, cols), device="cuda")
+    idx = ops.lfsr_indices(n_idx, bits=24, device="cuda") % rows
+    exact(torch, "K6", f"dtype=float32 rows={rows} unit_bytes=64 "
+          f"indices={n_idx} (timed shape)", ops.random_gather(x, idx),
+          ref.random_gather(x, idx))
+    ms = best_ms(torch, engines, lambda a, i: ops.random_gather(a, i), x, idx)
+    plain_ms = best_ms(torch, engines, lambda a, i: ref.random_gather(a, i),
+                       x, idx)
+    library_ms = best_ms(torch, engines, lambda a, i: a.index_select(0, i),
+                         x, idx)
+    unit = cols * 4
+    # each index: its 4 bytes, the unit read in whole 32-byte sectors, the
+    # unit written
+    moved = n_idx * (4 + max(unit, 32) + unit)
+    t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+             bound_ms=bound(moved), bound_by="bytes")
+    print(f"[K6 time] table={rows}x{cols} float32 (1 GiB) unit_bytes={unit} "
+          f"indices={n_idx} (24-bit LFSR) card='{card}' ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"(index_select) bound_ms={t['bound_ms']:.4f} bound_by=bytes "
+          f"useful_GBps={2 * n_idx * unit / ms / 1e6:.1f}", flush=True)
+    return t
+
+
+def k7_time(torch, ops, ref, pc, engines, card):
+    steps = 1 << 13
+    levels = {}
+    for level, n in K7_LEVELS:
+        table, builder = pc.chain(n, 0, "cuda")
+        hbm = level == "HBM"
+        # L1 and L2: the warm-up leaves the chain's lines in the cache; HBM:
+        # the L2 is flushed before each call
+        levels[level] = best_ms(torch, engines, lambda t: ops.pointer_chase(
+            t, steps=steps), table, flush=hbm)
+        if hbm:
+            plain_ms = best_ms(torch, engines, lambda t: ref.pointer_chase(
+                t, steps), table, trials=2)
+        del table
+    ms = levels["HBM"]
+    # steps x (one 32-byte sector read + 4 bytes of trace written): not
+    # what bounds a chain of dependent loads, which is latency
+    t = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+             bound_ms=bound(steps * (32 + 4)), bound_by="bytes")
+    ns = " ".join(f"ns_per_hop_{lvl}={levels[lvl] * 1e6 / steps:.1f}"
+                  for lvl, _ in K7_LEVELS)
+    print(f"[K7 time] steps={steps} chains=1 levels=L1 16 KiB, L2 16 MiB, "
+          f"HBM 256 MiB card='{card}' {ns} ms={ms:.4f} (HBM) "
+          f"plain_ms={plain_ms:.4f} library_ms=null (no single torch call "
+          f"chases pointers) bound_ms={t['bound_ms']:.6f} bound_by=bytes "
+          f"(not meaningful: latency-bound by construction)", flush=True)
+    return t
+
+
+def memory_phase(torch, card, mods):
+    """The seven ported sweeps at card scale: the memory engines' main
+    path.  Returns the run and K4-K7's launches in it."""
+    from repro_torch.bench import run_sweeps
+    for m in mods.values():
+        m.reset_launches()
+    t0 = time.perf_counter()
+    run = run_sweeps(names=MEMORY_SWEEPS, device="cuda", out_dir=None)
+    seconds = time.perf_counter() - t0
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    check(not run.failures, f"memory sweeps failed: {run.failures}")
+    rows = {r.name: r for r in run.results}
+    rnd = [r for r in run.results if r.sweep == "random"]
+    slowest = min(rnd, key=lambda r: r.gbps_measured)
+    check(slowest.name == "random_pointer_chase",
+          f"the chase is not the slowest random row: {slowest.name}")
+    limit = PEAK_SHARE_LIMIT * HBM_BYTES_PER_S / 1e9
+    over = [(r.name, r.gbps_measured) for r in run.results
+            if r.gbps_measured > limit]
+    check(not over, f"rows above {limit:.0f} GB/s: {over}")
+    for name, n in launches.items():
+        check(n > 0, f"the memory path never launched {name}")
+    hops = sorted(float(r.extras["ns_per_hop"]) for r in run.results
+                  if r.name.startswith("latency_region_"))
+    print(f"[memory] card='{card}' sweeps={','.join(MEMORY_SWEEPS)} "
+          f"rows={len(run.results)} seconds={seconds:.2f} "
+          f"seq_GBps={rows['seq'].gbps_measured:.1f} "
+          f"random_lfsr_GBps={rows['random_lfsr'].gbps_measured:.1f} "
+          f"random_prng_GBps={rows['random_prng'].gbps_measured:.1f} "
+          f"chase_GBps={rows['random_pointer_chase'].gbps_measured:.4f} "
+          f"chase_slowest=True hbm_ns_per_hop_median={hops[len(hops) // 2]} "
+          f"max_row_GBps={max(r.gbps_measured for r in run.results):.1f} "
+          f"limit_GBps={limit:.0f} launches={launches}", flush=True)
+    return run, launches
+
+
+def calibrate_phase(run):
+    from repro_torch.bench import calibrate
+    from repro_torch.core.memmodel import H100
+    cal = calibrate(run=run)
+    print(f"[calibrate] samples={cal.n_samples} "
+          f"fitted_latency_ns={cal.spec.latency_s * 1e9:.1f} "
+          f"spec_latency_ns={H100.latency_s * 1e9:.1f} "
+          f"fitted_hbm_GBps={cal.spec.hbm_bw / 1e9:.1f} "
+          f"spec_hbm_GBps={H100.hbm_bw / 1e9:.1f} "
+          f"rms_log_error={cal.rms_log_error:.3f} "
+          f"measured_over_model={ {k: round(v, 3) for k, v in cal.ratios.items()} }",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     try:
@@ -675,8 +966,14 @@ def main():
         import repro_torch  # noqa: F401
         from repro_torch.kernels import build as kbuild
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.core import engines
+        from repro_torch.kernels import ops
         from repro_torch.kernels import paged_attention as pa
+        from repro_torch.kernels import pointer_chase as pc
+        from repro_torch.kernels import random_gather as rg
         from repro_torch.kernels import ref
+        from repro_torch.kernels import stream_copy as sc
+        from repro_torch.kernels import strided_copy as st
     except ImportError as e:
         print(f"[FAIL] the port does not import ({e}); run chip_smoke.py "
               "from the root of a checkout", file=sys.stderr)
@@ -710,6 +1007,23 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         dense_parity_phase(torch, np)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem_err = dict(stream_copy=k4_check(torch, ops, ref),
+                       strided_copy=k5_check(torch, ops, ref),
+                       random_gather=k6_check(torch, ops, ref),
+                       pointer_chase=k7_check(torch, ops, ref, pc))
+        mem_time = dict(
+            stream_copy=k4_time(torch, ops, ref, engines, card),
+            strided_copy=k5_time(torch, ops, ref, engines, card),
+            random_gather=k6_time(torch, ops, ref, engines, card),
+            pointer_chase=k7_time(torch, ops, ref, pc, engines, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run, mem_launches = memory_phase(torch, card, dict(
+            stream_copy=sc, strided_copy=st, random_gather=rg,
+            pointer_chase=pc))
+        calibrate_phase(run)
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1
@@ -726,7 +1040,16 @@ def main():
               plain_ms=k2_timing["plain_ms"], bound_ms=k2_timing["bound_ms"],
               bound_by=k2_timing["bound_by"],
               library_ms=k2_timing["library_ms"])
-    print(json.dumps({"kernels": [k1, k2]}))
+    replaces = dict(stream_copy="src/repro/kernels/stream_copy.py:29",
+                    strided_copy="src/repro/kernels/strided_copy.py:22",
+                    random_gather="src/repro/kernels/random_gather.py:46",
+                    pointer_chase="src/repro/kernels/pointer_chase.py:32")
+    mem = [dict(name=name, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                replaces=replaces[name], launches=mem_launches[name],
+                max_abs_err=mem_err[name], **mem_time[name])
+           for name in replaces]
+    print(json.dumps({"kernels": [k1, k2] + mem}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

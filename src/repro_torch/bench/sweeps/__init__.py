@@ -1,0 +1,18 @@
+"""The ported sweeps — one module per paper table/figure, registered in the
+reference's order (``repro.bench.sweeps``).  Importing this package
+populates :data:`repro_torch.bench.registry.REGISTRY`.
+
+Every sweep keeps the reference's rows at ``fast`` (names, patterns, knobs
+and bytes moved; the CPU tests compare them) and runs at the card's own
+sizes otherwise: every working set that should live in HBM is at least 20
+times the card's 50 MiB L2, or the card would measure its cache.
+"""
+from repro_torch.bench.sweeps import (  # noqa: F401  (import order == run order)
+    latency, outstanding, unit_size, stride, burst, num_kernels,
+    random_access,
+)
+
+__all__ = [
+    "latency", "outstanding", "unit_size", "stride", "burst", "num_kernels",
+    "random_access",
+]

@@ -8,6 +8,53 @@ import torch
 NEG_INF = -1e30
 
 
+# ---------------------------------------------------------------------------
+# the memory engines (K4-K7)
+# ---------------------------------------------------------------------------
+
+def stream_copy(x, mode="copy"):
+    """The plain version of ``stream_copy``: a copy of x, or ``x * 2``
+    (``mode="rw"``; int8 wraps modulo 256).  Tiles do not change it."""
+    return x.clone() if mode == "copy" else x * 2
+
+
+def strided_copy(x, *, block_rows, stride):
+    """Output block-row i is input block-row ``(i * stride) mod nblocks``,
+    ``block_rows`` rows to a block; blocks repeat when the stride is not
+    coprime with nblocks."""
+    rows, cols = x.shape
+    br = min(block_rows, rows)
+    nblocks = rows // br
+    src = (torch.arange(nblocks, dtype=torch.int64, device=x.device)
+           * stride) % nblocks
+    return x.reshape(nblocks, br, cols)[src].reshape(rows, cols)
+
+
+def random_gather(x, idx, *, block_rows=1):
+    """out's i-th unit of ``block_rows`` rows is x's ``idx[i]``-th unit."""
+    rows, cols = x.shape
+    units = x.reshape(rows // block_rows, block_rows * cols)
+    return units[idx.long()].reshape(idx.shape[0] * block_rows, cols)
+
+
+def pointer_chase(table, steps):
+    """``addr = table[addr]`` from 0 for ``steps`` hops: (n, 1) -> the
+    (steps, 1) trace; (C, n, 1), C chains walked together -> (C, steps,
+    1)."""
+    flat = table[..., 0]
+    if flat.dim() == 1:
+        return pointer_chase(table[None], steps)[0]
+    rows = torch.arange(flat.shape[0], device=table.device)
+    addr = torch.zeros(flat.shape[0], dtype=torch.int64, device=table.device)
+    trace = torch.empty((flat.shape[0], steps), dtype=torch.int32,
+                        device=table.device)
+    for i in range(steps):
+        nxt = flat[rows, addr]
+        trace[:, i] = nxt
+        addr = nxt.long()
+    return trace[..., None]
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                     scale=None):
     """The plain version of the ``flash_attention`` kernel, with the

@@ -14,13 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
-
-def next_pow2(n: int) -> int:
-    """Smallest power of two >= n."""
-    p = 1
-    while p < n:
-        p *= 2
-    return p
+from repro_torch.core.memmodel import next_pow2
 
 
 @dataclass(frozen=True)

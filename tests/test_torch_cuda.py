@@ -8,7 +8,10 @@ that has only the port's dependencies:
 Without a card they skip: a CUDA kernel has no CPU mode.  The case tables
 and input makers of ``paged_attention`` (K1) and ``flash_attention`` (K2)
 are shared with ``test_torch_kernels.py``, which holds the plain versions
-against the JAX package on the CPU.
+against the JAX package on the CPU.  The memory engines' kernels (K4-K7)
+copy, so they must equal their plain versions exactly;
+``test_torch_memory.py`` holds those plain versions against the JAX
+package.
 """
 import numpy as np
 import pytest
@@ -17,7 +20,11 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import pointer_chase as pc
+from repro_torch.kernels import random_gather as rg
 from repro_torch.kernels import ref
+from repro_torch.kernels import stream_copy as sc
+from repro_torch.kernels import strided_copy as st
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # flash_attention: the tolerances of tests/test_kernels.py's flash tests
@@ -235,3 +242,154 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(q, k, v, window=0)
     assert fa.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the memory engines: stream_copy (K4), strided_copy (K5), random_gather
+# (K6), pointer_chase (K7)
+# ---------------------------------------------------------------------------
+
+def _data(shape, dtype, dev, seed=0):
+    """Values in [-127, 127] so every dtype holds them, int8's extremes
+    included."""
+    rng = np.random.default_rng(seed)
+    a = (rng.standard_normal(shape) * 60).clip(-127, 127)
+    return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+
+def _launched_once(module, fn):
+    before = module.LAUNCHES
+    out = fn()
+    torch.cuda.synchronize()
+    assert module.LAUNCHES == before + 1
+    return out
+
+
+STREAM_TILES = [((128, 128), 8, 0), ((256, 512), 64, 0), ((64, 384), 8, 128),
+                ((96, 7), 32, 0), ((4096, 1024), 256, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["copy", "rw"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("shape,br,bc", STREAM_TILES)
+def test_stream_copy_kernel_is_exact(cuda, shape, br, bc, dtype, mode):
+    x = _data(shape, getattr(torch, dtype), cuda)
+    got = _launched_once(sc, lambda: ops.stream_copy(
+        x, block_rows=br, block_cols=bc, mode=mode))
+    assert torch.equal(got, ref.stream_copy(x, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2, 3, 7, 15, 64])
+@pytest.mark.parametrize("block_rows", [4, 16])
+def test_strided_copy_kernel_is_exact(cuda, stride, block_rows):
+    """64 or 16 blocks: strides coprime with them and not."""
+    x = _data((256, 64), torch.float32, cuda)
+    got = _launched_once(st, lambda: ops.strided_copy(
+        x, block_rows=block_rows, stride=stride))
+    assert torch.equal(got, ref.strided_copy(x, block_rows=block_rows,
+                                             stride=stride))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,br,stride", [
+    ("bfloat16", (96, 40), 8, 5), ("int8", (60, 3), 1, 6),
+    ("float32", (8 * 1025, 1024), 8, 32)])
+def test_strided_copy_kernel_other_units(cuda, dtype, shape, br, stride):
+    x = _data(shape, getattr(torch, dtype), cuda)
+    got = ops.strided_copy(x, block_rows=br, stride=stride)
+    assert torch.equal(got, ref.strided_copy(x, block_rows=br, stride=stride))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cols,br", [
+    ("float32", 1, 1), ("float32", 16, 1), ("float32", 1024, 1),
+    ("float32", 16, 4), ("bfloat16", 1, 1), ("int8", 3, 1), ("int8", 3, 4)])
+def test_random_gather_kernel_is_exact(cuda, dtype, cols, br):
+    """Units of 2 B to 4 KiB; 1000 LFSR indices over 512 rows repeat."""
+    x = _data((512, cols), getattr(torch, dtype), cuda)
+    idx = ops.lfsr_indices(1000, bits=16, device=cuda) % (512 // br)
+    assert torch.unique(idx).numel() < idx.numel()
+    got = _launched_once(rg, lambda: ops.random_gather(x, idx,
+                                                       block_rows=br))
+    assert torch.equal(got, ref.random_gather(x, idx, block_rows=br))
+
+
+@pytest.mark.cuda
+def test_random_gather_kernel_zeroes_units_out_of_range(cuda):
+    x = _data((64, 16), torch.float32, cuda) + 200
+    idx = torch.tensor([3, -1, 64, 5], dtype=torch.int32, device=cuda)
+    got = rg.random_gather(x, idx)
+    assert torch.equal(got[[0, 3]], x[[3, 5]])
+    assert torch.count_nonzero(got[[1, 2]]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1 << 12, 1 << 22, 1 << 26])
+def test_pointer_chase_kernel_is_exact(cuda, n):
+    """Chains sized for L1 (16 KiB), L2 (16 MiB) and HBM (256 MiB)."""
+    table, _ = pc.chain(n, 7, cuda)
+    got = _launched_once(pc, lambda: ops.pointer_chase(table, steps=8192))
+    assert torch.equal(got, ref.pointer_chase(table, 8192))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1 << 6, 1 << 16, 1 << 22])
+def test_pointer_chase_kernel_64_chains(cuda, n):
+    tables = torch.stack([pc.make_chain_randperm(n, c, cuda)
+                          for c in range(64)])
+    got = _launched_once(pc, lambda: ops.pointer_chase(tables, steps=1024))
+    assert got.shape == (64, 1024, 1)
+    assert torch.equal(got, ref.pointer_chase(tables, 1024))
+
+
+@pytest.mark.cuda
+def test_pointer_chase_kernel_ends_a_chain_at_a_bad_entry(cuda):
+    table = torch.tensor([[2], [0], [7], [1]], dtype=torch.int32,
+                         device=cuda)       # 0 -> 2 -> 7 (outside)
+    got = pc.pointer_chase(table, steps=5)[:, 0].tolist()
+    assert got == [2, -1, -1, -1, -1]
+
+
+@pytest.mark.cuda
+def test_memory_kernels_refuse_what_they_cannot_take(cuda):
+    x = _data((64, 32), torch.float32, cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    table = pc.make_chain(64).to(cuda)
+    before = (sc.LAUNCHES, st.LAUNCHES, rg.LAUNCHES, pc.LAUNCHES)
+    with pytest.raises(ValueError, match="divide"):         # indivisible
+        sc.stream_copy(x, block_rows=24)
+    with pytest.raises(ValueError, match="divide"):
+        sc.stream_copy(x, block_rows=8, block_cols=12)
+    with pytest.raises(ValueError, match="2-D"):
+        sc.stream_copy(x[None])
+    with pytest.raises(ValueError, match="dtype"):
+        sc.stream_copy(x.double())
+    with pytest.raises(ValueError, match="mode"):
+        sc.stream_copy(x, mode="add")
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.stream_copy(x.t())
+    with pytest.raises(ValueError, match="divide"):
+        st.strided_copy(x, block_rows=24)
+    with pytest.raises(ValueError, match="2-D"):
+        st.strided_copy(x[None])
+    with pytest.raises(ValueError, match="dtype"):
+        st.strided_copy(x.double())
+    with pytest.raises(ValueError, match="divide"):
+        rg.random_gather(x, idx, block_rows=24)
+    with pytest.raises(ValueError, match="2-D"):
+        rg.random_gather(x[None], idx)
+    with pytest.raises(ValueError, match="dtype"):
+        rg.random_gather(x.double(), idx)
+    with pytest.raises(ValueError, match="int32"):
+        rg.random_gather(x, idx.long())
+    with pytest.raises(ValueError, match="int32"):
+        pc.pointer_chase(table.long(), steps=8)
+    with pytest.raises(ValueError, match=r"\(n, 1\)"):
+        pc.pointer_chase(table[:, 0], steps=8)
+    with pytest.raises(ValueError, match="steps"):
+        pc.pointer_chase(table, steps=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        sc.stream_copy(x.cpu())
+    assert (sc.LAUNCHES, st.LAUNCHES, rg.LAUNCHES, pc.LAUNCHES) == before

@@ -56,7 +56,33 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    must be the slowest random-access row, no row may read above 105% of
    3.35 TB/s, and each of K4-K7 must have launched;
 14. calibrate: the memory model's latency and bandwidth fitted to those
-   rows, beside the spec's.
+   rows, beside the spec's;
+15. tune: the closed tune -> plan -> execute loop.  Plans for K3
+   (``decode_attention``) at phi4-mini's and gemma-2b's dense-decode
+   geometry (T 1024, D 128 and 256, bf16) and for K8 (``matmul``) at its
+   two timed shapes, derived twice: under the H100's spec and under the
+   spec that calibrate fitted (the fingerprints must differ).  Each plan's
+   tiles, pipeline depth, predicted GB/s, fingerprint and source are
+   printed, and K3 and K8 run through ``kernels.ops`` with their tiles left
+   to the plan, from both caches; every launch must count, and every
+   output must match the plain version;
+16. K3: ``decode_attention`` against its plain version: phi4-mini's (24/8,
+   D 128), gemma-2b's (8/1, D 256) and the reference test's (4/2, at D 64)
+   geometry, T 100, 255 and 256, tiles of 32, 96 and 256 rows and the
+   plan's, softcap 10, a valid length of 1, in float32 (1e-4) and bfloat16
+   (3e-2, and within one bfloat16 rounding of the float32 plain version);
+   rows with a valid length of 0 must be exactly 0;
+17. K3 time at B 8, 24/8 heads, D 128, T 1024, bf16, the plan's tiles,
+   beside its plain version, SDPA on the cache's transposed views with a
+   boolean mask, and the roofline bound;
+18. K8: ``matmul`` against its plain version (TF32 off): the reference's
+   (m, k, n) triples with blocks of 64 and 128, the plan's tiles at (96,
+   100, 64), and the two timed shapes, in float32 (1e-4) and bfloat16
+   (2e-2; at the timed shapes within one bfloat16 rounding of the float32
+   plain version plus the float32 summation bound);
+19. K8 time at 4096^3 and at (M, N, K) = (8, 8192, 3072), bf16, the plan's
+   tiles, beside its plain version, ``torch.matmul`` and the roofline
+   bound.
 
 It ends with the kernels' JSON line, the card line and the result line.
 Any failure exits non-zero before the result line; so does a host without
@@ -944,6 +970,7 @@ def memory_phase(torch, card, mods):
 
 
 def calibrate_phase(run):
+    """Fits the memory model to the memory phase's rows; returns the fit."""
     from repro_torch.bench import calibrate
     from repro_torch.core.memmodel import H100
     cal = calibrate(run=run)
@@ -955,6 +982,406 @@ def calibrate_phase(run):
           f"rms_log_error={cal.rms_log_error:.3f} "
           f"measured_over_model={ {k: round(v, 3) for k, v in cal.ratios.items()} }",
           flush=True)
+    return cal
+
+
+# ---------------------------------------------------------------------------
+# the tune -> plan -> execute loop: K3 (decode_attention), K8 (matmul)
+# ---------------------------------------------------------------------------
+
+DECODE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+MATMUL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# K3 on the dense-decode geometry of the two served models
+K3_GEOMETRIES = (("phi4-mini", 24, 8, 128), ("gemma-2b", 8, 1, 256))
+K3_T = 1024
+K8_SHAPES = ((4096, 4096, 4096), (8, 8192, 3072))       # (M, N, K)
+
+
+def close_report(torch, got, want, tol, w32=None, acc_bound=None):
+    """(ok, max_abs_err, text): within ``tol`` (absolute + relative) of the
+    plain version; bfloat16 outputs also within one bfloat16 rounding of
+    the float32 plain version ``w32`` (plus ``acc_bound``, the float32
+    summation-order bound where one is given)."""
+    g, w = got.float(), want.float()
+    ok = bool(torch.isfinite(g).all()) and bool(
+        ((g - w).abs() <= tol + tol * w.abs()).all())
+    err = float((g - w).abs().max())
+    text = f"max_abs_err={err:.3e} tol={tol}"
+    if w32 is not None:
+        lim = TOL["float32"] + BF16_ROUNDING * w32.abs()
+        if acc_bound is not None:
+            lim = lim + acc_bound
+        err32 = float((g - w32).abs().max())
+        ok32 = bool(((g - w32).abs() <= lim).all())
+        text += (f" err_vs_f32_plain={err32:.3e} tol_f32_plus_one_rounding="
+                 f"1e-4+2^-8*|w|{'+2K*2^-24*(|x|@|y|)' if acc_bound is not None else ''}"
+                 f" ok_f32_plain={ok32}")
+        ok = ok and ok32
+    return ok, err, text
+
+
+def matmul_acc_bound(torch, x, y):
+    """Twice the float32 bound on a K-term sum taken in another order:
+    2 * K * 2^-24 * (|x| @ |y|)."""
+    return 2 * x.shape[1] * 2.0 ** -24 * (x.float().abs() @ y.float().abs())
+
+
+def k3_inputs(torch, gen, b, hq, hkv, d, t, vlens, dtype):
+    dev = torch.device("cuda")
+    q = torch.randn((b, hq, d), generator=gen).to(dev, dtype)
+    k, v = (torch.randn((b, t, hkv, d), generator=gen).to(dev, dtype)
+            for _ in range(2))
+    return q, k, v, torch.tensor(vlens, dtype=torch.int32, device=dev)
+
+
+def k3_holds(torch, ref, tag, desc, got, q, k, v, vl, **kw):
+    """Checks one K3 output against the plain version; returns the error."""
+    torch.cuda.synchronize()
+    want = ref.decode_attention(q, k, v, vl, **kw)
+    dname = str(q.dtype)[6:]
+    w32 = (ref.decode_attention(q.float(), k.float(), v.float(), vl, **kw)
+           if dname == "bfloat16" else None)
+    ok, err, text = close_report(torch, got, want, DECODE_TOL[dname], w32)
+    print(f"[{tag}] {desc} dtype={dname} {text} ok={ok}", flush=True)
+    check(ok, f"{tag} {desc} {dname}: {text}")
+    return err
+
+
+def k8_holds(torch, ref, tag, desc, got, x, y, tight=False):
+    """Checks one K8 output against the plain version (TF32 off)."""
+    torch.cuda.synchronize()
+    want = ref.matmul(x, y)
+    dname = str(x.dtype)[6:]
+    w32 = acc = None
+    if dname == "bfloat16":
+        w32 = ref.matmul(x.float(), y.float())
+        acc = matmul_acc_bound(torch, x, y) if tight else None
+    ok, err, text = close_report(torch, got, want, MATMUL_TOL[dname], w32,
+                                 acc)
+    print(f"[{tag}] {desc} dtype={dname} {text} ok={ok}", flush=True)
+    check(ok, f"{tag} {desc} {dname}: {text}")
+    return err
+
+
+def tune_phase(torch, cal, card):
+    """K3 and K8 with tiles left to plans derived under the H100's spec and
+    under the calibrated one: the slice's main path.  Returns the launches
+    of each kernel in it and the analytic plans."""
+    from repro_torch.core.memmodel import H100
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.tune import (PlanCache, plan_key, set_default_cache,
+                                  spec_fingerprint)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fps = {"analytic": spec_fingerprint(H100),
+           "calibrated": spec_fingerprint(cal.spec)}
+    check(fps["analytic"] != fps["calibrated"],
+          "the calibrated spec fingerprints like the analytic one")
+    gen = torch.Generator().manual_seed(15)
+    vlens = [K3_T, K3_T - 24, 517, 1, K3_T, 800, K3_T, 64]
+    k3 = {name: k3_inputs(torch, gen, 8, hq, hkv, d, K3_T, vlens,
+                          torch.bfloat16)
+          for name, hq, hkv, d in K3_GEOMETRIES}
+    k8 = {shape: (torch.randn((shape[0], shape[2]), generator=gen)
+                  .to("cuda", torch.bfloat16),
+                  torch.randn((shape[2], shape[1]), generator=gen)
+                  .to("cuda", torch.bfloat16)) for shape in K8_SHAPES}
+    caches = {"analytic": PlanCache(None), "calibrated": PlanCache(None)}
+    plans, outs = {}, {}
+    da.reset_launches()
+    mm.reset_launches()
+    try:
+        for source, cache in caches.items():
+            set_default_cache(cache)
+            for name, hq, hkv, d in K3_GEOMETRIES:
+                q, k, v, vl = k3[name]
+                if source == "analytic":      # plan_for through ops
+                    outs[source, name] = ops.decode_attention(q, k, v, vl)
+                    plan = cache.get(plan_key("decode_attention", (K3_T, d),
+                                              "bfloat16", H100))
+                else:
+                    plan = cache.get_or_derive(
+                        "decode_attention", shape_sig=(K3_T, d),
+                        dtype="bfloat16", calibration=cal)
+                    outs[source, name] = ops.decode_attention(q, k, v, vl,
+                                                              plan=plan)
+                plans[source, name] = plan
+            for shape in K8_SHAPES:
+                x, y = k8[shape]
+                if source == "analytic":
+                    outs[source, shape] = ops.matmul(x, y)
+                    plan = cache.get(plan_key("matmul", shape, "bfloat16",
+                                              H100))
+                else:
+                    plan = cache.get_or_derive(
+                        "matmul", shape_sig=shape, dtype="bfloat16",
+                        calibration=cal)
+                    outs[source, shape] = ops.matmul(x, y, plan=plan)
+                plans[source, shape] = plan
+        torch.cuda.synchronize()
+    finally:
+        set_default_cache(None)
+    launches = {"decode_attention": da.LAUNCHES, "matmul": mm.LAUNCHES}
+    check(launches == {"decode_attention": 4, "matmul": 4},
+          f"the loop launched {launches}, not K3 and K8 four times each")
+    for (source, key), plan in plans.items():
+        check(plan is not None and plan.source == source,
+              f"no {source} plan for {key}")
+        if key in k3:
+            q, k, v, vl = k3[key]
+            run = da.tiles(q, k, plan.bkv, plan.pipeline_depth)
+            desc = (f"kernel=decode_attention geometry={key} "
+                    f"shape_sig={K3_T}x{q.shape[-1]} bkv={plan.bkv} "
+                    f"pipeline_depth={plan.pipeline_depth} "
+                    f"stages_run={run['stages']} splits={run['splits']}")
+            err = k3_holds(torch, ref, "tune", f"source={source} {desc}",
+                              outs[source, key], q, k, v, vl)
+        else:
+            x, y = k8[key]
+            bm, bn, bk = ops.matmul_tiles(x, y, plan=plan)
+            desc = (f"kernel=matmul MxNxK={'x'.join(map(str, key))} "
+                    f"tile={plan.bq} tiles_run=({bm},{bn},{bk}) "
+                    f"kc={mm.staging(bm, bn, bk)}")
+            err = k8_holds(torch, ref, "tune", f"source={source} {desc}",
+                              outs[source, key], x, y, tight=True)
+        print(f"[tune] plan source={plan.source} {desc} "
+              f"predicted_gbps={plan.predicted_gbps:.1f} "
+              f"fingerprint={fps[source]} max_abs_err={err:.3e}",
+              flush=True)
+    print(f"[tune] card='{card}' fingerprints analytic={fps['analytic']} "
+          f"calibrated={fps['calibrated']} calibrated_spec: latency_ns="
+          f"{cal.spec.latency_s * 1e9:.1f} hbm_GBps={cal.spec.hbm_bw / 1e9:.1f}"
+          f" launches={launches}", flush=True)
+    return launches, {key: p for (src, key), p in plans.items()
+                      if src == "analytic"}
+
+
+def k3_cases():
+    """(name, Hq, Hkv, D, T, bkv — None is the plan's —, kwargs)."""
+    cases = []
+    for name, hq, hkv, d in K3_GEOMETRIES + (("ref-4/2", 4, 2, 64),):
+        for t in (100, 255, 256):
+            for bkv in (32, 96, 256, None):
+                cases.append((name, hq, hkv, d, t, bkv, {}))
+    cases.append(("softcap-10", 24, 8, 128, 255, None, dict(softcap=10.0)))
+    cases.append(("softcap-10", 4, 2, 64, 100, 32, dict(softcap=10.0)))
+    return cases
+
+
+def k3_check(torch, ops, ref, da):
+    """Every case in both dtypes against the plain version, and rows of
+    valid length 0 exactly 0; returns the largest absolute error seen."""
+    from repro_torch.tune import PlanCache, set_default_cache
+    gen = torch.Generator().manual_seed(16)
+    worst = 0.0
+    set_default_cache(PlanCache(None))
+    try:
+        for name, hq, hkv, d, t, bkv, kw in k3_cases():
+            for dname in ("float32", "bfloat16"):
+                dtype = getattr(torch, dname)
+                vlens = [1, t // 2 + 3, t]
+                q, k, v, vl = k3_inputs(torch, gen, 3, hq, hkv, d, t, vlens,
+                                        dtype)
+                bkv_run, depth = ops.decode_tiles(q, k, bkv=bkv)
+                stage = 2 * bkv_run * d * q.element_size()
+                try:
+                    run = da.tiles(q, k, bkv_run, depth)
+                except ValueError:
+                    # not one tile fits a block's 227 KiB: the wrapper must
+                    # refuse it and launch nothing
+                    before = da.LAUNCHES
+                    try:
+                        ops.decode_attention(q, k, v, vl, bkv=bkv, **kw)
+                        refused = ""
+                    except ValueError as e:
+                        refused = str(e)
+                    check("does not fit" in refused
+                          and da.LAUNCHES == before,
+                          f"K3 {name} T={t} bkv={bkv_run}: a tile of {stage} "
+                          f"bytes was not refused")
+                    print(f"[K3] case={name} D={d} T={t} bkv={bkv_run} "
+                          f"dtype={dname} refused: one tile is {stage} bytes "
+                          f"ok=True", flush=True)
+                    continue
+                got = ops.decode_attention(q, k, v, vl, bkv=bkv, **kw)
+                desc = (f"case={name} B=3 Hq={hq} Hkv={hkv} D={d} T={t} "
+                        f"valid={vlens} bkv={'plan:' if bkv is None else ''}"
+                        f"{run['bkv']} stages_run={run['stages']} "
+                        f"splits={run['splits']} {kw or ''}")
+                worst = max(worst, k3_holds(torch, ref, "K3", desc, got, q,
+                                            k, v, vl, **kw))
+        for t in (1, 255, 1024):
+            for dname in ("float32", "bfloat16"):
+                q, k, v, vl = k3_inputs(torch, gen, 3, 24, 8, 128, t,
+                                        [0, t, 0], getattr(torch, dname))
+                got = ops.decode_attention(q, k, v, vl)
+                torch.cuda.synchronize()
+                zero = int(torch.count_nonzero(got[0::2]))
+                print(f"[K3] case=valid-len-0 T={t} dtype={dname} rows 0 and "
+                      f"2 nonzero={zero}", flush=True)
+                check(zero == 0, "K3: a row with valid_len 0 is not 0")
+                worst = max(worst, k3_holds(
+                    torch, ref, "K3", f"case=valid-len-0 row 1 T={t}",
+                    got[1:2], q[1:2], k[1:2], v[1:2], vl[1:2]))
+    finally:
+        set_default_cache(None)
+    return worst
+
+
+def roofline_bound(flops, moved):
+    """(bound_ms, bound_by) from the port's memory model: one card, no
+    collective bytes."""
+    from repro_torch.core.memmodel import roofline
+    terms = roofline(flops, moved, 0.0, 1)
+    by = {"compute": "operations", "memory": "bytes"}[terms.dominant]
+    return 1e3 * terms.bound_s, by, terms.dominant
+
+
+def k3_time(torch, ops, ref, da, card):
+    """K3 at phi4-mini's batch-8 dense decode with the plan's tiles."""
+    import torch.nn.functional as F
+    from repro_torch.tune import PlanCache, set_default_cache
+    b, hq, hkv, d, t = 8, 24, 8, 128, K3_T
+    vlens = [t] * b
+    itemsize = 2
+    moved = (sum(vlens) * hkv * d * itemsize * 2       # K and V read once
+             + 2 * b * hq * d * itemsize + b * 4)      # q, o, valid_len
+    copies = -(-3 * L2_BYTES // moved)
+    gen = torch.Generator().manual_seed(17)
+    sets = [k3_inputs(torch, gen, b, hq, hkv, d, t, vlens, torch.bfloat16)
+            for _ in range(copies)]
+    set_default_cache(PlanCache(None))
+    try:
+        q, k = sets[0][:2]
+        bkv, depth = ops.decode_tiles(q, k)
+        run = da.tiles(q, k, bkv, depth)
+        k3_holds(torch, ref, "K3", "case=timed-shape B=8 Hq=24 Hkv=8 D=128 "
+                 f"T={t} bkv=plan:{bkv}", ops.decode_attention(*sets[0]),
+                 *sets[0])
+        ms = time_ms(torch, lambda *a: ops.decode_attention(*a), sets)
+    finally:
+        set_default_cache(None)
+    plain_ms = time_ms(torch, lambda *a: ref.decode_attention(*a), sets)
+    # yardstick: one SDPA call on the cache's transposed views, a boolean
+    # mask from valid_len (whatever it copies is in its time)
+    pos = torch.arange(t, device="cuda")
+    lib = [(qq[:, :, None, :], kk.transpose(1, 2), vv.transpose(1, 2),
+            (pos[None, :] < vl[:, None])[:, None, None, :])
+           for qq, kk, vv, vl in sets]
+    library_ms = time_ms(torch, lambda qq, kk, vv, mask:
+                         F.scaled_dot_product_attention(
+                             qq, kk, vv, attn_mask=mask, enable_gqa=True),
+                         lib)
+    flops = 4 * sum(vlens) * hq * d
+    bound_ms, bound_by, dominant = roofline_bound(flops, moved)
+    print(f"[K3 time] shape=B{b} Hq{hq} Hkv{hkv} D{d} T{t} bf16 "
+          f"valid={vlens[0]} tiles=bkv {bkv} x depth {depth} "
+          f"(stages_run={run['stages']} splits={run['splits']}) "
+          f"input_copies={copies} card='{card}' ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA, "
+          f"enable_gqa, bool mask) bound_ms={bound_ms:.4f} bound_by={bound_by}"
+          f" roofline_dominant={dominant} moved_MB={moved / 1e6:.1f} "
+          f"achieved_GBps={moved / ms / 1e6:.1f}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                tiles=dict(bkv=bkv, pipeline_depth=depth,
+                           stages=run["stages"], splits=run["splits"]))
+
+
+def k8_check(torch, ops, ref, mm):
+    """The reference's cases, the plan's tiles at (96, 100, 64), and the
+    timed shapes, against the plain version with TF32 off; returns the
+    largest absolute error seen."""
+    from repro_torch.tune import PlanCache, set_default_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(18)
+    dev = torch.device("cuda")
+    worst = 0.0
+    cases = [((m, k, n), blocks) for m, k, n in
+             ((128, 128, 128), (256, 128, 384), (64, 256, 128))
+             for blocks in ((64, 64, 64), (128, 128, 128))]
+    cases.append(((96, 100, 64), None))
+    set_default_cache(PlanCache(None))
+    try:
+        for (m, k, n), blocks in cases:
+            for dname in ("float32", "bfloat16"):
+                dtype = getattr(torch, dname)
+                x = torch.randn((m, k), generator=gen).to(dev, dtype)
+                y = torch.randn((k, n), generator=gen).to(dev, dtype)
+                bm, bn, bk = blocks or (None, None, None)
+                tiles = ops.matmul_tiles(x, y, bm=bm, bn=bn, bk=bk)
+                got = ops.matmul(x, y, bm=bm, bn=bn, bk=bk)
+                desc = (f"case=(m,k,n)=({m},{k},{n}) "
+                        f"tiles={'plan:' if blocks is None else ''}{tiles} "
+                        f"kc={mm.staging(*tiles)}")
+                worst = max(worst, k8_holds(torch, ref, "K8", desc, got, x,
+                                            y))
+        for m, n, k in K8_SHAPES:
+            x = torch.randn((m, k), generator=gen).to(dev, torch.bfloat16)
+            y = torch.randn((k, n), generator=gen).to(dev, torch.bfloat16)
+            tiles = ops.matmul_tiles(x, y)
+            worst = max(worst, k8_holds(
+                torch, ref, "K8", f"case=timed MxNxK={m}x{n}x{k} "
+                f"tiles=plan:{tiles} kc={mm.staging(*tiles)}",
+                ops.matmul(x, y), x, y, tight=True))
+    finally:
+        set_default_cache(None)
+    return worst
+
+
+def k8_time(torch, ops, ref, mm, card):
+    """K8 at its two timed shapes with the plan's tiles; the first shape's
+    numbers lead the kernels line, both are listed there."""
+    from repro_torch.tune import PlanCache, set_default_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(19)
+    timed = []
+    set_default_cache(PlanCache(None))
+    try:
+        for m, n, k in K8_SHAPES:
+            itemsize = 2
+            moved = (m * k + k * n + m * n) * itemsize
+            copies = -(-3 * L2_BYTES // moved)
+            sets = [(torch.randn((m, k), generator=gen).to("cuda",
+                                                           torch.bfloat16),
+                     torch.randn((k, n), generator=gen).to("cuda",
+                                                           torch.bfloat16))
+                    for _ in range(copies)]
+            tiles = ops.matmul_tiles(*sets[0])
+            slow = m * n * k > 1 << 30          # a few calls of milliseconds
+            iters, warmup = (3, 1) if slow else (50, 5)
+            ms = time_ms(torch, lambda a, b_: ops.matmul(a, b_), sets,
+                         iters=iters, warmup=warmup)
+            plain_ms = time_ms(torch, lambda a, b_: ref.matmul(a, b_), sets,
+                               iters=iters, warmup=warmup)
+            library_ms = time_ms(torch, lambda a, b_: torch.matmul(a, b_),
+                                 sets)
+            flops = 2 * m * n * k
+            bound_ms, bound_by, dominant = roofline_bound(flops, moved)
+            print(f"[K8 time] MxNxK={m}x{n}x{k} bf16 tiles={tiles} "
+                  f"kc={mm.staging(*tiles)} input_copies={copies} "
+                  f"iters={iters} card='{card}' ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                  f"(torch.matmul) bound_ms={bound_ms:.4f} "
+                  f"bound_by={bound_by} roofline_dominant={dominant} "
+                  f"achieved_TFLOPs={flops / ms / 1e9:.2f} "
+                  f"achieved_GBps={moved / ms / 1e6:.1f}", flush=True)
+            timed.append(dict(shape_mnk=[m, n, k],
+                              tiles=dict(bm=tiles[0], bn=tiles[1],
+                                         bk=tiles[2],
+                                         kc=mm.staging(*tiles)),
+                              ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms,
+                              bound_by=bound_by))
+            del sets
+    finally:
+        set_default_cache(None)
+    first = timed[0]
+    return dict(ms=first["ms"], plain_ms=first["plain_ms"],
+                library_ms=first["library_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], tiles=first["tiles"],
+                timed=timed)
 
 
 # ---------------------------------------------------------------------------
@@ -965,7 +1392,9 @@ def main():
         import torch
         import repro_torch  # noqa: F401
         from repro_torch.kernels import build as kbuild
+        from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import matmul as mm
         from repro_torch.core import engines
         from repro_torch.kernels import ops
         from repro_torch.kernels import paged_attention as pa
@@ -1023,7 +1452,17 @@ def main():
         run, mem_launches = memory_phase(torch, card, dict(
             stream_copy=sc, strided_copy=st, random_gather=rg,
             pointer_chase=pc))
-        calibrate_phase(run)
+        cal = calibrate_phase(run)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        tune_launches, _ = tune_phase(torch, cal, card)
+        k3_err = k3_check(torch, ops, ref, da)
+        k3_timing = k3_time(torch, ops, ref, da, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        k8_err = k8_check(torch, ops, ref, mm)
+        k8_timing = k8_time(torch, ops, ref, mm, card)
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1
@@ -1049,7 +1488,17 @@ def main():
                 replaces=replaces[name], launches=mem_launches[name],
                 max_abs_err=mem_err[name], **mem_time[name])
            for name in replaces]
-    print(json.dumps({"kernels": [k1, k2] + mem}))
+    k3 = dict(name="decode_attention", route="cuda",
+              source="src/repro_torch/kernels/csrc/decode_attention.cu",
+              replaces="src/repro/kernels/decode_attention.py:106",
+              launches=tune_launches["decode_attention"], max_abs_err=k3_err,
+              **k3_timing)
+    k8 = dict(name="matmul", route="cuda",
+              source="src/repro_torch/kernels/csrc/matmul.cu",
+              replaces="src/repro/kernels/matmul.py:58",
+              launches=tune_launches["matmul"], max_abs_err=k8_err,
+              **k8_timing)
+    print(json.dumps({"kernels": [k1, k2, k3] + mem + [k8]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

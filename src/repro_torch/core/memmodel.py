@@ -7,7 +7,11 @@ outstanding requests), achieved bandwidth (Eq. 5) and theoretical bandwidth
 (Eq. 6).  The port of ``repro.core.memmodel``: the same equations, line for
 line, over a :class:`HopperSpec` whose constants are the H100's.  Each
 bench row carries the measured and the modelled column; ``bench.calibrate``
-fits ``latency_s`` and ``hbm_bw`` to the card.
+fits ``latency_s`` and ``hbm_bw`` to the card.  :func:`roofline` gives the
+three times a piece of work cannot beat on the card (operations, bytes,
+collective bytes), from counts the caller makes from shapes: the
+reference's ``core/roofline.py`` parses XLA's HLO text and has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -33,6 +37,10 @@ class HopperSpec:
     name: str = "h100-sxm"
     peak_flops_bf16: float = 989e12       # dense tensor-core rate
     hbm_bw: float = 3.35e12               # bytes/s
+    # NVLink: the data sheet's 900 GB/s per card is both directions
+    # together; this is one direction, the rate at which a card's
+    # collective bytes leave it (a one-card path passes 0 such bytes)
+    nvlink_bw: float = 450e9
     hbm_bytes: int = 80 * 2**30
     l2_bytes: int = 50 * 2**20
     smem_bytes: int = 227 * 2**10         # shared memory a block can use
@@ -140,3 +148,83 @@ def smem_ok(knobs: Knobs, spec: HopperSpec = H100,
     """The paper's BRAM constraint (Tables 3-5): buffering must fit the
     shared memory of a block."""
     return knobs.smem_bytes() <= spec.smem_bytes * budget_fraction
+
+
+# ---------------------------------------------------------------------------
+# Roofline terms
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RooflineTerms:
+    """The least time of each resource for one piece of work.  The field
+    names are the reference's; here ``hlo_flops``/``hlo_bytes`` are the
+    operations and bytes counted from shapes (each input read once, each
+    output written once), not an HLO module's."""
+
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    hlo_flops: float
+    hlo_bytes: float
+    collective_bytes: float
+    chips: int
+    model_flops: float = 0.0
+
+    @property
+    def dominant(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def bound_s_no_overlap(self) -> float:
+        """Conservative serial model: terms sum (no copy/compute overlap)."""
+        return self.compute_s + self.memory_s + self.collective_s
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """model_flops / hlo_flops — the share of counted work that is
+        useful."""
+        return self.model_flops / self.hlo_flops if self.hlo_flops else 0.0
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Useful-compute time over the bound, terms overlapped."""
+        if not self.model_flops or not self.bound_s:
+            return 0.0
+        ideal = self.compute_s * self.useful_flops_ratio
+        return ideal / self.bound_s
+
+    @property
+    def roofline_fraction_no_overlap(self) -> float:
+        """Conservative variant: terms serialized (sum)."""
+        if not self.model_flops or not self.bound_s_no_overlap:
+            return 0.0
+        ideal = self.compute_s * self.useful_flops_ratio
+        return ideal / self.bound_s_no_overlap
+
+
+def roofline(hlo_flops: float, hlo_bytes: float, collective_bytes: float,
+             chips: int, model_flops: float = 0.0,
+             spec: HopperSpec = H100, per_chip: bool = True) -> RooflineTerms:
+    """Operations over the bf16 tensor-core peak, bytes over the HBM rate,
+    collective bytes over one direction of NVLink.  ``per_chip=True``
+    means the counts are already per card."""
+    scale = 1.0 if per_chip else 1.0 / chips
+    return RooflineTerms(
+        compute_s=hlo_flops * scale / spec.peak_flops_bf16,
+        memory_s=hlo_bytes * scale / spec.hbm_bw,
+        collective_s=collective_bytes * scale / spec.nvlink_bw,
+        hlo_flops=hlo_flops * scale,
+        hlo_bytes=hlo_bytes * scale,
+        collective_bytes=collective_bytes * scale,
+        chips=chips,
+        model_flops=model_flops * scale,
+    )

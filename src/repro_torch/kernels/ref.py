@@ -55,6 +55,13 @@ def pointer_chase(table, steps):
     return trace[..., None]
 
 
+def matmul(x, y):
+    """(M, K) @ (K, N) in float32, output in x's dtype.  On a card, TF32
+    must be off (``torch.backends.cuda.matmul.allow_tf32 = False``) for
+    this to be a float32 product."""
+    return torch.matmul(x.float(), y.float()).to(x.dtype)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                     scale=None):
     """The plain version of the ``flash_attention`` kernel, with the
@@ -88,7 +95,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
 
 
 def decode_attention(q, k, v, valid_len, *, softcap=None, scale=None):
-    """q: (B,Hq,D); k/v: (B,T,Hkv,D); valid_len (B,) -> (B,Hq,D)."""
+    """q: (B,Hq,D); k/v: (B,T,Hkv,D); valid_len (B,) -> (B,Hq,D).
+
+    Line for line the reference's oracle: a row with ``valid_len == 0``
+    sees no key and gets the mean of V (the CUDA kernel returns 0 there;
+    such rows are checked on their own, never against this)."""
     b, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv

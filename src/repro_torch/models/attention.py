@@ -21,12 +21,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
+from repro_torch.tune.cache import plan_for
+from repro_torch.tune.plan import dtype_name
 
 NEG_INF = -1e30
-# the blocks of ``chunked`` when AttnParams leaves them unset (the
-# reference derives them from its tuned KernelPlan, which is not ported;
-# blocks change rounding, never the math)
-DEFAULT_BLOCK = 64
 
 
 class AttnParams(NamedTuple):
@@ -35,14 +33,25 @@ class AttnParams(NamedTuple):
     window: Optional[int] = None
     softcap: Optional[float] = None
     scale: Optional[float] = None
-    bq: Optional[int] = None       # chunked's blocks; None = DEFAULT_BLOCK
+    # None = derive from the tuned KernelPlan for this call's shape and
+    # dtype (repro_torch.tune, the closed tune->execute loop); ints pin the
+    # blocks.  Blocks change rounding, never the math.
+    bq: Optional[int] = None
     bkv: Optional[int] = None
 
 
-def resolve_blocks(p: AttnParams) -> tuple:
-    """(bq, bkv) for ``chunked``: explicit AttnParams win."""
-    return (p.bq if p.bq is not None else DEFAULT_BLOCK,
-            p.bkv if p.bkv is not None else DEFAULT_BLOCK)
+def resolve_blocks(p: AttnParams, q, k) -> tuple:
+    """(bq, bkv) for ``chunked``: explicit AttnParams win; ``None`` falls
+    back to the cached :class:`repro_torch.tune.KernelPlan` for
+    ``(Sq, Skv, D, dtype)`` — the autotuner's choice applied as the
+    default."""
+    if p.bq is not None and p.bkv is not None:
+        return p.bq, p.bkv
+    plan = plan_for("flash_attention",
+                    shape_sig=(q.shape[1], k.shape[1], q.shape[-1]),
+                    dtype=dtype_name(q.dtype))
+    return (p.bq if p.bq is not None else plan.bq,
+            p.bkv if p.bkv is not None else plan.bkv)
 
 
 def _mask(q_pos, k_pos, causal, window, kv_valid_len=None):
@@ -118,7 +127,7 @@ def chunked_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
     p = 1 terms that the row's first live block wipes with alpha = 0)."""
     b, orig_sq, hq, d = q.shape
     orig_skv, hkv = k.shape[1], k.shape[2]
-    bq, bkv = resolve_blocks(p)
+    bq, bkv = resolve_blocks(p, q, k)
     bq, bkv = min(bq, orig_sq), min(bkv, orig_skv)
     pad_q, pad_kv = (-orig_sq) % bq, (-orig_skv) % bkv
     if pad_q:

@@ -43,8 +43,8 @@ from repro_torch.models.common import ParamBuilder, rms_norm, rope, softcap
 class RuntimeFlags:
     """Execution knobs (never affect math).  ``attn_impl`` picks the
     attention of full-sequence prefill (naive | chunked | pallas);
-    ``attn_bq``/``attn_bkv`` pin chunked's blocks (None = the default
-    block, :data:`repro_torch.models.attention.DEFAULT_BLOCK`); the CUDA
+    ``attn_bq``/``attn_bkv`` pin chunked's blocks (None = the tuned
+    plan's, :func:`repro_torch.models.attention.resolve_blocks`); the CUDA
     kernel behind ``pallas`` picks its own tiles.  ``kv_dtype="int8"`` is
     not ported yet."""
 

@@ -6,9 +6,10 @@ that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Without a card they skip: a CUDA kernel has no CPU mode.  The case tables
-and input makers of ``paged_attention`` (K1) and ``flash_attention`` (K2)
-are shared with ``test_torch_kernels.py``, which holds the plain versions
-against the JAX package on the CPU.  The memory engines' kernels (K4-K7)
+and input makers of ``paged_attention`` (K1), ``flash_attention`` (K2),
+``decode_attention`` (K3) and ``matmul`` (K8) are shared with
+``test_torch_kernels.py``, which holds the plain versions against the JAX
+package on the CPU.  The memory engines' kernels (K4-K7)
 copy, so they must equal their plain versions exactly;
 ``test_torch_memory.py`` holds those plain versions against the JAX
 package.
@@ -17,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import pointer_chase as pc
@@ -78,6 +81,42 @@ def make_flash_inputs(seed, b, hq, hkv, sq, skv, d):
     return (rng.standard_normal((b, hq, sq, d)).astype(np.float32),
             rng.standard_normal((b, hkv, skv, d)).astype(np.float32),
             rng.standard_normal((b, hkv, skv, d)).astype(np.float32))
+
+
+# decode_attention (K3): (name, B, Hq, Hkv, D, T, valid lens, bkv — None
+# leaves it to the tuned plan —, extra kwargs); every valid length >= 1
+DECODE_CASES = [
+    ("phi4-geometry-plan", 3, 24, 8, 128, 256, [1, 100, 256], None, {}),
+    ("gemma-geometry-plan", 3, 8, 1, 256, 255, [7, 130, 255], None, {}),
+    ("gemma-geometry-bkv32", 2, 8, 1, 256, 100, [1, 100], 32, {}),
+    ("ref-4/2-bkv32", 2, 4, 2, 64, 100, [7, 100], 32, {}),
+    ("ref-4/2-bkv96", 2, 4, 2, 64, 255, [7, 255], 96, {}),
+    ("ref-4/2-bkv256", 2, 4, 2, 64, 256, [7, 256], 256, {}),
+    ("softcap-10", 2, 4, 2, 128, 128, [50, 128], 32, dict(softcap=10.0)),
+]
+DECODE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def make_decode_inputs(seed, b, hq, hkv, d, t, vlens):
+    """numpy q (B, Hq, D), k and v (B, T, Hkv, D), valid lengths."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, d)).astype(np.float32),
+            rng.standard_normal((b, t, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, t, hkv, d)).astype(np.float32),
+            np.asarray(vlens, np.int32))
+
+
+# matmul (K8): the reference's (m, k, n) triples and blocks, as in
+# tests/test_kernels.py, and tolerances
+MATMUL_MKN = [(128, 128, 128), (256, 128, 384), (64, 256, 128)]
+MATMUL_BLOCKS = [(64, 64, 64), (128, 128, 128)]
+MATMUL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def make_matmul_inputs(seed, m, k, n):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, k)).astype(np.float32),
+            rng.standard_normal((k, n)).astype(np.float32))
 
 
 @pytest.fixture
@@ -393,3 +432,182 @@ def test_memory_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         sc.stream_copy(x.cpu())
     assert (sc.LAUNCHES, st.LAUNCHES, rg.LAUNCHES, pc.LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# decode_attention (K3) and matmul (K8), tiles from the tuned plan
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def memory_plans():
+    """A memory-only default plan cache, so no plan file is read."""
+    from repro_torch.tune import PlanCache, set_default_cache
+    set_default_cache(PlanCache(None))
+    yield
+    set_default_cache(None)
+
+
+def _decode_on_card(case, dtype, dev):
+    name, b, hq, hkv, d, t, vlens, bkv, kw = case
+    q, k, v, vl = make_decode_inputs(0, b, hq, hkv, d, t, vlens)
+    tdt = getattr(torch, dtype)
+    return ((torch.from_numpy(q).to(dev, tdt), torch.from_numpy(k).to(dev, tdt),
+             torch.from_numpy(v).to(dev, tdt), torch.from_numpy(vl).to(dev)),
+            dict(kw, bkv=bkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
+def test_decode_kernel_matches_plain(cuda, memory_plans, case, dtype):
+    args, kw = _decode_on_card(case, dtype, cuda)
+    got = _launched_once(da, lambda: ops.decode_attention(*args, **kw))
+    kw.pop("bkv")
+    want = ref.decode_attention(*args, **kw)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        # float32 math, one rounding out
+        q, k, v, vl = args
+        want32 = ref.decode_attention(q.float(), k.float(), v.float(), vl,
+                                      **kw)
+        assert bool(((got.float() - want32).abs()
+                     <= TOL["float32"] + 2.0 ** -8 * want32.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 3, 16, 32])
+def test_decode_kernel_at_every_depth(cuda, depth):
+    """The ring of tiles in flight changes no result."""
+    args, _ = _decode_on_card(DECODE_CASES[0], "float32", cuda)
+    got = da.decode_attention(*args, bkv=8, depth=depth)
+    torch.testing.assert_close(got, ref.decode_attention(*args), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 64, 1024])   # one split, and many
+def test_decode_kernel_rows_without_a_key_are_zero(cuda, t):
+    """valid_len 0 (or below 0) leaves a row no key: exactly 0 here (the
+    reference's oracle returns the mean of V, its kernel the mean of its
+    padding; ROADMAP C4), and the other rows are unchanged."""
+    q, k, v, _ = make_decode_inputs(3, 3, 8, 2, 128, t, [0, 0, 0])
+    q, k, v = (torch.from_numpy(a).to(cuda) for a in (q, k, v))
+    vl = torch.tensor([0, -5, t], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, vl, bkv=8)
+    assert torch.count_nonzero(got[:2]) == 0
+    torch.testing.assert_close(got[2:], ref.decode_attention(
+        q[2:], k[2:], v[2:], vl[2:]), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_clamps_valid_len_to_t(cuda):
+    args, _ = _decode_on_card(DECODE_CASES[3], "float32", cuda)
+    q, k, v, vl = args
+    got = ops.decode_attention(q, k, v, vl + 1000, bkv=32)
+    full = torch.full_like(vl, k.shape[1])
+    torch.testing.assert_close(got, ref.decode_attention(q, k, v, full),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_what_it_cannot_take(cuda):
+    (q, k, v, vl), _ = _decode_on_card(DECODE_CASES[3], "float32", cuda)
+    before = da.LAUNCHES
+    with pytest.raises(ValueError, match="geometry"):      # D 32
+        da.decode_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                            v[..., :32].contiguous(), vl)
+    with pytest.raises(ValueError, match="dtype"):
+        da.decode_attention(q, k.to(torch.bfloat16), v.to(torch.bfloat16), vl)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        da.decode_attention(q.half(), k.half(), v.half(), vl)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                            v, vl)
+    with pytest.raises(ValueError, match="int32"):
+        da.decode_attention(q, k, v, vl.long())
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention(q.cpu(), k.cpu(), v.cpu(), vl.cpu())
+    with pytest.raises(ValueError, match="does not fit"):  # one tile > 227 KiB
+        da.decode_attention(q, k, v, vl, bkv=1024)
+    with pytest.raises(ValueError, match="bkv and depth"):
+        da.decode_attention(q, k, v, vl, bkv=8, depth=0)
+    assert da.LAUNCHES == before
+
+
+def _matmul_on_card(m, k, n, dtype, dev, seed=0):
+    tdt = getattr(torch, dtype)
+    return tuple(torch.from_numpy(a).to(dev, tdt)
+                 for a in make_matmul_inputs(seed, m, k, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", MATMUL_BLOCKS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", MATMUL_MKN)
+def test_matmul_kernel_matches_plain(cuda, mkn, dtype, blocks):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = _matmul_on_card(*mkn, dtype, cuda)
+    bm, bn, bk = blocks
+    got = _launched_once(mm, lambda: ops.matmul(x, y, bm=bm, bn=bn, bk=bk))
+    tol = MATMUL_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.matmul(x, y).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_kernel_plan_tiles(cuda, memory_plans, dtype):
+    """(m, k, n) = (96, 100, 64) with tiles left to the plan: its 64 tile
+    fitted to (32, 64, 4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = _matmul_on_card(96, 100, 64, dtype, cuda)
+    assert ops.matmul_tiles(x, y) == (32, 64, 4)
+    got = _launched_once(mm, lambda: ops.matmul(x, y))
+    tol = MATMUL_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.matmul(x, y).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [(48, 40, 24), (128, 8, 256), (1, 128, 3),
+                                   (128, 128, 512)])
+def test_matmul_kernel_ragged_tiles(cuda, tiles):
+    """Tiles that do not divide the dims, and a K step staged in
+    sub-steps (bk 512 at 128 x 128 tiles)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = _matmul_on_card(100, 700, 72, "float32", cuda)
+    bm, bn, bk = tiles
+    got = mm.matmul(x, y, bm=bm, bn=bn, bk=bk)
+    torch.testing.assert_close(got, ref.matmul(x, y), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_matmul_kernel_bf16_within_one_rounding(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = _matmul_on_card(256, 1024, 384, "bfloat16", cuda)
+    got = ops.matmul(x, y, bm=128, bn=128, bk=128).float()
+    want32 = ref.matmul(x.float(), y.float())
+    assert bool(((got - want32).abs()
+                 <= TOL["float32"] + 2.0 ** -8 * want32.abs()).all())
+
+
+@pytest.mark.cuda
+def test_matmul_kernel_refuses_what_it_cannot_take(cuda):
+    x, y = _matmul_on_card(64, 32, 48, "float32", cuda)
+    before = mm.LAUNCHES
+    with pytest.raises(ValueError, match="tiles of 1 to 128"):
+        mm.matmul(x, y, bm=256, bn=64, bk=64)
+    with pytest.raises(ValueError, match="bk"):
+        mm.matmul(x, y, bm=64, bn=64, bk=0)
+    with pytest.raises(ValueError, match="both"):
+        mm.matmul(x, y.to(torch.bfloat16), bm=64, bn=64, bk=32)
+    with pytest.raises(ValueError, match="both"):
+        mm.matmul(x.half(), y.half(), bm=64, bn=64, bk=32)
+    with pytest.raises(ValueError, match="shapes"):
+        mm.matmul(x, y.t().contiguous(), bm=64, bn=64, bk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        mm.matmul(x, y.t().contiguous().t(), bm=64, bn=64, bk=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        mm.matmul(x.cpu(), y.cpu(), bm=64, bn=64, bk=32)
+    assert mm.LAUNCHES == before

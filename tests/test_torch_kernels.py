@@ -11,6 +11,14 @@ where each side rounds).  The CUDA kernel itself runs only on a card:
 ``test_torch_cuda.py`` holds it against the plain version there, on the
 same cases.
 
+``decode_attention`` (K3) and ``matmul`` (K8) likewise, at the cases and
+tolerances of ``tests/test_kernels.py`` (K3: 1e-4 / 3e-2, K8: 1e-4 /
+2e-2), and with tiles left to the tuned plan on both sides.  K3's rows all
+have ``valid_len >= 1``: a row with none gets the mean of V from the
+reference's oracle (and the port's plain version, a copy of it), the mean
+of its padding from the Pallas kernel, and 0 from the port's CUDA kernel
+(ROADMAP C4), so such rows are checked only on the card.
+
 ``flash_attention`` (K2) likewise: the port's plain version against the
 reference's Pallas kernel in interpret mode, with the reference's blocks at
 16 or 32, at 2e-4 in float32 and 3e-2 in bfloat16 (the tolerances of
@@ -25,12 +33,16 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
-from test_torch_cuda import (CASES, FLASH_CASES, FLASH_TOL, TOL,
-                             make_flash_inputs, make_inputs)
+from test_torch_cuda import (CASES, DECODE_CASES, DECODE_TOL, FLASH_CASES,
+                             FLASH_TOL, MATMUL_BLOCKS, MATMUL_MKN, MATMUL_TOL,
+                             TOL, make_decode_inputs, make_flash_inputs,
+                             make_inputs, make_matmul_inputs)
 
 
 def _run_both(case, dtype):
@@ -179,3 +191,218 @@ def test_cpu_flash_dispatch_takes_the_plain_path_and_kernel_refuses_cpu():
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# decode_attention (K3)
+# ---------------------------------------------------------------------------
+
+def _decode_both(seed, b, hq, hkv, d, t, vlens, dtype, bkv, **kw):
+    """(reference Pallas kernel in interpret mode, reference oracle, port
+    through ops on the CPU), as float32 numpy."""
+    arrays = make_decode_inputs(seed, b, hq, hkv, d, t, vlens)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jargs = [jnp.asarray(a, jdt) for a in arrays[:3]] + [
+        jnp.asarray(arrays[3])]
+    targs = [torch.from_numpy(a).to(tdt) for a in arrays[:3]] + [
+        torch.from_numpy(arrays[3])]
+    want_kernel = jops.decode_attention(*jargs, bkv=bkv, interpret=True, **kw)
+    want_oracle = jref.decode_attention(*jargs, **kw)
+    got = tops.decode_attention(*targs, bkv=bkv, **kw)
+    assert got.dtype == tdt and got.shape == (b, hq, d)
+    return (np.asarray(want_kernel, np.float32),
+            np.asarray(want_oracle, np.float32), got.float().numpy())
+
+
+def _close_both(want_kernel, want_oracle, got, tol):
+    np.testing.assert_allclose(got, want_kernel, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, want_oracle, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bkv", [32, 96, 256])
+@pytest.mark.parametrize("t", [100, 255, 256])
+def test_plain_decode_attention_parity_sweep(dtype, bkv, t):
+    """tests/test_kernels.py's parity sweep: ragged T, odd tiles."""
+    _close_both(*_decode_both(0, 2, 4, 2, 32, t, [min(7, t), t], dtype, bkv),
+                DECODE_TOL[dtype])
+
+
+@pytest.mark.parametrize("vlens", [[7, 130, 256], [1, 64, 255]])
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
+def test_plain_decode_attention_matches_reference_kernel(vlens, hq, hkv):
+    _close_both(*_decode_both(1, 3, hq, hkv, 32, 256, vlens, "float32", 64),
+                1e-4)
+
+
+def test_plain_decode_attention_softcap():
+    _close_both(*_decode_both(2, 2, 4, 2, 16, 128, [50, 128], "float32", 32,
+                              softcap=10.0), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
+def test_plain_decode_attention_on_the_card_cases(case, dtype):
+    """The card's cases (test_torch_cuda.py), held against the reference;
+    a case that leaves its tile to the plan gives the reference 64."""
+    name, b, hq, hkv, d, t, vlens, bkv, kw = case
+    _close_both(*_decode_both(0, b, hq, hkv, d, t, vlens, dtype, bkv or 64,
+                              **kw), DECODE_TOL[dtype])
+
+
+def test_cpu_decode_dispatch_takes_the_plain_path_and_kernel_refuses_cpu():
+    q, k, v, vl = (torch.from_numpy(a)
+                   for a in make_decode_inputs(3, 2, 4, 2, 64, 40, [5, 40]))
+    before = tda.LAUNCHES
+    out = tops.decode_attention(q, k, v, vl, bkv=16, softcap=3.0)
+    assert tda.LAUNCHES == before
+    torch.testing.assert_close(out, tref.decode_attention(q, k, v, vl,
+                                                          softcap=3.0),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tda.decode_attention(q, k, v, vl)
+    with pytest.raises(ValueError, match="no path"):
+        tops.decode_attention(q.to("meta"), k.to("meta"), v.to("meta"),
+                              vl.to("meta"), bkv=16)
+
+
+@pytest.mark.parametrize("g, d, itemsize, bkv, depth, want", [
+    (3, 128, 2, 8, 16, 16),      # phi4-mini's plan: 16 tiles of 8 rows
+    (8, 256, 2, 8, 16, 16),      # gemma-2b's plan in bfloat16
+    (8, 256, 4, 8, 16, 13),      # ... in float32: 13 stages fit 227 KiB
+    (2, 64, 4, 256, 2, 1),       # an explicit 256-row tile: one stage
+    (1, 64, 2, 1, 64, 32),       # never more than 32 in flight
+])
+def test_decode_ring_rule(g, d, itemsize, bkv, depth, want):
+    """The stages the kernel runs: the plan's depth, capped by a block's
+    shared memory."""
+    assert tda.stages_for(g, d, itemsize, bkv, depth) == want
+
+
+def test_decode_ring_rule_refuses_a_tile_that_cannot_fit():
+    with pytest.raises(ValueError, match="does not fit"):
+        tda.stages_for(8, 256, 4, 128, 2)
+
+
+@pytest.mark.parametrize("b, hkv, t, bkv, want", [
+    (8, 8, 1024, 8, 9),      # phi4-mini at batch 8: 9 blocks per row
+    (8, 1, 1024, 8, 66),     # gemma-2b's one kv head
+    (2, 2, 100, 32, 4),      # a block per tile caps it
+    (600, 1, 1024, 8, 1),    # the batch alone fills the card
+])
+def test_decode_split_rule(monkeypatch, b, hkv, t, bkv, want):
+    """Blocks sharing a row's token walk, on a 132-SM card."""
+    monkeypatch.setattr(tda, "_sm_count", lambda index: 132)
+    q = torch.empty((b, hkv, 64), device="meta")
+    k = torch.empty((b, t, hkv, 64), device="meta")
+    assert tda.tiles(q, k, bkv, 2)["splits"] == want
+
+
+# ---------------------------------------------------------------------------
+# matmul (K8)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("blocks", MATMUL_BLOCKS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", MATMUL_MKN)
+def test_plain_matmul_matches_reference_kernel(mkn, dtype, blocks):
+    m, k, n = mkn
+    bm, bn, bk = blocks
+    x, y = make_matmul_inputs(0, m, k, n)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jx, jy = jnp.asarray(x, jdt), jnp.asarray(y, jdt)
+    want_kernel = jops.matmul(jx, jy, bm=bm, bn=bn, bk=bk, interpret=True)
+    want_oracle = jref.matmul(jx, jy)
+    got = tops.matmul(torch.from_numpy(x).to(tdt), torch.from_numpy(y).to(tdt),
+                      bm=bm, bn=bn, bk=bk)
+    assert got.dtype == tdt and got.shape == (m, n)
+    _close_both(np.asarray(want_kernel, np.float32),
+                np.asarray(want_oracle, np.float32), got.float().numpy(),
+                MATMUL_TOL[dtype])
+
+
+@pytest.mark.parametrize("m, n, k, block, want", [
+    (96, 64, 100, 64, (32, 64, 4)),
+    (4096, 4096, 4096, 128, (128, 128, 128)),
+    (8, 8192, 3072, 8, (8, 8, 8)),
+    (100, 72, 700, 128, (100, 72, 4)),
+])
+def test_matmul_tiles_follow_the_references_fit(m, n, k, block, want):
+    from repro_torch.tune import KernelPlan
+    plan = KernelPlan(kernel="matmul", bq=block, bkv=block, head_dim=block)
+    x, y = torch.empty((m, k), device="meta"), torch.empty((k, n),
+                                                            device="meta")
+    assert tops.matmul_tiles(x, y, plan=plan) == want
+    # explicit tiles win, clamped to the dims
+    assert tops.matmul_tiles(x, y, bm=512, bn=3, bk=5, plan=plan) == (
+        min(512, m), 3, 5)
+
+
+@pytest.mark.parametrize("bm, bn, bk, want", [
+    (128, 128, 128, 128),    # the plan's tile: one stage of 128.5 KiB
+    (128, 128, 512, 128),    # staged in sub-steps
+    (8, 8, 8, 8), (32, 64, 4, 4),
+    (128, 128, 300, 150),
+])
+def test_matmul_staging_rule(bm, bn, bk, want):
+    assert tmm.staging(bm, bn, bk) == want
+
+
+def test_matmul_staging_rule_refuses_wide_tiles():
+    with pytest.raises(ValueError, match="tiles of 1 to 128"):
+        tmm.staging(256, 128, 128)
+
+
+def test_cpu_matmul_dispatch_takes_the_plain_path_and_kernel_refuses_cpu():
+    x, y = (torch.from_numpy(a) for a in make_matmul_inputs(4, 40, 24, 56))
+    before = tmm.LAUNCHES
+    out = tops.matmul(x, y, bm=8, bn=8, bk=8)
+    assert tmm.LAUNCHES == before
+    torch.testing.assert_close(out, tref.matmul(x, y), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmm.matmul(x, y, bm=8, bn=8, bk=8)
+
+
+# ---------------------------------------------------------------------------
+# tiles left to the tuned plan, on both sides
+# ---------------------------------------------------------------------------
+
+def test_kernels_accept_tuned_plan_defaults():
+    """tests/test_kernels.py's plan-default test: with memory-only plan
+    caches on both sides and no tiles given, both packages resolve their
+    plans, agree, and key them alike."""
+    from repro.tune import PlanCache as JCache
+    from repro.tune import set_default_cache as j_set
+    from repro_torch.tune import PlanCache, set_default_cache
+    jcache, tcache = JCache(None), PlanCache(None)
+    j_set(jcache)
+    set_default_cache(tcache)
+    try:
+        rng = np.random.default_rng(9)
+        arr = [rng.standard_normal(s).astype(np.float32)
+               for s in ((2, 4, 16), (2, 90, 2, 16), (2, 90, 2, 16))]
+        vl = np.asarray([13, 90], np.int32)
+        want = jops.decode_attention(*(jnp.asarray(a) for a in arr),
+                                     jnp.asarray(vl))
+        got = tops.decode_attention(*(torch.from_numpy(a) for a in arr),
+                                    torch.from_numpy(vl))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+        x, y = (rng.standard_normal(s).astype(np.float32)
+                for s in ((96, 100), (100, 64)))
+        want = jops.matmul(jnp.asarray(x), jnp.asarray(y))
+        got = tops.matmul(torch.from_numpy(x), torch.from_numpy(y))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+        for prefix in ("decode_attention|90x16|float32|",
+                       "matmul|96x64x100|float32|"):
+            assert any(key.startswith(prefix) for key in tcache.plans())
+            assert any(key.startswith(prefix) for key in jcache.plans())
+        # a bfloat16 tensor keys its plan "bfloat16", as the reference does
+        xb = torch.from_numpy(x).to(torch.bfloat16)
+        tops.matmul(xb, torch.from_numpy(y).to(torch.bfloat16))
+        assert any(key.startswith("matmul|96x64x100|bfloat16|")
+                   for key in tcache.plans())
+    finally:
+        j_set(None)
+        set_default_cache(None)

@@ -8,7 +8,11 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch_kernels``.  Phases, one ``[tag]`` line each:
 
 1. card: the card's name and power limit, torch and CUDA versions;
-2. build: every kernel, one ``nvcc`` each, all started together;
+2. build: every kernel, one ``nvcc`` each, all started together; the
+   compiler's registers and spills (``[ptxas]``), and a ``[sass]`` line per
+   kernel counting its tensor-core instructions in the built machine code
+   (``HGMMA``: warpgroup ``wgmma``; ``HMMA``: warp ``mma.sync``), which
+   fails unless K8 has ``HGMMA`` and K2 ``HMMA`` or ``HGMMA``;
 3. K1: the ``paged_attention`` kernel against its plain PyTorch version on
    the card: gemma-2b's decode geometry with ragged lengths, GQA, softcap,
    a ring window, int8 lanes, rows with no live token and the main path's
@@ -27,10 +31,14 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 7. K2: the ``flash_attention`` kernel against its plain version: phi4-mini's
    geometry (24/8 heads, D 128), gemma-2b's (8/1, D 256), a ragged length,
    window 96, softcap 30 and a non-causal cross length, in float32
-   (tolerance 2e-4) and bfloat16 (3e-2, and within one bfloat16 rounding
-   of the float32 plain version);
+   (tolerance 2e-4, the CUDA cores) and bfloat16 (3e-2, and within one
+   bfloat16 rounding of the float32 plain version; the tensor cores), each
+   line naming its route; and a window with Sq > Skv, whose rows without a
+   key must be exactly 0;
 8. K2 time at the dense phase's largest prefill (B 1, 24/8 heads, S 512,
-   D 128, bf16, causal), beside its plain version, SDPA and its bound;
+   D 128, bf16, causal), beside its plain version, SDPA and its bound,
+   with its route, design (tiles, P V precision) and resident blocks per
+   SM;
 9. dense serve: full-width phi4-mini-3.8b (bf16, random weights from a
    seeded generator) through ``ServeEngine(cache_backend="dense")`` with
    ``attn_impl="pallas"``: the same 16 requests, batch 8, max_len 1024, 32
@@ -65,7 +73,9 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    tiles, pipeline depth, predicted GB/s, fingerprint and source are
    printed, and K3 and K8 run through ``kernels.ops`` with their tiles left
    to the plan, from both caches; every launch must count, and every
-   output must match the plain version;
+   output must match the plain version.  bf16 K8 maps every plan onto one
+   of three fixed tiles (by M and the plan's bn), so its two caches check
+   the plumbing, not a choice of tiles;
 16. K3: ``decode_attention`` against its plain version: phi4-mini's (24/8,
    D 128), gemma-2b's (8/1, D 256) and the reference test's (4/2, at D 64)
    geometry, T 100, 255 and 256, tiles of 32, 96 and 256 rows and the
@@ -77,14 +87,22 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    boolean mask, and the roofline bound;
 18. K8: ``matmul`` against its plain version (TF32 off): the reference's
    (m, k, n) triples with blocks of 64 and 128, the plan's tiles at (96,
-   100, 64), and the two timed shapes, in float32 (1e-4) and bfloat16
-   (2e-2; at the timed shapes within one bfloat16 rounding of the float32
-   plain version plus the float32 summation bound);
+   100, 64), and the two timed shapes, in float32 (1e-4, the CUDA cores)
+   and bfloat16 (2e-2, the tensor cores; at the timed shapes within one
+   bfloat16 rounding of the float32 plain version plus the float32
+   summation bound), each line naming the route and configuration it ran
+   (tile, stages, staging by TMA or element by element);
 19. K8 time at 4096^3 and at (M, N, K) = (8, 8192, 3072), bf16, the plan's
-   tiles, beside its plain version, ``torch.matmul`` and the roofline
-   bound.
+   tiles and the kernel's configuration, beside its plain version,
+   ``torch.matmul`` and the roofline bound.
 
-It ends with the kernels' JSON line, the card line and the result line.
+Kernel times are CUDA-event times over back-to-back calls behind a spin
+of the card, so they time the card's work, not the host's enqueueing.
+
+It ends with a ``[previous]`` line (K2's and K8's times before their
+tensor-core redesign, as PERF.md records them: not measured in this run),
+the kernels' JSON line (K2 and K8 also carry their design), the card line
+and the result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
 """
@@ -105,6 +123,14 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 BF16_ROUNDING = 2.0 ** -8          # bfloat16 unit roundoff
 L2_BYTES = 50 * 2**20
+COVER_CYCLES = 2_000_000           # about 1 ms of spin on the card
+# K1's and K2's kernels on the serving paths, by the words their names hold
+# in the profiler (K1's split-KV merge kernel is not counted)
+PORT_KERNELS = ("paged_attention", "flash_attention")
+# K2 and K8's times at their first timed shapes before their tensor-core
+# redesign (CUDA-core bodies), as PERF.md records them: printed on a line
+# of their own, never in the kernels' line, which holds this run's numbers
+PREVIOUS_MS = {"flash_attention": 0.2287, "matmul": 20.78}
 
 
 class SmokeFailure(Exception):
@@ -122,6 +148,22 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0].strip()
+
+
+def sass_phase(kbuild):
+    """Tensor-core instructions in each built kernel's machine code (from
+    ``cuobjdump --dump-sass``): ``HGMMA`` is a warpgroup ``wgmma``, ``HMMA``
+    a warp ``mma.sync``.  K8's bfloat16 route must issue ``wgmma`` and K2's
+    one or the other."""
+    counts = {name: kbuild.sass_counts(name) for name in kbuild.sources()}
+    for name, c in counts.items():
+        print(f"[sass] {name}: HGMMA={c['HGMMA']} HMMA={c['HMMA']}",
+              flush=True)
+    check(counts["matmul"]["HGMMA"] > 0,
+          "matmul's machine code has no HGMMA (wgmma) instruction")
+    check(counts["flash_attention"]["HGMMA"]
+          + counts["flash_attention"]["HMMA"] > 0,
+          "flash_attention's machine code has no HMMA or HGMMA instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -219,12 +261,17 @@ def k1_check(torch, pa, ref):
 
 def time_ms(torch, fn, sets, iters=50, warmup=5):
     """CUDA-event time per call, cycling through ``sets`` of inputs whose
-    total exceeds the L2 cache, so every call reads device memory."""
+    total exceeds the L2 cache, so every call reads device memory.  The
+    card first spins about 1 ms per timed call, while the host enqueues
+    them, so the events time the card's work and not the host's enqueueing
+    (a wrapper's checks, a plan lookup, ctypes): as core/engines.py times
+    the memory engines."""
     for i in range(warmup):
         fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(COVER_CYCLES * iters)
     start.record()
     for i in range(iters):
         fn(*sets[i % len(sets)])
@@ -325,13 +372,40 @@ def k2_check(torch, fa, ref):
                          f"tol_f32_plus_one_rounding=1e-4+2^-8*|w| "
                          f"ok_f32_plain={ok32}")
                 ok = ok and ok32
-            print(f"[K2] case={name} dtype={dname} B={b} Hq={hq} Hkv={hkv} "
-                  f"Sq={sq} Skv={skv} D={d} {kw or ''} max_abs_err={err:.3e} "
-                  f"tol={tol}{tight} ok={ok}", flush=True)
+            print(f"[K2] case={name} dtype={dname} route={fa.route(dtype)} "
+                  f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+                  f"{kw or ''} max_abs_err={err:.3e} tol={tol}{tight} "
+                  f"ok={ok}", flush=True)
             check(ok, f"K2 {name} {dname}: max_abs_err {err} over {tol}, "
                   "or more than one bfloat16 rounding from the float32 "
                   "plain version")
             worst = max(worst, err)
+    # window 64 with Sq 300 > Skv 128: rows from 128 + 64 - 1 on see no key
+    # and must be exactly 0; the rest hold the tolerance
+    b, hq, hkv, sq, skv, d, window = 1, 8, 2, 300, 128, 128, 64
+    first = skv + window - 1
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        q = torch.randn((b, hq, sq, d), generator=gen).to(dev, dtype)
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen).to(dev, dtype)
+                for _ in range(2))
+        got = fa.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, v, window=window)
+        nonzero = int(torch.count_nonzero(got[:, :, first:]))
+        g, w = got.float(), want.float()
+        err = float((g - w).abs().max())
+        tol = FLASH_TOL[dname]
+        ok = nonzero == 0 and bool(((g - w).abs() <= tol + tol * w.abs()
+                                    ).all())
+        print(f"[K2] case=rows-without-a-key dtype={dname} "
+              f"route={fa.route(dtype)} B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+              f"Skv={skv} D={d} window={window} rows_without_key={sq - first}"
+              f" nonzero_in_them={nonzero} max_abs_err={err:.3e} tol={tol} "
+              f"ok={ok}", flush=True)
+        check(ok, f"K2 rows without a key {dname}: {nonzero} nonzero "
+              f"values, or max_abs_err {err} over {tol}")
+        worst = max(worst, err)
     return worst
 
 
@@ -359,13 +433,18 @@ def k2_time(torch, fa, ref, card):
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    route = fa.route(torch.bfloat16)
+    blocks = fa.occupancy(d)
     print(f"[K2 time] shape=B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16 causal "
-          f"input_copies={copies} card='{card}' ms={ms:.4f} "
+          f"route={route} design='{fa.DESIGN}' "
+          f"resident_blocks_per_sm={blocks} grid_blocks={-(-s // 64) * hq * b}"
+          f" input_copies={copies} card='{card}' ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
           f"bound_ms={bound_ms:.4f} bound_by={bound_by} "
           f"achieved_TFLOPs={ops / ms / 1e9:.2f}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                design=f"{route} {fa.DESIGN}", resident_blocks_per_sm=blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -490,10 +569,20 @@ def profile_window(torch, eng, reqs, steps=(("decode window", _prepare_decode),
         top = sorted(evs, key=lambda e: -e.self_device_time_total)[:4]
         desc = "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}"
                          f"ms x{e.count}" for e in top)
+        # the port's own kernels, by the names of their entry functions
+        ours = {}
+        for e in evs:
+            for name in PORT_KERNELS:
+                if name in e.key:
+                    ms, n = ours.get(name, (0.0, 0))
+                    ours[name] = (ms + e.self_device_time_total / 1e3,
+                                  n + e.count)
+        own = " ".join(f"{name}_ms={ms:.3f}x{n}"
+                       for name, (ms, n) in sorted(ours.items()))
         lines.append(f"[profile] step='{label}' wall_ms={wall * 1e3:.3f} "
                      f"device_busy_ms={busy:.3f} "
                      f"device_busy_share={busy / (wall * 1e3):.3f} "
-                     f"top='{desc}'")
+                     f"{own} top='{desc}'")
     return lines
 
 
@@ -1141,8 +1230,8 @@ def tune_phase(torch, cal, card):
             x, y = k8[key]
             bm, bn, bk = ops.matmul_tiles(x, y, plan=plan)
             desc = (f"kernel=matmul MxNxK={'x'.join(map(str, key))} "
-                    f"tile={plan.bq} tiles_run=({bm},{bn},{bk}) "
-                    f"kc={mm.staging(bm, bn, bk)}")
+                    f"tile={plan.bq} plan_tiles=({bm},{bn},{bk}) "
+                    f"kernel_config='{mm.configuration(x, y, bm, bn, bk)}'")
             err = k8_holds(torch, ref, "tune", f"source={source} {desc}",
                               outs[source, key], x, y, tight=True)
         print(f"[tune] plan source={plan.source} {desc} "
@@ -1314,7 +1403,7 @@ def k8_check(torch, ops, ref, mm):
                 got = ops.matmul(x, y, bm=bm, bn=bn, bk=bk)
                 desc = (f"case=(m,k,n)=({m},{k},{n}) "
                         f"tiles={'plan:' if blocks is None else ''}{tiles} "
-                        f"kc={mm.staging(*tiles)}")
+                        f"kernel_config='{mm.configuration(x, y, *tiles)}'")
                 worst = max(worst, k8_holds(torch, ref, "K8", desc, got, x,
                                             y))
         for m, n, k in K8_SHAPES:
@@ -1323,7 +1412,8 @@ def k8_check(torch, ops, ref, mm):
             tiles = ops.matmul_tiles(x, y)
             worst = max(worst, k8_holds(
                 torch, ref, "K8", f"case=timed MxNxK={m}x{n}x{k} "
-                f"tiles=plan:{tiles} kc={mm.staging(*tiles)}",
+                f"tiles=plan:{tiles} "
+                f"kernel_config='{mm.configuration(x, y, *tiles)}'",
                 ops.matmul(x, y), x, y, tight=True))
     finally:
         set_default_cache(None)
@@ -1359,8 +1449,9 @@ def k8_time(torch, ops, ref, mm, card):
                                  sets)
             flops = 2 * m * n * k
             bound_ms, bound_by, dominant = roofline_bound(flops, moved)
-            print(f"[K8 time] MxNxK={m}x{n}x{k} bf16 tiles={tiles} "
-                  f"kc={mm.staging(*tiles)} input_copies={copies} "
+            config = mm.configuration(*sets[0], *tiles)
+            print(f"[K8 time] MxNxK={m}x{n}x{k} bf16 plan_tiles={tiles} "
+                  f"kernel_config='{config}' input_copies={copies} "
                   f"iters={iters} card='{card}' ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
                   f"(torch.matmul) bound_ms={bound_ms:.4f} "
@@ -1369,8 +1460,8 @@ def k8_time(torch, ops, ref, mm, card):
                   f"achieved_GBps={moved / ms / 1e6:.1f}", flush=True)
             timed.append(dict(shape_mnk=[m, n, k],
                               tiles=dict(bm=tiles[0], bn=tiles[1],
-                                         bk=tiles[2],
-                                         kc=mm.staging(*tiles)),
+                                         bk=tiles[2]),
+                              kernel_config=config,
                               ms=ms, plain_ms=plain_ms,
                               library_ms=library_ms, bound_ms=bound_ms,
                               bound_by=bound_by))
@@ -1381,6 +1472,7 @@ def k8_time(torch, ops, ref, mm, card):
     return dict(ms=first["ms"], plain_ms=first["plain_ms"],
                 library_ms=first["library_ms"], bound_ms=first["bound_ms"],
                 bound_by=first["bound_by"], tiles=first["tiles"],
+                design=" | ".join(t["kernel_config"] for t in timed),
                 timed=timed)
 
 
@@ -1424,6 +1516,7 @@ def main():
             for line in kbuild.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"[ptxas] {name}: {line.strip()}", flush=True)
+        sass_phase(kbuild)
         err = k1_check(torch, pa, ref)
         timing = k1_time(torch, pa, ref, card)
         launches = serve_phase(torch, np, card)
@@ -1475,10 +1568,7 @@ def main():
     k2 = dict(name="flash_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/flash_attention.cu",
               replaces="src/repro/kernels/flash_attention.py:128",
-              launches=k2_launches, max_abs_err=k2_err, ms=k2_timing["ms"],
-              plain_ms=k2_timing["plain_ms"], bound_ms=k2_timing["bound_ms"],
-              bound_by=k2_timing["bound_by"],
-              library_ms=k2_timing["library_ms"])
+              launches=k2_launches, max_abs_err=k2_err, **k2_timing)
     replaces = dict(stream_copy="src/repro/kernels/stream_copy.py:29",
                     strided_copy="src/repro/kernels/strided_copy.py:22",
                     random_gather="src/repro/kernels/random_gather.py:46",
@@ -1498,6 +1588,11 @@ def main():
               replaces="src/repro/kernels/matmul.py:58",
               launches=tune_launches["matmul"], max_abs_err=k8_err,
               **k8_timing)
+    print("[previous] not measured in this run: "
+          + " ".join(f"{name}_ms={ms}" for name, ms in PREVIOUS_MS.items())
+          + " (the CUDA-core bodies before the tensor-core redesign, from "
+          "PERF.md section 6: an earlier run whose kernel times had no spin "
+          "before the events, NVIDIA H100 80GB HBM3, 700.00 W)")
     print(json.dumps({"kernels": [k1, k2, k3] + mem + [k8]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

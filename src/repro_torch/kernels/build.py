@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -30,12 +31,12 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset and no "
                            "nvcc on PATH): the port's kernels cannot build")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    return os.path.join(CUDA_HOME, "bin", name)
 
 
 def library_path(name: str) -> Path:
@@ -53,7 +54,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     each library as ``<library>.log``."""
     names = list(sources()) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = _tool("nvcc")
     jobs = {}
     t0 = time.perf_counter()
     for name in names:
@@ -91,3 +92,28 @@ def load(name: str) -> ctypes.CDLL:
     process)."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+# "/*0450*/  @P0  HMMA.16816.F32.BF16 R4, ..." -> "HMMA"
+_SASS_OPCODE = re.compile(
+    r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
+
+
+def count_opcodes(sass: str, opcodes: Iterable[str]) -> Dict[str, int]:
+    """Instructions in a ``cuobjdump --dump-sass`` listing whose opcode
+    (before its first ``.``) is each of ``opcodes``."""
+    counts = {op: 0 for op in opcodes}
+    for match in _SASS_OPCODE.finditer(sass):
+        if match.group(1) in counts:
+            counts[match.group(1)] += 1
+    return counts
+
+
+def sass_counts(name: str, opcodes: Iterable[str] = ("HGMMA", "HMMA")
+                ) -> Dict[str, int]:
+    """Tensor-core instructions in the built kernel's machine code:
+    ``HGMMA`` is a warpgroup ``wgmma``, ``HMMA`` a warp ``mma.sync``."""
+    sass = subprocess.run([_tool("cuobjdump"), "--dump-sass",
+                           str(library_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+    return count_opcodes(sass, opcodes)

@@ -611,3 +611,156 @@ def test_matmul_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         mm.matmul(x.cpu(), y.cpu(), bm=64, bn=64, bk=32)
     assert mm.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes of matmul (K8, wgmma) and flash_attention (K2,
+# mma.sync) in bfloat16, held within one bfloat16 rounding of the float32
+# plain version
+# ---------------------------------------------------------------------------
+
+def _bf16_matmul_holds(got, x, y):
+    """Within MATMUL_TOL of the plain version, and within one bfloat16
+    rounding of the float32 plain version plus twice the float32 bound on a
+    K-term sum taken in another order (2 * K * 2^-24 * (|x| @ |y|))."""
+    torch.testing.assert_close(got.float(), ref.matmul(x, y).float(),
+                               rtol=MATMUL_TOL["bfloat16"],
+                               atol=MATMUL_TOL["bfloat16"])
+    want32 = ref.matmul(x.float(), y.float())
+    acc = 2 * x.shape[1] * 2.0 ** -24 * (x.float().abs() @ y.float().abs())
+    assert bool(((got.float() - want32).abs()
+                 <= TOL["float32"] + 2.0 ** -8 * want32.abs() + acc).all())
+
+
+# (name, m, k, n, plan tiles (bm, bn, bk), the configuration's tile, staging)
+# against every compiled configuration: K != N with non-square tiles (a
+# transposed B cannot pass by symmetry), ragged M, N and K, decode M, and
+# shapes whose K or N is not a multiple of 8 (no TMA)
+MATMUL_BF16_CASES = [
+    ("wide-k-ne-n", 192, 320, 512, (128, 128, 64), (128, 256), "tma"),
+    ("narrow-k-ne-n", 256, 192, 384, (64, 64, 64), (128, 128), "tma"),
+    ("wide-ragged", 200, 264, 520, (128, 128, 128), (128, 256), "tma"),
+    ("narrow-ragged", 130, 136, 200, (64, 64, 64), (128, 128), "tma"),
+    ("decode-m1", 1, 3072, 1024, (8, 8, 8), (64, 64), "tma"),
+    ("decode-m8", 8, 1024, 768, (8, 8, 8), (64, 64), "tma"),
+    ("decode-m64", 64, 512, 320, (64, 64, 64), (64, 64), "tma"),
+    ("decode-ragged", 37, 200, 136, (8, 8, 8), (64, 64), "tma"),
+    ("reference-96x100x64", 96, 100, 64, (32, 64, 4), (128, 128),
+     "elementwise"),
+    ("wide-unaligned", 150, 101, 300, (128, 128, 128), (128, 256),
+     "elementwise"),
+    ("decode-unaligned", 5, 77, 93, (8, 8, 8), (64, 64), "elementwise"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MATMUL_BF16_CASES,
+                         ids=[c[0] for c in MATMUL_BF16_CASES])
+def test_matmul_bf16_wgmma_matches_plain(cuda, case):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, m, k, n, (bm, bn, bk), tile, staged = case
+    x, y = _matmul_on_card(m, k, n, "bfloat16", cuda, seed=m + k + n)
+    cfg = mm.kernel_config(m, n, k, bn)
+    assert ((cfg.tile_m, cfg.tile_n), cfg.staging) == (tile, staged)
+    assert mm.configuration(x, y, bm=bm, bn=bn, bk=bk) == str(cfg)
+    got = _launched_once(mm, lambda: mm.matmul(x, y, bm=bm, bn=bn, bk=bk))
+    _bf16_matmul_holds(got, x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(128, 256), (128, 128), (64, 64)])
+def test_matmul_bf16_misaligned_bases_stage_elementwise(cuda, tile):
+    """TMA-aligned dims whose bases start 2 bytes into a buffer: staged
+    element by element, same result."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = 128 if tile[0] == 128 else 16
+    bn = 128 if tile[1] == 256 else 64
+    k, n = 192, 320
+    x0, y0 = _matmul_on_card(m, k, n, "bfloat16", cuda, seed=7)
+    x = torch.empty(m * k + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    y = torch.empty(k * n + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    x, y = x.view(m, k).copy_(x0), y.view(k, n).copy_(y0)
+    assert "staging=elementwise" in mm.configuration(x, y, bm=64, bn=bn,
+                                                     bk=64)
+    assert f"tile={tile[0]}x{tile[1]}x" in mm.configuration(x, y, bm=64,
+                                                           bn=bn, bk=64)
+    got = _launched_once(mm, lambda: mm.matmul(x, y, bm=64, bn=bn, bk=64))
+    _bf16_matmul_holds(got, x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 256])
+def test_matmul_bf16_deep_k_within_one_rounding(cuda, m):
+    """K = 4096: one bfloat16 rounding of the float32 plain version plus the
+    float32 summation bound, decode and wide configurations."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = _matmul_on_card(m, 4096, 512, "bfloat16", cuda, seed=11)
+    got = _launched_once(mm, lambda: ops.matmul(x, y, bm=128, bn=128,
+                                                bk=128))
+    _bf16_matmul_holds(got, x, y)
+
+
+# (name, B, Hq, Hkv, Sq, Skv, D, kwargs): every row sees a key
+FLASH_BF16_CASES = [
+    ("d64-window", 1, 4, 2, 200, 200, 64, dict(window=40)),
+    ("d64-cross-causal", 2, 4, 1, 96, 64, 64, {}),
+    ("d128-softcap", 1, 8, 2, 150, 150, 128, dict(softcap=30.0)),
+    ("d128-ragged", 2, 6, 3, 333, 333, 128, {}),
+    ("d128-cross-noncausal", 2, 4, 2, 100, 356, 128, dict(causal=False)),
+    ("d256-cross-noncausal", 2, 4, 1, 70, 130, 256, dict(causal=False)),
+    ("d256-window-softcap", 1, 8, 1, 300, 300, 256,
+     dict(window=100, softcap=50.0)),
+]
+
+
+def _flash_bf16_holds(got, q, k, v, kw):
+    """Within FLASH_TOL of the plain version, and within 1e-4 + one
+    bfloat16 rounding of the float32 plain version (chip_smoke.py's
+    check)."""
+    want = ref.flash_attention(q, k, v, **kw)
+    tol = FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    want32 = ref.flash_attention(q.float(), k.float(), v.float(), **kw)
+    assert bool(((got.float() - want32).abs()
+                 <= TOL["float32"] + 2.0 ** -8 * want32.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd-view"])
+@pytest.mark.parametrize("case", FLASH_BF16_CASES,
+                         ids=[c[0] for c in FLASH_BF16_CASES])
+def test_flash_bf16_mma_matches_plain(cuda, case, layout):
+    """Contiguous (B, H, S, D), and the model's (B, S, H, D) activations
+    viewed as (B, H, S, D)."""
+    _, b, hq, hkv, sq, skv, d, kw = case
+    assert fa.route(torch.bfloat16) == "mma.sync"
+    arrays = make_flash_inputs(sq + d, b, hq, hkv, sq, skv, d)
+    if layout == "bhsd":
+        q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+                   for a in arrays)
+    else:
+        q, k, v = (torch.from_numpy(a.transpose(0, 2, 1, 3).copy())
+                   .to(cuda, torch.bfloat16).transpose(1, 2) for a in arrays)
+    got = _launched_once(fa, lambda: fa.flash_attention(q, k, v, **kw))
+    assert got.stride() == q.stride()
+    _flash_bf16_holds(got, q, k, v, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bf16_rows_without_a_key_are_exactly_zero(cuda, d):
+    """Window 32 with Sq > Skv: rows from Skv + 31 on see no key and are
+    exactly 0; the others hold the tight check."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in
+               make_flash_inputs(d, 1, 4, 2, 160, 64, d))
+    got = _launched_once(fa, lambda: fa.flash_attention(q, k, v, window=32))
+    assert torch.count_nonzero(got[:, :, 64 + 32 - 1:]) == 0
+    _flash_bf16_holds(got[:, :, :64 + 32 - 1], q[:, :, :64 + 32 - 1], k, v,
+                      dict(window=32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bf16_block_fits_an_sm(cuda, d):
+    """The block's registers and shared memory let at least one reside."""
+    assert fa.occupancy(d) >= 1

@@ -26,6 +26,8 @@ reference's Pallas kernel in interpret mode, with the reference's blocks at
 key: where none does, the port returns 0 and the Pallas kernel a value
 that depends on its block padding, so such rows are not compared.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -351,6 +353,154 @@ def test_matmul_staging_rule(bm, bn, bk, want):
 def test_matmul_staging_rule_refuses_wide_tiles():
     with pytest.raises(ValueError, match="tiles of 1 to 128"):
         tmm.staging(256, 128, 128)
+
+
+# (m, n, k, the plan's bn, bases aligned, the configuration's
+# (tile_m, tile_n, stages, staging))
+KERNEL_CONFIG_CASES = [
+    (8, 8192, 3072, 8, True, (64, 64, 8, "tma")),
+    (1, 1024, 3072, 8, True, (64, 64, 8, "tma")),
+    (64, 320, 512, 64, True, (64, 64, 8, "tma")),
+    (65, 320, 512, 64, True, (128, 128, 6, "tma")),
+    (4096, 4096, 4096, 128, True, (128, 256, 4, "tma")),
+    (200, 520, 264, 128, True, (128, 256, 4, "tma")),
+    (256, 200, 384, 128, True, (128, 128, 6, "tma")),
+    (256, 384, 192, 64, True, (128, 128, 6, "tma")),
+    (96, 64, 100, 64, True, (128, 128, 6, "elementwise")),
+    (150, 300, 101, 128, True, (128, 256, 4, "elementwise")),
+    (5, 93, 77, 8, True, (64, 64, 8, "elementwise")),
+    (128, 320, 192, 128, False, (128, 256, 4, "elementwise")),
+]
+
+
+@pytest.mark.parametrize("m, n, k, bn, aligned, want", KERNEL_CONFIG_CASES)
+def test_matmul_kernel_config_rule(m, n, k, bn, aligned, want):
+    """The plan's tiles -> the bfloat16 route's compiled configuration:
+    decode M, both N tiles, non-divisible dims, the reference's (96, 100,
+    64), and shapes or bases TMA cannot take."""
+    cfg = tmm.kernel_config(m, n, k, bn, aligned=aligned)
+    assert dataclasses.astuple(cfg) == want
+    assert tmm.compiled_configs()[cfg.tile_m, cfg.tile_n] == cfg.stages
+    assert str(cfg) == (f"wgmma tile={want[0]}x{want[1]}x64 "
+                        f"stages={want[2]} staging={want[3]}")
+
+
+def test_matmul_compiled_configs_come_from_the_source():
+    """The one list of bfloat16 configurations, read from the kernel's
+    source: three tiles, each a whole number of 64-row warpgroups."""
+    configs = tmm.compiled_configs()
+    assert configs == {(128, 256): 4, (128, 128): 6, (64, 64): 8}
+    assert all(tm % 64 == 0 for tm, _ in configs)
+
+
+def test_matmul_kernel_config_follows_the_plan_at_the_timed_shapes():
+    """At the timed shapes the plan's fitted tiles give the wide and the
+    decode configurations."""
+    from repro_torch.tune import KernelPlan
+    for (m, n, k), block, tile in (((4096, 4096, 4096), 128, (128, 256)),
+                                   ((8, 8192, 3072), 8, (64, 64))):
+        plan = KernelPlan(kernel="matmul", bq=block, bkv=block,
+                          head_dim=block)
+        x = torch.empty((m, k), device="meta", dtype=torch.bfloat16)
+        y = torch.empty((k, n), device="meta", dtype=torch.bfloat16)
+        _, bn, _ = tops.matmul_tiles(x, y, plan=plan)
+        cfg = tmm.kernel_config(m, n, k, bn)
+        assert (cfg.tile_m, cfg.tile_n, cfg.staging) == (*tile, "tma")
+
+
+@pytest.mark.parametrize("bad", [(0, 128, 128, 64), (128, 0, 128, 64),
+                                 (128, 128, 0, 64), (128, 128, 128, 0)])
+def test_matmul_kernel_config_refuses_empty_dims(bad):
+    with pytest.raises(ValueError, match="must be >= 1"):
+        tmm.kernel_config(*bad)
+
+
+def test_kernels_route_by_dtype():
+    """bfloat16 on the tensor cores, float32 on the CUDA cores; anything
+    else is refused."""
+    assert tmm.route(torch.bfloat16) == "wgmma"
+    assert tmm.route(torch.float32) == "cuda-cores"
+    assert tfa.route(torch.bfloat16) == "mma.sync"
+    assert tfa.route(torch.float32) == "cuda-cores"
+    with pytest.raises(ValueError, match="float32 or both bfloat16"):
+        tmm.route(torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.route(torch.float16)
+    x = torch.zeros((96, 100), dtype=torch.bfloat16)
+    y = torch.zeros((100, 64), dtype=torch.bfloat16)
+    assert tmm.configuration(x, y, bm=32, bn=64, bk=4).startswith(
+        "wgmma tile=128x128x64 stages=6 staging=")
+    assert tmm.configuration(x.float(), y.float(), bm=32, bn=64, bk=4) == (
+        "cuda-cores tiles=(32,64,4) kc=4")
+
+
+def _mm_operands(dtypes=("bfloat16", "bfloat16"), device="cpu",
+                 shapes=((64, 32), (32, 48))):
+    return tuple(torch.zeros(s, dtype=getattr(torch, dt), device=device)
+                 for s, dt in zip(shapes, dtypes))
+
+
+MATMUL_REFUSALS = [
+    ("cpu-bfloat16", dict(), "CUDA"),
+    ("cpu-float32", dict(dtypes=("float32", "float32")), "CUDA"),
+    ("meta-bfloat16", dict(device="meta"), "CUDA"),
+    ("mixed-dtypes", dict(dtypes=("bfloat16", "float32")), "both"),
+    ("float16", dict(dtypes=("float16", "float16")), "both"),
+    ("shapes", dict(shapes=((64, 32), (48, 32))), "shapes"),
+]
+
+
+@pytest.mark.parametrize("kw, match", [c[1:] for c in MATMUL_REFUSALS],
+                         ids=[c[0] for c in MATMUL_REFUSALS])
+def test_matmul_kernel_refuses_on_the_cpu(kw, match):
+    x, y = _mm_operands(**kw)
+    before = tmm.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        tmm.matmul(x, y, bm=64, bn=64, bk=64)
+    assert tmm.LAUNCHES == before
+
+
+def _fa_operands(dtypes=("bfloat16",) * 3, device="cpu", d=64):
+    shapes = ((1, 4, 8, d), (1, 2, 8, d), (1, 2, 8, d))
+    return tuple(torch.zeros(s, dtype=getattr(torch, dt), device=device)
+                 for s, dt in zip(shapes, dtypes))
+
+
+FLASH_REFUSALS = [
+    ("cpu-bfloat16", dict(), "CUDA"),
+    ("cpu-float32", dict(dtypes=("float32",) * 3), "CUDA"),
+    ("meta-bfloat16", dict(device="meta"), "CUDA"),
+    ("mixed-dtypes", dict(dtypes=("bfloat16", "float32", "float32")),
+     "dtype"),
+    ("float16", dict(dtypes=("float16",) * 3), "float32 or bfloat16"),
+    ("d32", dict(d=32), "geometry"),
+    ("d96", dict(d=96), "geometry"),
+    ("d512", dict(d=512), "geometry"),
+]
+
+
+@pytest.mark.parametrize("kw, match", [c[1:] for c in FLASH_REFUSALS],
+                         ids=[c[0] for c in FLASH_REFUSALS])
+def test_flash_kernel_refuses_on_the_cpu(kw, match):
+    q, k, v = _fa_operands(**kw)
+    before = tfa.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_attention(q, k, v)
+    assert tfa.LAUNCHES == before
+
+
+def test_sass_opcode_count():
+    """The [sass] line's counter: opcodes, predicated or not, and never a
+    word inside a comment."""
+    from repro_torch.kernels.build import count_opcodes
+    sass = """
+        /*0450*/                   HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;
+        /*0460*/              @P0   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0470*/              @!PT  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0480*/                   FFMA R1, R2, R3, R4 ;  /* HMMA */
+    """
+    assert count_opcodes(sass, ("HGMMA", "HMMA", "LDSM")) == dict(
+        HGMMA=1, HMMA=2, LDSM=0)
 
 
 def test_cpu_matmul_dispatch_takes_the_plain_path_and_kernel_refuses_cpu():

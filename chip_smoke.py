@@ -12,16 +12,19 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    compiler's registers and spills (``[ptxas]``), and a ``[sass]`` line per
    kernel counting its tensor-core instructions in the built machine code
    (``HGMMA``: warpgroup ``wgmma``; ``HMMA``: warp ``mma.sync``), which
-   fails unless K8 has ``HGMMA`` and K2 ``HMMA`` or ``HGMMA``;
+   fails unless K8 has ``HGMMA`` and K1, K2 and K3 ``HMMA`` or ``HGMMA``;
 3. K1: the ``paged_attention`` kernel against its plain PyTorch version on
    the card: gemma-2b's decode geometry with ragged lengths, GQA, softcap,
    a ring window, int8 lanes, rows with no live token and the main path's
    own shape, each in
    float32 (tolerance 1e-4) and bfloat16 (3e-2; and, held against the
    plain version run in float32 on the same inputs, within one bfloat16
-   rounding of its output);
-4. K1 time at the main path's shape (B 8, 128 pages of 8 tokens), beside
-   its plain version, one PyTorch call on the gathered K/V, and its bound;
+   rounding of its output), each line naming its route (bfloat16 at D 64,
+   128 and 256 on the tensor cores);
+4. K1 time at the main path's shape (B 8, 128 pages of 8 tokens), full
+   and at the serve drain's ragged lengths (its first 8 prompts plus 16
+   decoded tokens), each beside its plain version, one PyTorch call on the
+   gathered K/V, and its bound, with the configuration run;
 5. serve: full-width gemma-2b (bf16, random weights from a seeded
    generator) through the paged ``ServeEngine``: 16 requests, batch 8,
    four sharing a 256-token prefix, 32 new tokens each, drained twice.
@@ -80,11 +83,13 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    D 128), gemma-2b's (8/1, D 256) and the reference test's (4/2, at D 64)
    geometry, T 100, 255 and 256, tiles of 32, 96 and 256 rows and the
    plan's, softcap 10, a valid length of 1, in float32 (1e-4) and bfloat16
-   (3e-2, and within one bfloat16 rounding of the float32 plain version);
-   rows with a valid length of 0 must be exactly 0;
-17. K3 time at B 8, 24/8 heads, D 128, T 1024, bf16, the plan's tiles,
-   beside its plain version, SDPA on the cache's transposed views with a
-   boolean mask, and the roofline bound;
+   (3e-2, and within one bfloat16 rounding of the float32 plain version),
+   each line naming the kernel configuration the plan's tiles map to
+   (``kernel_config``); rows with a valid length of 0 must be exactly 0;
+17. K3 time at B 8, T 1024, bf16, the plan's tiles, at phi4-mini's 24/8
+   heads (D 128) and gemma-2b's 8/1 (D 256), each beside its plain
+   version, SDPA on the cache's transposed views with a boolean mask, and
+   the roofline bound;
 18. K8: ``matmul`` against its plain version (TF32 off): the reference's
    (m, k, n) triples with blocks of 64 and 128, the plan's tiles at (96,
    100, 64), and the two timed shapes, in float32 (1e-4, the CUDA cores)
@@ -99,10 +104,10 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
 
-It ends with a ``[previous]`` line (K2's and K8's times before their
-tensor-core redesign, as PERF.md records them: not measured in this run),
-the kernels' JSON line (K2 and K8 also carry their design), the card line
-and the result line.
+It ends with a ``[previous]`` line (K1's, K2's, K3's and K8's times
+before their redesign, as PERF.md records them: not measured in this run),
+the kernels' JSON line (K1, K2, K3 and K8 also carry their design), the
+card line and the result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
 """
@@ -125,12 +130,14 @@ BF16_ROUNDING = 2.0 ** -8          # bfloat16 unit roundoff
 L2_BYTES = 50 * 2**20
 COVER_CYCLES = 2_000_000           # about 1 ms of spin on the card
 # K1's and K2's kernels on the serving paths, by the words their names hold
-# in the profiler (K1's split-KV merge kernel is not counted)
+# in the profiler (K1 merges its splits inside its one launch)
 PORT_KERNELS = ("paged_attention", "flash_attention")
-# K2 and K8's times at their first timed shapes before their tensor-core
-# redesign (CUDA-core bodies), as PERF.md records them: printed on a line
-# of their own, never in the kernels' line, which holds this run's numbers
-PREVIOUS_MS = {"flash_attention": 0.2287, "matmul": 20.78}
+# times at the first timed shapes before each kernel's redesign, as PERF.md
+# records them: K2 and K8 on the CUDA cores, K1 and K3 with their first
+# CUDA bodies; printed on a line of their own, never in the kernels' line,
+# which holds this run's numbers
+PREVIOUS_MS = {"paged_attention": 0.0389, "flash_attention": 0.2287,
+               "decode_attention": 0.1717, "matmul": 20.78}
 
 
 class SmokeFailure(Exception):
@@ -153,17 +160,17 @@ def card_line():
 def sass_phase(kbuild):
     """Tensor-core instructions in each built kernel's machine code (from
     ``cuobjdump --dump-sass``): ``HGMMA`` is a warpgroup ``wgmma``, ``HMMA``
-    a warp ``mma.sync``.  K8's bfloat16 route must issue ``wgmma`` and K2's
-    one or the other."""
+    a warp ``mma.sync``.  K8's bfloat16 route must issue ``wgmma``, and
+    K1's, K2's and K3's one or the other."""
     counts = {name: kbuild.sass_counts(name) for name in kbuild.sources()}
     for name, c in counts.items():
         print(f"[sass] {name}: HGMMA={c['HGMMA']} HMMA={c['HMMA']}",
               flush=True)
     check(counts["matmul"]["HGMMA"] > 0,
           "matmul's machine code has no HGMMA (wgmma) instruction")
-    check(counts["flash_attention"]["HGMMA"]
-          + counts["flash_attention"]["HMMA"] > 0,
-          "flash_attention's machine code has no HMMA or HGMMA instruction")
+    for name in ("paged_attention", "flash_attention", "decode_attention"):
+        check(counts[name]["HGMMA"] + counts[name]["HMMA"] > 0,
+              f"{name}'s machine code has no HMMA or HGMMA instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -196,8 +203,9 @@ def k1_inputs(torch, gen, b, hq, hkv, d, page, n, vlens, dtype, int8=False,
     return q, pools, table, valid
 
 
-def k1_cases():
-    """(name, B, Hq, Hkv, D, page, N, valid lengths, kwargs)."""
+def k1_cases(drain):
+    """(name, B, Hq, Hkv, D, page, N, valid lengths, kwargs); ``drain``
+    holds the serve drain's ragged lengths (:func:`drain_lens`)."""
     return [
         # gemma-2b decode geometry: 1, 7, 9, a multiple of the page, full
         ("gemma-2b", 5, 8, 1, 256, 8, 16, [1, 7, 9, 64, 128], {}),
@@ -208,15 +216,18 @@ def k1_cases():
         ("int8-lanes", 3, 8, 1, 256, 8, 12, [2, 57, 96], dict(int8=True)),
         ("empty-rows", 3, 8, 1, 256, 8, 16, [0, 0, 40], {}),
         ("main-path", 8, 8, 1, 256, 8, 128, [1024] * 8, {}),
+        # the main path's shape at a decode tick's lengths: short and empty
+        # splits reach the split merge
+        ("main-path-drain", 8, 8, 1, 256, 8, 128, drain, {}),
     ]
 
 
-def k1_check(torch, pa, ref):
+def k1_check(torch, pa, ref, drain):
     """Every case in both dtypes against the plain version; returns the
     largest absolute error seen."""
     gen = torch.Generator().manual_seed(0)
     worst = 0.0
-    for name, b, hq, hkv, d, page, n, vlens, kw in k1_cases():
+    for name, b, hq, hkv, d, page, n, vlens, kw in k1_cases(drain):
         kw = dict(kw)
         int8 = kw.pop("int8", False)
         for dname in ("float32", "bfloat16"):
@@ -250,7 +261,8 @@ def k1_check(torch, pa, ref):
                          f"ok_f32_plain={ok32}")
                 ok = ok and ok32
             print(f"[K1] case={name} dtype={dname} B={b} Hq={hq} Hkv={hkv} "
-                  f"D={d} page={page} N={n} max_abs_err={err:.3e} "
+                  f"D={d} page={page} N={n} route="
+                  f"{pa.route(q.dtype, kp.dtype, d)} max_abs_err={err:.3e} "
                   f"tol={tol}{tight} ok={ok}", flush=True)
             check(ok, f"K1 {name} {dname}: max_abs_err {err} over {tol}, "
                   "or more than one bfloat16 rounding from the float32 "
@@ -280,10 +292,25 @@ def time_ms(torch, fn, sets, iters=50, warmup=5):
     return start.elapsed_time(stop) / iters
 
 
-def k1_time(torch, pa, ref, card):
+def drain_lens(np):
+    """The serve drain's ragged decode lengths: its first 8 prompts (the
+    batch's first slots) plus 16 decoded tokens each."""
+    from repro_torch.serve import Request
+    reqs = make_requests(np, Request, 256000, 0, 16, (64, 513), 256,
+                         (0, 9, 12, 15), 32)
+    return [r.prompt.shape[0] + 16 for r in reqs[:8]]
+
+
+def k1_time(torch, pa, ref, card, vlens, label):
+    """K1 at the main path's shape (B 8, 8/1 heads, D 256, 128 pages of 8
+    tokens, bf16) with the given lengths, beside its plain version, SDPA on
+    the K/V gathered out of the pages (with a boolean mask where a row is
+    shorter than the table: SDPA then still reads the whole table's K/V,
+    where the kernel and the bound read only the live rows) and its
+    bound."""
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_core as core
     b, hq, hkv, d, page, n = 8, 8, 1, 256, 8, 128
-    vlens = [n * page] * b
     dtype = torch.bfloat16
     itemsize = 2
     kv_bytes = sum(vlens) * hkv * d * itemsize * 2
@@ -292,10 +319,18 @@ def k1_time(torch, pa, ref, card):
     q, pools, table, valid = k1_inputs(torch, gen, b, hq, hkv, d, page, n,
                                        vlens, dtype, copies=copies)
     sets = [(q, kp, vp, table, valid) for kp, vp, _, _ in pools]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = pa.split_count(pa.route(q.dtype, dtype, d), b, hkv, page, n,
+                            sms)
+    cfg = pa.kernel_config(q.dtype, dtype, d, page, n, splits)
+    blocks = pa.occupancy(d, cfg.warps, cfg.stages, page, n, splits)
     ms = time_ms(torch, lambda *a: pa.paged_attention(*a), sets)
     plain_ms = time_ms(torch, lambda *a: ref.paged_attention(*a), sets)
     # yardstick: one SDPA call over K/V already gathered out of the pages
     tbl = table.long()
+    full = min(vlens) == n * page
+    mask = (torch.arange(n * page, device="cuda")[None, :]
+            < valid[:, None])[:, None, None, :]
     gathered = [(q[:, :, None, :],
                  kp[tbl].reshape(b, n * page, hkv, d).transpose(1, 2)
                  .contiguous(),
@@ -303,24 +338,36 @@ def k1_time(torch, pa, ref, card):
                  .contiguous())
                 for _, kp, vp, _, _ in sets]
     library_ms = time_ms(torch, lambda qq, kk, vv:
-                         F.scaled_dot_product_attention(qq, kk, vv,
-                                                        enable_gqa=True),
+                         F.scaled_dot_product_attention(
+                             qq, kk, vv, attn_mask=None if full else mask,
+                             enable_gqa=True),
                          gathered)
-    # bound: each input read once, the output written once (bytes), or the
-    # q.k and p.v products at the bf16 peak (operations); the larger
-    moved = (kv_bytes + 2 * q.numel() * itemsize + table.numel() * 4
-             + valid.numel() * 4)
+    # bound: each input read once (the live K/V rows, their page ids, q,
+    # valid_len), the output written once (bytes), or the q.k and p.v
+    # products at the bf16 peak (operations); the larger
+    moved = (kv_bytes + 2 * q.numel() * itemsize
+             + sum(-(-v // page) for v in vlens) * 4 + valid.numel() * 4)
     ops = 4 * sum(vlens) * hq * d
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"[K1 time] shape=B{b} Hq{hq} Hkv{hkv} D{d} page{page} N{n} "
-          f"valid={vlens[0]} bf16 pool_copies={copies} card='{card}' "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+    design = (f"{cfg} splits={splits} "
+              f"merge={core.merge_kind(cfg.route, splits)}")
+    print(f"[K1 time] shape={label} B{b} Hq{hq} Hkv{hkv} D{d} page{page} "
+          f"N{n} valid={vlens} bf16 design='{design}' "
+          f"grid_blocks={b * hkv * splits} resident_blocks_per_sm={blocks} "
+          f"pool_copies={copies} card='{card}' ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA, "
+          f"enable_gqa, gathered K/V"
+          f"{'' if full else f', bool mask: reads all {n * page} tokens a row'}"
+          f") "
           f"bound_ms={bound_ms:.4f} bound_by={bound_by} "
-          f"achieved_GBps={moved / ms / 1e6:.1f}", flush=True)
+          f"moved_MB={moved / 1e6:.2f} ratio_to_library="
+          f"{ms / library_ms:.2f} ratio_to_bound={ms / bound_ms:.2f} "
+          f"achieved_GBps={moved / ms / 1e6:.1f}",
+          flush=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, design=design)
 
 
 # ---------------------------------------------------------------------------
@@ -1223,7 +1270,8 @@ def tune_phase(torch, cal, card):
             desc = (f"kernel=decode_attention geometry={key} "
                     f"shape_sig={K3_T}x{q.shape[-1]} bkv={plan.bkv} "
                     f"pipeline_depth={plan.pipeline_depth} "
-                    f"stages_run={run['stages']} splits={run['splits']}")
+                    f"kernel_config='{run['config']}' "
+                    f"splits={run['splits']}")
             err = k3_holds(torch, ref, "tune", f"source={source} {desc}",
                               outs[source, key], q, k, v, vl)
         else:
@@ -1296,7 +1344,7 @@ def k3_check(torch, ops, ref, da):
                 got = ops.decode_attention(q, k, v, vl, bkv=bkv, **kw)
                 desc = (f"case={name} B=3 Hq={hq} Hkv={hkv} D={d} T={t} "
                         f"valid={vlens} bkv={'plan:' if bkv is None else ''}"
-                        f"{run['bkv']} stages_run={run['stages']} "
+                        f"{run['bkv']} kernel_config='{run['config']}' "
                         f"splits={run['splits']} {kw or ''}")
                 worst = max(worst, k3_holds(torch, ref, "K3", desc, got, q,
                                             k, v, vl, **kw))
@@ -1327,11 +1375,13 @@ def roofline_bound(flops, moved):
     return 1e3 * terms.bound_s, by, terms.dominant
 
 
-def k3_time(torch, ops, ref, da, card):
-    """K3 at phi4-mini's batch-8 dense decode with the plan's tiles."""
+def k3_time(torch, ops, ref, da, card, geometry):
+    """K3 at a served model's batch-8 dense decode geometry (T 1024, bf16)
+    with the plan's tiles."""
     import torch.nn.functional as F
     from repro_torch.tune import PlanCache, set_default_cache
-    b, hq, hkv, d, t = 8, 24, 8, 128, K3_T
+    name, hq, hkv, d = geometry
+    b, t = 8, K3_T
     vlens = [t] * b
     itemsize = 2
     moved = (sum(vlens) * hkv * d * itemsize * 2       # K and V read once
@@ -1345,9 +1395,10 @@ def k3_time(torch, ops, ref, da, card):
         q, k = sets[0][:2]
         bkv, depth = ops.decode_tiles(q, k)
         run = da.tiles(q, k, bkv, depth)
-        k3_holds(torch, ref, "K3", "case=timed-shape B=8 Hq=24 Hkv=8 D=128 "
-                 f"T={t} bkv=plan:{bkv}", ops.decode_attention(*sets[0]),
-                 *sets[0])
+        k3_holds(torch, ref, "K3", f"case=timed-shape geometry={name} B={b} "
+                 f"Hq={hq} Hkv={hkv} D={d} T={t} bkv=plan:{bkv} "
+                 f"kernel_config='{run['config']}'",
+                 ops.decode_attention(*sets[0]), *sets[0])
         ms = time_ms(torch, lambda *a: ops.decode_attention(*a), sets)
     finally:
         set_default_cache(None)
@@ -1364,16 +1415,23 @@ def k3_time(torch, ops, ref, da, card):
                          lib)
     flops = 4 * sum(vlens) * hq * d
     bound_ms, bound_by, dominant = roofline_bound(flops, moved)
-    print(f"[K3 time] shape=B{b} Hq{hq} Hkv{hkv} D{d} T{t} bf16 "
-          f"valid={vlens[0]} tiles=bkv {bkv} x depth {depth} "
-          f"(stages_run={run['stages']} splits={run['splits']}) "
-          f"input_copies={copies} card='{card}' ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA, "
-          f"enable_gqa, bool mask) bound_ms={bound_ms:.4f} bound_by={bound_by}"
-          f" roofline_dominant={dominant} moved_MB={moved / 1e6:.1f} "
-          f"achieved_GBps={moved / ms / 1e6:.1f}", flush=True)
+    blocks = da.occupancy(d, run["warps"], run["stages"])
+    print(f"[K3 time] geometry={name} shape=B{b} Hq{hq} Hkv{hkv} D{d} T{t} "
+          f"bf16 valid={vlens[0]} tiles=bkv {bkv} x depth {depth} "
+          f"kernel_config='{run['config']}' splits={run['splits']} "
+          f"merge={run['merge']} grid_blocks={b * hkv * run['splits']} "
+          f"resident_blocks_per_sm={blocks} input_copies={copies} "
+          f"card='{card}' ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (SDPA, enable_gqa, bool mask) "
+          f"bound_ms={bound_ms:.4f} bound_by={bound_by} "
+          f"roofline_dominant={dominant} moved_MB={moved / 1e6:.1f} "
+          f"ratio_to_library={ms / library_ms:.2f} ratio_to_bound="
+          f"{ms / bound_ms:.2f} achieved_GBps={moved / ms / 1e6:.1f}",
+          flush=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
+                design=f"{run['config']} splits={run['splits']} "
+                       f"merge={run['merge']}",
                 tiles=dict(bkv=bkv, pipeline_depth=depth,
                            stages=run["stages"], splits=run["splits"]))
 
@@ -1517,8 +1575,10 @@ def main():
                 if "registers" in line or "spill" in line:
                     print(f"[ptxas] {name}: {line.strip()}", flush=True)
         sass_phase(kbuild)
-        err = k1_check(torch, pa, ref)
-        timing = k1_time(torch, pa, ref, card)
+        drain = drain_lens(np)
+        err = k1_check(torch, pa, ref, drain)
+        timing = k1_time(torch, pa, ref, card, [1024] * 8, "full")
+        k1_time(torch, pa, ref, card, drain, "drain")
         launches = serve_phase(torch, np, card)
         parity_phase(torch, np)
         gc.collect()                 # the gemma-2b engine and weights go
@@ -1551,7 +1611,8 @@ def main():
         torch.cuda.empty_cache()
         tune_launches, _ = tune_phase(torch, cal, card)
         k3_err = k3_check(torch, ops, ref, da)
-        k3_timing = k3_time(torch, ops, ref, da, card)
+        k3_timing = k3_time(torch, ops, ref, da, card, K3_GEOMETRIES[0])
+        k3_time(torch, ops, ref, da, card, K3_GEOMETRIES[1])
         gc.collect()
         torch.cuda.empty_cache()
         k8_err = k8_check(torch, ops, ref, mm)
@@ -1562,9 +1623,7 @@ def main():
     k1 = dict(name="paged_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/paged_attention.cu",
               replaces="src/repro/kernels/paged_attention.py:100",
-              launches=launches, max_abs_err=err, ms=timing["ms"],
-              plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-              bound_by=timing["bound_by"], library_ms=timing["library_ms"])
+              launches=launches, max_abs_err=err, **timing)
     k2 = dict(name="flash_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/flash_attention.cu",
               replaces="src/repro/kernels/flash_attention.py:128",
@@ -1590,9 +1649,10 @@ def main():
               **k8_timing)
     print("[previous] not measured in this run: "
           + " ".join(f"{name}_ms={ms}" for name, ms in PREVIOUS_MS.items())
-          + " (the CUDA-core bodies before the tensor-core redesign, from "
-          "PERF.md section 6: an earlier run whose kernel times had no spin "
-          "before the events, NVIDIA H100 80GB HBM3, 700.00 W)")
+          + " (each kernel before its redesign, from PERF.md section 6: K2 "
+          "and K8 on the CUDA cores, timed without a spin before the "
+          "events; K1 and K3 with their first CUDA bodies; NVIDIA H100 "
+          "80GB HBM3, 700.00 W)")
     print(json.dumps({"kernels": [k1, k2, k3] + mem + [k8]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

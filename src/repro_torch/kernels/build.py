@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Each ``kernels/csrc/<name>.cu`` exposes a plain C interface and compiles on
-its own, with ``nvcc -gencode arch=compute_90a,code=sm_90a``, into a shared
-library under ``build/repro_torch_kernels/`` of the checkout (listed in
-``.gitignore``), loaded with :mod:`ctypes`.  A library's file name carries a
-digest of its source and flags, so an edited source never loads a stale
-build.  Nothing here runs when the module is imported: the first launch of
-a kernel builds it.
+its own, with ``nvcc -gencode arch=compute_90a,code=sm_90a -I csrc``, into a
+shared library under ``build/repro_torch_kernels/`` of the checkout (listed
+in ``.gitignore``), loaded with :mod:`ctypes`.  Device code shared by
+several kernels lives in ``csrc/*.cuh`` headers.  A library's file name
+carries a digest of its source, the headers and the flags, so an edited
+source or header never loads a stale build.  Nothing here runs when the
+module is imported: the first launch of a kernel builds it.
 """
 from __future__ import annotations
 
@@ -39,10 +40,17 @@ def _tool(name: str) -> str:
     return os.path.join(CUDA_HOME, "bin", name)
 
 
+def headers() -> Dict[str, Path]:
+    """Header name -> its ``.cuh`` file (device code the sources share)."""
+    return {p.name: p for p in sorted(CSRC.glob("*.cuh"))}
+
+
 def library_path(name: str) -> Path:
-    src = sources()[name]
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = sources()[name].read_bytes()
+    for header in headers().values():
+        text += header.read_bytes()
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -62,7 +70,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(sources()[name])]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)

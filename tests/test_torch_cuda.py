@@ -40,6 +40,10 @@ CASES = [
     ("softcap", 3, 4, 2, 32, 8, 5, [1, 20, 33], dict(softcap=20.0)),
     ("ring-window", 3, 4, 2, 32, 8, 4, [5, 30, 61], dict(window=24)),
     ("int8-lanes", 3, 8, 1, 64, 8, 5, [2, 25, 40], dict(int8=True)),
+    # head dims the bfloat16 tensor-core route takes (64, 128, 256)
+    ("softcap-d128", 3, 8, 2, 128, 8, 6, [1, 20, 48], dict(softcap=20.0)),
+    ("ring-window-d256", 3, 8, 1, 256, 8, 4, [5, 30, 61], dict(window=24)),
+    ("group-16", 2, 16, 1, 64, 8, 6, [9, 48], {}),
 ]
 
 
@@ -93,6 +97,7 @@ DECODE_CASES = [
     ("ref-4/2-bkv96", 2, 4, 2, 64, 255, [7, 255], 96, {}),
     ("ref-4/2-bkv256", 2, 4, 2, 64, 256, [7, 256], 256, {}),
     ("softcap-10", 2, 4, 2, 128, 128, [50, 128], 32, dict(softcap=10.0)),
+    ("group-16", 2, 32, 2, 64, 100, [7, 100], None, {}),
 ]
 DECODE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
@@ -200,6 +205,57 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         pa.paged_attention(q[..., :30].contiguous(), k[..., :30].contiguous(),
                            v[..., :30].contiguous(), table, vl)
     assert pa.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_more_splits_than_live_tiles(cuda, dtype):
+    """Rows far shorter than their table (512 tokens): most blocks of a row
+    find no live token, take the empty path and still arrive at the merge;
+    the split rule's count and the most splits a launch takes (64)."""
+    (q, k, v, table, vl), _ = _on_card(
+        ("short-rows", 3, 8, 1, 256, 8, 64, [1, 17, 40], {}), dtype, cuda)
+    want = ref.paged_attention(q, k, v, table, vl)
+    route = pa.route(q.dtype, k.dtype, 256)
+    for splits in (pa.split_count(route, 3, 1, 8, 64, 132), 64):
+        cfg = pa.kernel_config(q.dtype, k.dtype, 256, 8, 64, splits)
+        got = pa.launch(q, k, v, table, vl, cfg, splits)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, splits", [
+    ("float32", 4),       # the CUDA cores: the counter merge
+    ("bfloat16", 4),      # the tensor cores: a cluster merge (2-8 splits)
+    ("bfloat16", 16),     # the tensor cores: the counter merge (> 8 splits)
+])
+def test_kernels_reset_their_arrival_counters(cuda, dtype, splits):
+    """K1 and K3 called twice on the same buffers with split walks give the
+    same bits both times: the block that merges a (sequence, kv head)'s
+    splits resets its arrival counter, so no launch clears them (a cluster
+    merge uses none)."""
+    from repro_torch.kernels import decode_core
+    (q, k, v, table, vl), _ = _on_card(
+        ("split-rows", 2, 8, 1, 128, 8, 32, [100, 256], {}), dtype, cuda)
+    cfg = pa.kernel_config(q.dtype, k.dtype, 128, 8, 32, splits)
+    first = pa.launch(q, k, v, table, vl, cfg, splits)
+    second = pa.launch(q, k, v, table, vl, cfg, splits)
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.float(), ref.paged_attention(
+        q, k, v, table, vl).float(), rtol=TOL[dtype], atol=TOL[dtype])
+    args, _ = _decode_on_card(DECODE_CASES[0], dtype, cuda)
+    run = da.tiles(args[0], args[1], 8, 16)
+    dcfg = decode_core.KernelConfig(run["route"], run["tile"], run["stages"],
+                                    run["warps"])
+    first = da.launch(*args, dcfg, splits)
+    second = da.launch(*args, dcfg, splits)
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.float(), ref.decode_attention(
+        *args).float(), rtol=DECODE_TOL[dtype], atol=DECODE_TOL[dtype])
+    torch.cuda.synchronize()
+    for counters in decode_core._COUNTERS.values():
+        assert torch.count_nonzero(counters) == 0
 
 
 # ---------------------------------------------------------------------------

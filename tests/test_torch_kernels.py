@@ -36,6 +36,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import decode_core as tcore
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops as tops
@@ -106,16 +107,90 @@ def test_cpu_dispatch_takes_the_plain_path_and_kernel_refuses_cpu():
         tpa.paged_attention(*args)
 
 
-@pytest.mark.parametrize("b, n_tok, want", [
-    (8, 1024, 32),     # main path: 66 blocks per row wanted, 32 tiles cap it
-    (5, 32, 1),        # one tile: one block writes the output itself
-    (528, 1024, 1),    # the batch alone gives 4 blocks per SM
-    (1, 8192, 256),    # one long row: a block per tile
+@pytest.mark.parametrize("dtype, b, hkv, n_pages, want", [
+    # tensor cores (4 warps of 16-token tiles): one block per SM in all,
+    # while each warp of a full row walks 2 tiles
+    ("bfloat16", 8, 1, 128, 8),      # main path: 16 wanted, 64 tiles cap it
+    ("bfloat16", 5, 1, 16, 1),       # 8 tiles: one block writes the output
+    ("bfloat16", 528, 1, 128, 1),    # the batch alone fills the card
+    ("bfloat16", 1, 1, 1024, 64),    # one long row: at most 64 splits
+    ("bfloat16", 8, 8, 128, 2),      # 64 (sequence, kv head) pairs
+    # CUDA cores: 4 blocks per SM, at most one per 32-token tile
+    ("float32", 8, 1, 128, 32),
+    ("float32", 1, 1, 1024, 64),
 ])
-def test_kernel_split_rule(monkeypatch, b, n_tok, want):
-    """How many blocks share a row's token walk, on a 132-SM card."""
-    monkeypatch.setattr(tpa, "_sm_count", lambda index: 132)
-    assert tpa._splits_for(torch.device("cuda", 0), b, 1, n_tok) == want
+def test_kernel_split_rule(dtype, b, hkv, n_pages, want):
+    """How many blocks share a row's token walk, on a 132-SM card, for
+    pages of 8 tokens at D 256."""
+    dt = getattr(torch, dtype)
+    assert tpa.split_count(tpa.route(dt, dt, 256), b, hkv, 8, n_pages,
+                           132) == want
+
+
+@pytest.mark.parametrize("q_dtype, kv_dtype, d, want", [
+    ("bfloat16", "bfloat16", 256, "mma.sync tile=16 stages=3 warps=4"),
+    ("bfloat16", "bfloat16", 64, "mma.sync tile=16 stages=3 warps=4"),
+    ("bfloat16", "bfloat16", 32, "cuda-cores tile=32 stages=1 warps=4"),
+    ("bfloat16", "int8", 256, "cuda-cores tile=32 stages=1 warps=8"),
+    ("float32", "float32", 512, "cuda-cores tile=32 stages=1 warps=16"),
+])
+def test_kernel_config_routes_by_dtype_and_head_dim(q_dtype, kv_dtype, d,
+                                                    want):
+    """bfloat16 q and pages at D 64, 128 and 256 run on the tensor cores;
+    float32, int8 pages and other head dims on the CUDA cores (the main
+    path's table: 128 pages of 8 in 8 splits)."""
+    cfg = tpa.kernel_config(getattr(torch, q_dtype), getattr(torch, kv_dtype),
+                            d, 8, 128, 8)
+    assert str(cfg) == want
+    assert tpa.route(getattr(torch, q_dtype), getattr(torch, kv_dtype),
+                     d) == cfg.route
+
+
+@pytest.mark.parametrize("n_pages, splits, want", [
+    (128, 8, 3),       # the main path: 512 bytes of page ids
+    (2048, 8, 2),      # 8 KiB of page ids kept whole: 2 stages fit
+    (4096, 1, 2),      # a split's 4097 page ids: 2 stages still fit
+])
+def test_kernel_ring_fits_the_page_ids(n_pages, splits, want):
+    """At D 256 the tensor-core ring gives up stages to the page ids a
+    block keeps; with the ring, the query rows and the cluster merge's
+    buffers it always fits a block's 227 KiB."""
+    cfg = tpa.kernel_config(torch.bfloat16, torch.bfloat16, 256, 8, n_pages,
+                            splits)
+    assert cfg.stages == want
+    smem = (tcore.mma_smem(256, cfg.warps, cfg.stages)
+            + 4 * tpa.pid_capacity(8, n_pages, splits) + tcore.STATIC_SMEM)
+    assert smem <= tcore.SMEM_BYTES
+
+
+def test_kernel_refuses_a_table_the_ring_cannot_fit_beside():
+    with pytest.raises(ValueError, match="no room"):
+        tpa.kernel_config(torch.bfloat16, torch.bfloat16, 256, 8, 32768, 1)
+
+
+@pytest.mark.parametrize("route, splits, want", [
+    ("mma.sync", 1, "none"),
+    ("mma.sync", 2, "cluster"),
+    ("mma.sync", 8, "cluster"),        # a portable cluster's most blocks
+    ("mma.sync", 9, "counter"),
+    ("mma.sync", 64, "counter"),
+    ("cuda-cores", 8, "counter"),      # the CUDA-core bodies: counter only
+])
+def test_split_merge_rule(route, splits, want):
+    """How a launch's splits merge inside it: through a thread-block
+    cluster's shared memory or global partials and an arrival counter."""
+    assert tcore.merge_kind(route, splits) == want
+
+
+@pytest.mark.parametrize("page, n_pages, splits, want", [
+    (8, 128, 8, 128),      # the main path's table row, whole
+    (8, 2048, 64, 2048),   # the longest row kept whole
+    (8, 4096, 16, 257),    # longer: a split's 128 tiles and one more page
+    (16, 4096, 64, 65),    # 64 tiles of 16 tokens: 64 pages, plus one
+])
+def test_kernel_page_id_capacity(page, n_pages, splits, want):
+    """Page ids a tensor-core block keeps in shared memory."""
+    assert tpa.pid_capacity(page, n_pages, splits) == want
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -268,35 +343,62 @@ def test_cpu_decode_dispatch_takes_the_plain_path_and_kernel_refuses_cpu():
                               vl.to("meta"), bkv=16)
 
 
-@pytest.mark.parametrize("g, d, itemsize, bkv, depth, want", [
-    (3, 128, 2, 8, 16, 16),      # phi4-mini's plan: 16 tiles of 8 rows
-    (8, 256, 2, 8, 16, 16),      # gemma-2b's plan in bfloat16
-    (8, 256, 4, 8, 16, 13),      # ... in float32: 13 stages fit 227 KiB
-    (2, 64, 4, 256, 2, 1),       # an explicit 256-row tile: one stage
-    (1, 64, 2, 1, 64, 32),       # never more than 32 in flight
+@pytest.mark.parametrize("t, d, g, itemsize, bkv, depth, want", [
+    (1024, 128, 3, 2, 8, 16, 3),    # phi4-mini's plan: 128 rows over 4 warps
+    (1024, 256, 8, 2, 8, 16, 3),    # gemma-2b's plan in bfloat16
+    (1024, 256, 8, 4, 8, 16, 13),   # ... in float32: 13 stages fit 227 KiB
+    (256, 64, 2, 4, 256, 2, 1),     # an explicit 256-row float32 tile
+    (1024, 64, 1, 2, 64, 64, 8),    # bfloat16: never more than 8 a warp
+    (1024, 64, 1, 4, 1, 64, 32),    # float32: never more than 32 in flight
 ])
-def test_decode_ring_rule(g, d, itemsize, bkv, depth, want):
-    """The stages the kernel runs: the plan's depth, capped by a block's
-    shared memory."""
-    assert tda.stages_for(g, d, itemsize, bkv, depth) == want
+def test_decode_ring_rule(t, d, g, itemsize, bkv, depth, want):
+    """The stages the kernel runs for a plan's tile and depth."""
+    assert tda.kernel_config(t, d, g, itemsize, bkv, depth).stages == want
 
 
 def test_decode_ring_rule_refuses_a_tile_that_cannot_fit():
     with pytest.raises(ValueError, match="does not fit"):
+        tda.kernel_config(1024, 256, 8, 4, 128, 2)
+    with pytest.raises(ValueError, match="does not fit"):
         tda.stages_for(8, 256, 4, 128, 2)
+    with pytest.raises(ValueError, match="bkv and depth"):
+        tda.kernel_config(1024, 128, 3, 2, 8, 0)
 
 
-@pytest.mark.parametrize("b, hkv, t, bkv, want", [
-    (8, 8, 1024, 8, 9),      # phi4-mini at batch 8: 9 blocks per row
-    (8, 1, 1024, 8, 66),     # gemma-2b's one kv head
-    (2, 2, 100, 32, 4),      # a block per tile caps it
-    (600, 1, 1024, 8, 1),    # the batch alone fills the card
+@pytest.mark.parametrize("t, d, g, itemsize, bkv, depth, want", [
+    # both models' plans (bkv 8, depth 16) in bfloat16: the tensor cores
+    (1024, 128, 3, 2, 8, 16, "mma.sync tile=16 stages=3 warps=4"),
+    (1024, 256, 8, 2, 8, 16, "mma.sync tile=16 stages=3 warps=4"),
+    # float32 runs the plan's tile on the CUDA cores
+    (1024, 128, 3, 4, 8, 16, "cuda-cores tile=8 stages=16 warps=4"),
+    (1024, 256, 8, 4, 8, 16, "cuda-cores tile=8 stages=13 warps=8"),
+    # an explicit 256-row tile: bfloat16 keeps 16-token warp tiles, its
+    # ring capped by the 4 tiles a warp walks at T 256; float32 one stage
+    (256, 64, 2, 2, 256, 2, "mma.sync tile=16 stages=5 warps=4"),
+    (256, 64, 2, 4, 256, 2, "cuda-cores tile=256 stages=1 warps=4"),
+    # a short cache: 7 tiles, 2 a warp
+    (100, 64, 2, 2, 16, 16, "mma.sync tile=16 stages=3 warps=4"),
 ])
-def test_decode_split_rule(monkeypatch, b, hkv, t, bkv, want):
+def test_decode_kernel_config(t, d, g, itemsize, bkv, depth, want):
+    """The configuration the kernel runs for a plan's tiles
+    (``kernel_config``), in the manner of K8's."""
+    assert str(tda.kernel_config(t, d, g, itemsize, bkv, depth)) == want
+
+
+@pytest.mark.parametrize("dtype, b, hkv, t, bkv, want", [
+    ("bfloat16", 8, 8, 1024, 8, 2),     # phi4-mini at batch 8
+    ("bfloat16", 8, 1, 1024, 8, 8),     # gemma-2b: 2 tiles a warp cap it
+    ("bfloat16", 2, 2, 100, 32, 1),     # 7 tiles: one block a row
+    ("bfloat16", 600, 1, 1024, 8, 1),   # the batch alone fills the card
+    ("float32", 8, 8, 1024, 8, 9),      # CUDA cores: 4 blocks per SM
+    ("float32", 2, 2, 100, 32, 4),      # a block per tile caps it
+])
+def test_decode_split_rule(monkeypatch, dtype, b, hkv, t, bkv, want):
     """Blocks sharing a row's token walk, on a 132-SM card."""
-    monkeypatch.setattr(tda, "_sm_count", lambda index: 132)
-    q = torch.empty((b, hkv, 64), device="meta")
-    k = torch.empty((b, t, hkv, 64), device="meta")
+    monkeypatch.setattr(tda.core, "sm_count", lambda index: 132)
+    dt = getattr(torch, dtype)
+    q = torch.empty((b, hkv, 64), device="meta", dtype=dt)
+    k = torch.empty((b, t, hkv, 64), device="meta", dtype=dt)
     assert tda.tiles(q, k, bkv, 2)["splits"] == want
 
 

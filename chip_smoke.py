@@ -10,9 +10,10 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 1. card: the card's name and power limit, torch and CUDA versions;
 2. build: every kernel, one ``nvcc`` each, all started together; the
    compiler's registers and spills (``[ptxas]``), and a ``[sass]`` line per
-   kernel counting its tensor-core instructions in the built machine code
-   (``HGMMA``: warpgroup ``wgmma``; ``HMMA``: warp ``mma.sync``), which
-   fails unless K8 has ``HGMMA`` and K1, K2 and K3 ``HMMA`` or ``HGMMA``;
+   kernel counting its tensor-core and bulk-copy instructions in the built
+   machine code (``HGMMA``: warpgroup ``wgmma``; ``HMMA``: warp
+   ``mma.sync``; ``UBLKCP``: a TMA bulk copy), which fails unless K8 has
+   ``HGMMA``, K1, K2 and K3 ``HMMA`` or ``HGMMA``, and K4 ``UBLKCP``;
 3. K1: the ``paged_attention`` kernel against its plain PyTorch version on
    the card: gemma-2b's decode geometry with ragged lengths, GQA, softcap,
    a ring window, int8 lanes, rows with no live token and the main path's
@@ -52,15 +53,21 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    tokens must agree;
 11. K4-K7 (``stream_copy``, ``strided_copy``, ``random_gather``,
    ``pointer_chase``) against their plain versions on the card, exactly
-   (they copy): K4 in float32, bfloat16 and int8, copy and x2, several
-   tiles; K5 at strides coprime and not coprime with the block count; K6
-   with repeated LFSR indices, units of 2 B to 4 KiB and block_rows 4; K7
-   on chains sized for L1 (16 KiB), L2 (16 MiB) and HBM (256 MiB), one
-   chain and 64;
+   (they copy): K4 in float32, bfloat16 and int8, copy and x2, each line
+   naming its route (bulk or element): whole-row and narrow tiles, tiles
+   larger than the bulk ring and narrow tiles wider than a ring stage, rows
+   of 7 elements, a base one element into a buffer and an array split into
+   32 parts (one call each); K5 at strides coprime and not coprime with the
+   block count; K6 with repeated LFSR indices, units of 2 B to 4 KiB and
+   block_rows 4; K7 on chains sized for L1 (16 KiB), L2 (16 MiB) and HBM
+   (256 MiB), one chain and 64;
 12. K4-K7 time at the memory sweeps' card-scale shapes (1 GiB working
    sets), each also checked exactly there, beside the plain version, one
-   PyTorch call where one computes the same function, and the bound; K7
-   as ns per hop in L1, L2 and HBM;
+   PyTorch call where one computes the same function, and the bound: K4
+   three times (1 MiB and 8 KiB tiles copied, beside ``Tensor.copy_``; 1
+   MiB tiles doubled, beside ``torch.mul``), each with its route and
+   configuration; K7 as ns per hop in L1, L2 and HBM, beside its latency
+   bound (hops x the HBM latency this chase measured);
 13. memory: the seven ported sweeps (latency, outstanding, unit_size,
    stride, burst, num_kernels, random) at card scale through
    ``repro_torch.bench.run_sweeps``, every row printed.  The pointer chase
@@ -104,10 +111,10 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
 
-It ends with a ``[previous]`` line (K1's, K2's, K3's and K8's times
+It ends with a ``[previous]`` line (K1's, K2's, K3's, K4's and K8's times
 before their redesign, as PERF.md records them: not measured in this run),
-the kernels' JSON line (K1, K2, K3 and K8 also carry their design), the
-card line and the result line.
+the kernels' JSON line (K1, K2, K3, K4 and K8 also carry their design, K7
+its latency bound), the card line and the result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
 """
@@ -134,10 +141,11 @@ COVER_CYCLES = 2_000_000           # about 1 ms of spin on the card
 PORT_KERNELS = ("paged_attention", "flash_attention")
 # times at the first timed shapes before each kernel's redesign, as PERF.md
 # records them: K2 and K8 on the CUDA cores, K1 and K3 with their first
-# CUDA bodies; printed on a line of their own, never in the kernels' line,
-# which holds this run's numbers
+# CUDA bodies, K4 with one block per tile; printed on a line of their own,
+# never in the kernels' line, which holds this run's numbers
 PREVIOUS_MS = {"paged_attention": 0.0389, "flash_attention": 0.2287,
-               "decode_attention": 0.1717, "matmul": 20.78}
+               "decode_attention": 0.1717, "matmul": 20.78,
+               "stream_copy": 0.7588}
 
 
 class SmokeFailure(Exception):
@@ -158,19 +166,24 @@ def card_line():
 
 
 def sass_phase(kbuild):
-    """Tensor-core instructions in each built kernel's machine code (from
-    ``cuobjdump --dump-sass``): ``HGMMA`` is a warpgroup ``wgmma``, ``HMMA``
-    a warp ``mma.sync``.  K8's bfloat16 route must issue ``wgmma``, and
-    K1's, K2's and K3's one or the other."""
-    counts = {name: kbuild.sass_counts(name) for name in kbuild.sources()}
+    """Tensor-core and bulk-copy instructions in each built kernel's machine
+    code (from ``cuobjdump --dump-sass``): ``HGMMA`` is a warpgroup
+    ``wgmma``, ``HMMA`` a warp ``mma.sync``, ``UBLKCP`` a TMA bulk copy
+    (``cp.async.bulk``).  K8's bfloat16 route must issue ``wgmma``, K1's,
+    K2's and K3's one or the other, and K4's bulk route bulk copies."""
+    counts = {name: kbuild.sass_counts(name, ("HGMMA", "HMMA", "UBLKCP"))
+              for name in kbuild.sources()}
     for name, c in counts.items():
-        print(f"[sass] {name}: HGMMA={c['HGMMA']} HMMA={c['HMMA']}",
-              flush=True)
+        print(f"[sass] {name}: HGMMA={c['HGMMA']} HMMA={c['HMMA']} "
+              f"UBLKCP={c['UBLKCP']}", flush=True)
     check(counts["matmul"]["HGMMA"] > 0,
           "matmul's machine code has no HGMMA (wgmma) instruction")
     for name in ("paged_attention", "flash_attention", "decode_attention"):
         check(counts[name]["HGMMA"] + counts[name]["HMMA"] > 0,
               f"{name}'s machine code has no HMMA or HGMMA instruction")
+    check(counts["stream_copy"]["UBLKCP"] > 0,
+          "stream_copy's machine code has no UBLKCP (cp.async.bulk) "
+          "instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -868,25 +881,58 @@ def exact(torch, tag, desc, got, want):
     return err
 
 
-def k4_check(torch, ops, ref):
+# (case, shape, block_rows, block_cols, view): the view is the array
+# itself, "offset" (a contiguous view one element into a buffer) or
+# "split" (its rows // 32-row parts, one call each, as num_kernels runs;
+# in float32 each part has more bulk requests than its grid, so every
+# launch hands out requests from the counter)
+K4_CASES = [
+    ("whole-rows", (128, 128), 8, 0, None),
+    ("whole-rows", (256, 512), 64, 0, None),
+    ("narrow", (64, 384), 8, 128, None),
+    ("rows-of-7", (96, 7), 32, 0, None),
+    ("1mib-tile", (4096, 1024), 256, 0, None),
+    ("tile-over-ring", (600, 1040), 300, 0, None),
+    ("narrow-over-stage", (32, 12288), 4, 6144, None),
+    ("offset-base", (64, 256), 16, 0, "offset"),
+    ("split-32", (49152, 1024), 256, 0, "split"),
+]
+
+
+def k4_array(torch, gen, shape, dtype, view):
+    rows, cols = shape
+    n = rows * cols + (view == "offset")
+    if dtype == torch.int8:
+        flat = torch.randint(-128, 128, (n,), generator=gen,
+                             dtype=torch.int8)
+    else:
+        flat = (torch.randn(n, generator=gen) * 40).to(dtype)
+    return flat.to("cuda")[n - rows * cols:].view(rows, cols)
+
+
+def k4_check(torch, ops, ref, sc):
     gen = torch.Generator().manual_seed(4)
-    dev = torch.device("cuda")
     worst = 0.0
-    tiles = [((128, 128), 8, 0), ((256, 512), 64, 0), ((64, 384), 8, 128),
-             ((96, 7), 32, 0), ((4096, 1024), 256, 0)]
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
-        for shape, br, bc in tiles:
-            if dtype == torch.int8:
-                x = torch.randint(-128, 128, shape, generator=gen,
-                                  dtype=torch.int8).to(dev)
-            else:
-                x = (torch.randn(shape, generator=gen) * 40).to(dev, dtype)
+        for case, shape, br, bc, view in K4_CASES:
+            x = k4_array(torch, gen, shape, dtype, view)
+            parts = x.split(shape[0] // 32) if view == "split" else [x]
+            routes = sorted({sc.config(p, br, bc).route for p in parts})
+            if view == "split" and dtype == torch.float32:
+                check(all(sc.config(p, br, bc).requests
+                          > sc.config(p, br, bc).grid for p in parts),
+                      f"K4 case={case}: a part takes no ticket from the "
+                      f"counter")
             for mode in ("copy", "rw"):
+                got = torch.cat([ops.stream_copy(p, block_rows=br,
+                                                 block_cols=bc, mode=mode)
+                                 for p in parts])
                 worst = max(worst, exact(
-                    torch, "K4", f"dtype={str(dtype)[6:]} shape={shape} "
-                    f"tile=({br},{bc}) mode={mode}",
-                    ops.stream_copy(x, block_rows=br, block_cols=bc,
-                                    mode=mode), ref.stream_copy(x, mode)))
+                    torch, "K4", f"case={case} dtype={str(dtype)[6:]} "
+                    f"shape={shape} tile=({br},{bc}) calls={len(parts)} "
+                    f"base_offset={x.data_ptr() % 16} mode={mode} "
+                    f"route={','.join(routes)}", got,
+                    ref.stream_copy(x, mode)))
     return worst
 
 
@@ -970,23 +1016,43 @@ def bound(moved):
     return 1e3 * moved / HBM_BYTES_PER_S
 
 
-def k4_time(torch, ops, ref, engines, card):
+def k4_time(torch, ops, ref, sc, engines, card):
+    """K4 at the memory phase's 1 GiB float32 array: 1 MiB and 8 KiB tiles
+    copied, 1 MiB tiles doubled, each beside its plain version and one
+    PyTorch call.  Returns the 1 MiB copy's numbers."""
     x = torch.randn((1 << 18, 1024), device="cuda")
-    exact(torch, "K4", "dtype=float32 shape=(262144, 1024) tile=(256,1024) "
-          "mode=copy (timed shape)", ops.stream_copy(x), ref.stream_copy(x))
     out = torch.empty_like(x)
-    ms = best_ms(torch, engines, lambda a: ops.stream_copy(a), x)
-    plain_ms = best_ms(torch, engines, lambda a: ref.stream_copy(a), x)
-    library_ms = best_ms(torch, engines, lambda a: out.copy_(a), x)
     moved = 2 * x.numel() * 4
-    t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-             bound_ms=bound(moved), bound_by="bytes")
-    print(f"[K4 time] shape=262144x1024 float32 copy tile=256 rows (1 MiB) "
-          f"card='{card}' ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} (Tensor.copy_) "
-          f"bound_ms={t['bound_ms']:.4f} bound_by=bytes "
-          f"achieved_GBps={moved / ms / 1e6:.1f}", flush=True)
-    return t
+    cases = (("1 MiB copy", 256, "copy", "Tensor.copy_",
+              lambda a: out.copy_(a)),
+             ("8 KiB copy", 2, "copy", "Tensor.copy_",
+              lambda a: out.copy_(a)),
+             ("1 MiB rw", 256, "rw", "torch.mul(a, 2, out=out)",
+              lambda a: torch.mul(a, 2, out=out)))
+    timed = []
+    for label, br, mode, library, lib_fn in cases:
+        cfg = sc.config(x, br)
+        exact(torch, "K4", f"case={label} dtype=float32 shape=(262144, "
+              f"1024) tile=({br},1024) mode={mode} route={cfg.route} "
+              f"(timed shape)", ops.stream_copy(x, block_rows=br, mode=mode),
+              ref.stream_copy(x, mode))
+        ms = best_ms(torch, engines, lambda a: ops.stream_copy(
+            a, block_rows=br, mode=mode), x)
+        plain_ms = best_ms(torch, engines, lambda a: ref.stream_copy(a, mode),
+                           x)
+        library_ms = best_ms(torch, engines, lib_fn, x)
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=bound(moved), bound_by="bytes", design=str(cfg))
+        print(f"[K4 time] {label} shape=262144x1024 float32 tile={br} rows "
+              f"({br * 4} KiB) mode={mode} route={cfg.route} "
+              f"config='{cfg}' card='{card}' ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"({library}) ratio={ms / library_ms:.3f} "
+              f"bound_ms={t['bound_ms']:.4f} bound_by=bytes "
+              f"share_of_bound={t['bound_ms'] / ms:.3f} "
+              f"achieved_GBps={moved / ms / 1e6:.1f}", flush=True)
+        timed.append(t)
+    return timed[0]
 
 
 def k5_time(torch, ops, ref, engines, card):
@@ -1041,6 +1107,7 @@ def k6_time(torch, ops, ref, engines, card):
 
 
 def k7_time(torch, ops, ref, pc, engines, card):
+    from repro_torch.core.memmodel import H100
     steps = 1 << 13
     levels = {}
     for level, n in K7_LEVELS:
@@ -1055,8 +1122,13 @@ def k7_time(torch, ops, ref, pc, engines, card):
                 t, steps), table, trials=2)
         del table
     ms = levels["HBM"]
-    # steps x (one 32-byte sector read + 4 bytes of trace written): not
-    # what bounds a chain of dependent loads, which is latency
+    # the bound of a chain of dependent loads is latency: hops x one HBM
+    # load's latency (H100.latency_s, which this chase measured in the
+    # memory phase, so the chase sits near 100% of it by construction).
+    # It is a constant, not this run's measurement, so it stays on this
+    # line; the kernels' JSON keeps the bytes bound, steps x (one 32-byte
+    # sector read + 4 bytes of trace written)
+    latency_ms = 1e3 * steps * H100.latency_s
     t = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
              bound_ms=bound(steps * (32 + 4)), bound_by="bytes")
     ns = " ".join(f"ns_per_hop_{lvl}={levels[lvl] * 1e6 / steps:.1f}"
@@ -1064,8 +1136,11 @@ def k7_time(torch, ops, ref, pc, engines, card):
     print(f"[K7 time] steps={steps} chains=1 levels=L1 16 KiB, L2 16 MiB, "
           f"HBM 256 MiB card='{card}' {ns} ms={ms:.4f} (HBM) "
           f"plain_ms={plain_ms:.4f} library_ms=null (no single torch call "
-          f"chases pointers) bound_ms={t['bound_ms']:.6f} bound_by=bytes "
-          f"(not meaningful: latency-bound by construction)", flush=True)
+          f"chases pointers) latency_bound_ms={latency_ms:.4f} (hops x "
+          f"{H100.latency_s * 1e9:.0f} ns, measured by this chase) "
+          f"share_of_latency_bound={latency_ms / ms:.3f} "
+          f"bytes_bound_ms={t['bound_ms']:.6f} (the JSON's bound_ms)",
+          flush=True)
     return t
 
 
@@ -1591,12 +1666,12 @@ def main():
         dense_parity_phase(torch, np)
         gc.collect()
         torch.cuda.empty_cache()
-        mem_err = dict(stream_copy=k4_check(torch, ops, ref),
+        mem_err = dict(stream_copy=k4_check(torch, ops, ref, sc),
                        strided_copy=k5_check(torch, ops, ref),
                        random_gather=k6_check(torch, ops, ref),
                        pointer_chase=k7_check(torch, ops, ref, pc))
         mem_time = dict(
-            stream_copy=k4_time(torch, ops, ref, engines, card),
+            stream_copy=k4_time(torch, ops, ref, sc, engines, card),
             strided_copy=k5_time(torch, ops, ref, engines, card),
             random_gather=k6_time(torch, ops, ref, engines, card),
             pointer_chase=k7_time(torch, ops, ref, pc, engines, card))
@@ -1651,8 +1726,8 @@ def main():
           + " ".join(f"{name}_ms={ms}" for name, ms in PREVIOUS_MS.items())
           + " (each kernel before its redesign, from PERF.md section 6: K2 "
           "and K8 on the CUDA cores, timed without a spin before the "
-          "events; K1 and K3 with their first CUDA bodies; NVIDIA H100 "
-          "80GB HBM3, 700.00 W)")
+          "events; K1 and K3 with their first CUDA bodies; K4 with one "
+          "block per tile; NVIDIA H100 80GB HBM3, 700.00 W)")
     print(json.dumps({"kernels": [k1, k2, k3] + mem + [k8]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,18 @@
 """Paper Fig. 10 + Tables 3/4: burst size effect + buffer cost.
 
-The burst is the tile one block of K4 moves: ``block_rows`` whole rows.
-The reference times one XLA copy for every row (its timing is
-block-independent); on the card the tile is a real knob, so each row times
-K4 at its own tile.  The shared-memory column is the paper's BRAM column
-(grows with burst x outstanding while throughput saturates).  At ``fast``
-the reference's 1024 x 512; on the card 2^18 x 1024 float32 (1 GiB).
+The tile is ``block_rows`` whole rows.  The reference times one XLA copy
+for every row (its timing is block-independent); on the card the tile is a
+real knob, so each row times K4 at its own tile.  On K4's bulk route
+(``kernel_route``) a tile is a run of contiguous TMA bulk requests: the
+burst (``kernel_burst_bytes``) is one request, the whole tile up to one
+16 KiB ring stage; ``kernel_outstanding`` is the requests in flight per
+block (the ring's stages) and ``kernel_smem_bytes`` a block's ring, the
+paper's BRAM column.  A tile of whole rows is contiguous, so the rows of
+16 KiB tiles and up all run the same launch (16 KiB requests, the same
+grid and ring): on the card the sweep compares 8 KiB against 16 KiB
+bursts, and the larger rows repeat the 16 KiB one.  The ``smem_bytes`` column is the model's buffer
+(burst x outstanding).  At ``fast`` the reference's 1024 x 512; on the
+card 2^18 x 1024 float32 (1 GiB).
 """
 import torch
 

@@ -12,6 +12,7 @@ from repro_torch.bench.registry import SweepContext, register
 from repro_torch.core.memmodel import aggregate_bw
 from repro_torch.core.patterns import Knobs, Pattern
 from repro_torch.kernels import ops
+from repro_torch.kernels import stream_copy as _sc
 
 
 @register("num_kernels", "Table 6")
@@ -31,4 +32,4 @@ def run(ctx: SweepContext) -> None:
                  timing=t, bytes_moved=nbytes,
                  gbps_predicted=aggregate_bw(Pattern.SEQUENTIAL, knobs,
                                              ctx.spec) / 1e9,
-                 note="fewer_wider_engines_win")
+                 note="fewer_wider_engines_win", **_sc.kernel_knobs(parts[0]))

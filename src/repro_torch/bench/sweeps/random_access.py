@@ -25,7 +25,9 @@ def run(ctx: SweepContext) -> None:
              us=seq.wall_s * 1e6, bytes_moved=seq.bytes_moved,
              gbps_measured=seq.gbps_measured,
              gbps_predicted=seq.gbps_model,
-             paper_u280_gbps=421.68)
+             paper_u280_gbps=421.68,
+             **{k: v for k, v in seq.extras.items()
+                if k.startswith("kernel_")})
     r = None
     for gen in ("lfsr", "prng"):
         # one-sector-pair rows (64B ~ the paper's 256-bit units) from a

@@ -360,19 +360,69 @@ def _launched_once(module, fn):
     return out
 
 
-STREAM_TILES = [((128, 128), 8, 0), ((256, 512), 64, 0), ((64, 384), 8, 128),
-                ((96, 7), 32, 0), ((4096, 1024), 256, 0)]
+# (case, shape, block_rows, block_cols, view, the dtypes that take the
+# element route; the others take the bulk route).  The view is the array
+# itself, "offset" (a contiguous view one element into a buffer) or
+# "split" (its rows // 32-row parts, one call each, as num_kernels runs;
+# in float32 each part has more bulk requests than its grid).
+ALL = ("float32", "bfloat16", "int8")
+STREAM_TILES = [
+    ("whole-rows", (128, 128), 8, 0, None, ()),
+    ("whole-rows-64", (256, 512), 64, 0, None, ()),
+    ("narrow", (64, 384), 8, 128, None, ()),
+    ("rows-of-7", (96, 7), 32, 0, None, ALL),
+    ("1mib-tile", (4096, 1024), 256, 0, None, ()),
+    ("tile-over-ring", (600, 1040), 300, 0, None, ()),
+    ("narrow-over-stage", (32, 12288), 4, 6144, None, ()),
+    ("offset-base", (64, 256), 16, 0, "offset", ALL),
+    ("split-32", (49152, 1024), 256, 0, "split", ()),
+]
+
+
+def _stream_input(shape, dtype, dev, view):
+    rows, cols = shape
+    n = rows * cols + (view == "offset")
+    flat = _data((n,), dtype, dev)
+    return flat[n - rows * cols:].view(rows, cols)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["copy", "rw"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("shape,br,bc", STREAM_TILES)
-def test_stream_copy_kernel_is_exact(cuda, shape, br, bc, dtype, mode):
-    x = _data(shape, getattr(torch, dtype), cuda)
-    got = _launched_once(sc, lambda: ops.stream_copy(
-        x, block_rows=br, block_cols=bc, mode=mode))
+@pytest.mark.parametrize("dtype", ALL)
+@pytest.mark.parametrize("case,shape,br,bc,view,element", STREAM_TILES,
+                         ids=[t[0] for t in STREAM_TILES])
+def test_stream_copy_kernel_is_exact(cuda, case, shape, br, bc, view,
+                                     element, dtype, mode):
+    x = _stream_input(shape, getattr(torch, dtype), cuda, view)
+    parts = x.split(shape[0] // 32) if view == "split" else [x]
+    route = "element" if dtype in element else "bulk"
+    assert {sc.config(p, br, bc).route for p in parts} == {route}
+    if view == "split" and dtype == "float32":
+        assert all(sc.config(p, br, bc).requests > sc.config(p, br, bc).grid
+                   for p in parts)
+    before = sc.LAUNCHES
+    got = torch.cat([ops.stream_copy(p, block_rows=br, block_cols=bc,
+                                     mode=mode) for p in parts])
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES == before + len(parts)
     assert torch.equal(got, ref.stream_copy(x, mode))
+
+
+@pytest.mark.cuda
+def test_stream_copy_bulk_counter_is_zero_between_launches(cuda):
+    """The bulk route's request counter is reset by the launch's last
+    block, so back-to-back launches of other sizes all copy everything.
+    Each launch has more requests than its grid, so it takes tickets from
+    the counter, and each size has its own data, so a request a stale
+    counter skipped shows."""
+    for seed, rows in enumerate((4096, 8192, 2048)):
+        x = _data((rows, 1024), torch.float32, cuda, seed=seed)
+        cfg = sc.config(x, 4)
+        assert cfg.route == "bulk" and cfg.requests > cfg.grid
+        assert torch.equal(sc.stream_copy(x, block_rows=4), x)
+    torch.cuda.synchronize()
+    counters = sc.decode_core.arrival_counters(x.device, 2)
+    assert int(counters[:2].abs().sum()) == 0
 
 
 @pytest.mark.cuda

@@ -16,16 +16,20 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``HGMMA``, K1, K2 and K3 ``HMMA`` or ``HGMMA``, and K4 ``UBLKCP``;
 3. K1: the ``paged_attention`` kernel against its plain PyTorch version on
    the card: gemma-2b's decode geometry with ragged lengths, GQA, softcap,
-   a ring window, int8 lanes, rows with no live token and the main path's
-   own shape, each in
+   a ring window, int8 lanes, rows with no live token, the main path's
+   own shape, gemma2-27b's ring and global layers at 8192 tokens (B 4,
+   32/16 heads, D 128, softcap 50, window 4096 on a table of 513 ring
+   slots) and gemma-2b's int8 pages of 16 tokens, each in
    float32 (tolerance 1e-4) and bfloat16 (3e-2; and, held against the
    plain version run in float32 on the same inputs, within one bfloat16
    rounding of its output), each line naming its route (bfloat16 at D 64,
    128 and 256 on the tensor cores);
 4. K1 time at the main path's shape (B 8, 128 pages of 8 tokens), full
    and at the serve drain's ragged lengths (its first 8 prompts plus 16
-   decoded tokens), each beside its plain version, one PyTorch call on the
-   gathered K/V, and its bound, with the configuration run;
+   decoded tokens), then at gemma2-27b's ring and global geometry and at
+   gemma-2b's int8 pages, each beside its plain version, one SDPA call on
+   the gathered (dequantized) K/V, and its bound, with the configuration
+   run;
 5. serve: full-width gemma-2b (bf16, random weights from a seeded
    generator) through the paged ``ServeEngine``: 16 requests, batch 8,
    four sharing a 256-token prefix, 32 new tokens each, drained twice.
@@ -106,7 +110,29 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    (tile, stages, staging by TMA or element by element);
 19. K8 time at 4096^3 and at (M, N, K) = (8, 8192, 3072), bf16, the plan's
    tiles and the kernel's configuration, beside its plain version,
-   ``torch.matmul`` and the roofline bound.
+   ``torch.matmul`` and the roofline bound;
+20. ring serve: full-width gemma2-27b (46 layers, 54.5 GB of bf16 weights
+   drawn on the card) through the paged engine, batch 4, max_len 8192,
+   prefill chunks of 256: 8 requests (prompts of 4160 and 5120 tokens past
+   the 4096 window, six of 64-512 with three sharing a 256-token prefix),
+   32 new tokens each, drained twice.  Every decode tick must launch K1
+   once per layer (ring tables on the local layers, full tables on the
+   global ones), the ring must turn (a ring page reused) and its peak stay
+   within batch x ring_slots; prefix sharing stays off on a windowed
+   stack, as in the reference.  A profiled decode window and prefill chunk
+   follow;
+21. int8 serve: full-width gemma-2b with ``kv_dtype="int8"`` (pages of 16
+   tokens, the bf16 page's bytes), the serve phase's 16 requests drained
+   twice; every tick launches K1's int8 route once per layer;
+22. ring parity and int8 parity: gemma2-27b's (local, global) pair at its
+   published widths (window narrowed to 32 so the ring turns in a short
+   drain) and 2-layer gemma-2b with int8 KV, float32, drained on the card
+   (K1) and on the CPU (plain path); the tokens must agree;
+23. bench serve: the ``serve``, ``kernel_plan`` and ``paged_serve`` sweeps
+   at card scale, twice, persisted under ``build/bench_serve``, then
+   ``repro_torch.bench.compare`` between the two runs: every row and
+   verdict printed, and ``--gate structural`` (deterministic rows equal,
+   no vanished metric) must pass; wall-clock verdicts are advisory.
 
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
@@ -114,7 +140,8 @@ of the card, so they time the card's work, not the host's enqueueing.
 It ends with a ``[previous]`` line (K1's, K2's, K3's, K4's and K8's times
 before their redesign, as PERF.md records them: not measured in this run),
 the kernels' JSON line (K1, K2, K3, K4 and K8 also carry their design, K7
-its latency bound), the card line and the result line.
+its latency bound; K1 its launches on each serving path and its times at
+the new geometries), the card line and the result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
 """
@@ -190,6 +217,24 @@ def sass_phase(kbuild):
 # K1: paged_attention
 # ---------------------------------------------------------------------------
 
+# geometries K1 is timed at: gemma-2b's main path, and the two this slice
+# puts on a model path (gemma2-27b's ring and global layers at batch 4 and
+# 8192 tokens; gemma-2b with int8 pages of 16 tokens)
+GEMMA2_SCALE = 144.0 ** -0.5        # query_pre_attn_scalar 144
+MAIN_GEOMETRY = dict(b=8, hq=8, hkv=1, d=256, page=8, n=128, int8=False,
+                     kw={})
+RING_GEOMETRY = dict(b=4, hq=32, hkv=16, d=128, page=8, n=513, int8=False,
+                     kw=dict(window=4096, softcap=50.0, scale=GEMMA2_SCALE))
+GLOBAL_GEOMETRY = dict(b=4, hq=32, hkv=16, d=128, page=8, n=1024,
+                       int8=False,
+                       kw=dict(softcap=50.0, scale=GEMMA2_SCALE))
+INT8_GEOMETRY = dict(b=8, hq=8, hkv=1, d=256, page=16, n=64, int8=True,
+                     kw={})
+# the ring serve's decode lengths at its longest: the two prompts past the
+# window and two short ones, 16 tokens decoded
+RING_LENS = [4160 + 16, 5120 + 16, 300, 8000]
+
+
 def k1_inputs(torch, gen, b, hq, hkv, d, page, n, vlens, dtype, int8=False,
               copies=1):
     """Pools with a null page 0, a shuffled table of distinct pages per row,
@@ -232,6 +277,14 @@ def k1_cases(drain):
         # the main path's shape at a decode tick's lengths: short and empty
         # splits reach the split merge
         ("main-path-drain", 8, 8, 1, 256, 8, 128, drain, {}),
+        # gemma2-27b's decode geometry: a local layer's ring table of
+        # ring_slots pages and a global layer's full table, at 8192 tokens
+        ("gemma2-27b-ring", 4, 32, 16, 128, 8, 513, RING_LENS,
+         dict(window=4096, softcap=50.0, scale=GEMMA2_SCALE)),
+        ("gemma2-27b-global", 4, 32, 16, 128, 8, 1024, RING_LENS[:3] + [8192],
+         dict(softcap=50.0, scale=GEMMA2_SCALE)),
+        # gemma-2b with int8 pages of 16 tokens at the drain's lengths
+        ("gemma-2b-int8", 8, 8, 1, 256, 16, 64, drain, dict(int8=True)),
     ]
 
 
@@ -314,66 +367,105 @@ def drain_lens(np):
     return [r.prompt.shape[0] + 16 for r in reqs[:8]]
 
 
-def k1_time(torch, pa, ref, card, vlens, label):
-    """K1 at the main path's shape (B 8, 8/1 heads, D 256, 128 pages of 8
-    tokens, bf16) with the given lengths, beside its plain version, SDPA on
-    the K/V gathered out of the pages (with a boolean mask where a row is
-    shorter than the table: SDPA then still reads the whole table's K/V,
-    where the kernel and the bound read only the live rows) and its
-    bound."""
+def k1_live_mask(torch, table, valid, page, window):
+    """(B, N*page) bool: the rows a query reads, by the plain version's
+    rule (ring slot j holds logical page ``cur - ((cur - j) mod N)``)."""
+    b, n = table.shape
+    vl = valid.long()
+    j = torch.arange(n, device=table.device)[None, :]
+    if window is None:
+        base = (j * page).expand(b, n)
+    else:
+        cur = torch.clamp(vl - 1, min=0)[:, None] // page
+        base = (cur - torch.remainder(cur - j, n)) * page
+    pos = base[:, :, None] + torch.arange(page, device=table.device)
+    live = (pos < vl[:, None, None]) & (pos >= 0)
+    if window is not None:
+        live &= pos > vl[:, None, None] - 1 - window
+    return live.reshape(b, n * page)
+
+
+def k1_time(torch, pa, ref, card, vlens, label, geometry=MAIN_GEOMETRY):
+    """K1 at one geometry (bf16 q; bf16 or int8 pages) with the given
+    lengths, beside its plain version, SDPA on the K/V gathered (and
+    dequantized) out of the pages with a boolean mask of the live rows
+    (SDPA then still reads every gathered row, where the kernel and the
+    bound read only the live ones; it has no softcap, so at a softcap it
+    is a yardstick of the same bytes) and its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_core as core
-    b, hq, hkv, d, page, n = 8, 8, 1, 256, 8, 128
+    g = geometry
+    b, hq, hkv, d, page, n = (g[k] for k in ("b", "hq", "hkv", "d", "page",
+                                             "n"))
+    kw, int8 = g["kw"], g["int8"]
+    window = kw.get("window")
     dtype = torch.bfloat16
-    itemsize = 2
-    kv_bytes = sum(vlens) * hkv * d * itemsize * 2
+    itemsize = 1 if int8 else 2
+    live = [min(v, window) if window else v for v in vlens]
+    kv_bytes = sum(live) * hkv * d * itemsize * 2 + (
+        sum(live) * 4 * 2 if int8 else 0)
     copies = -(-3 * L2_BYTES // kv_bytes)
     gen = torch.Generator().manual_seed(1)
     q, pools, table, valid = k1_inputs(torch, gen, b, hq, hkv, d, page, n,
-                                       vlens, dtype, copies=copies)
-    sets = [(q, kp, vp, table, valid) for kp, vp, _, _ in pools]
+                                       vlens, dtype, int8, copies=copies)
+    sets = [(q, kp, vp, table, valid, ks, vs) for kp, vp, ks, vs in pools]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = pa.split_count(pa.route(q.dtype, dtype, d), b, hkv, page, n,
-                            sms)
-    cfg = pa.kernel_config(q.dtype, dtype, d, page, n, splits)
-    blocks = pa.occupancy(d, cfg.warps, cfg.stages, page, n, splits)
-    ms = time_ms(torch, lambda *a: pa.paged_attention(*a), sets)
-    plain_ms = time_ms(torch, lambda *a: ref.paged_attention(*a), sets)
+    kv_dtype = torch.int8 if int8 else dtype
+    route = pa.route(q.dtype, kv_dtype, d)
+    splits = pa.split_count(route, b, hkv, page, n, sms)
+    cfg = pa.kernel_config(q.dtype, kv_dtype, d, page, n, splits)
+    blocks = (pa.occupancy(d, cfg.warps, cfg.stages, page, n, splits)
+              if route == "mma.sync" else None)
+
+    def call(mod):
+        return lambda qq, kp, vp, t, vl, ks, vs: mod.paged_attention(
+            qq, kp, vp, t, vl, k_scale=ks, v_scale=vs, **kw)
+
+    ms = time_ms(torch, call(pa), sets)
+    plain_ms = time_ms(torch, call(ref), sets)
     # yardstick: one SDPA call over K/V already gathered out of the pages
     tbl = table.long()
-    full = min(vlens) == n * page
-    mask = (torch.arange(n * page, device="cuda")[None, :]
-            < valid[:, None])[:, None, None, :]
-    gathered = [(q[:, :, None, :],
-                 kp[tbl].reshape(b, n * page, hkv, d).transpose(1, 2)
-                 .contiguous(),
-                 vp[tbl].reshape(b, n * page, hkv, d).transpose(1, 2)
-                 .contiguous())
-                for _, kp, vp, _, _ in sets]
+    mask = k1_live_mask(torch, table, valid, page, window)
+    full = bool(mask.all())
+
+    def gathered(pool, scale):
+        x = pool[tbl]
+        if scale is not None:
+            x = (x.float() * scale[tbl][..., None, None]).to(dtype)
+        return x.reshape(b, n * page, hkv, d).transpose(1, 2).contiguous()
+
+    lib_sets = [(q[:, :, None, :], gathered(kp, ks), gathered(vp, vs))
+                for _, kp, vp, _, _, ks, vs in sets]
+    amask = None if full else mask[:, None, None, :]
     library_ms = time_ms(torch, lambda qq, kk, vv:
                          F.scaled_dot_product_attention(
-                             qq, kk, vv, attn_mask=None if full else mask,
-                             enable_gqa=True),
-                         gathered)
-    # bound: each input read once (the live K/V rows, their page ids, q,
-    # valid_len), the output written once (bytes), or the q.k and p.v
-    # products at the bf16 peak (operations); the larger
-    moved = (kv_bytes + 2 * q.numel() * itemsize
-             + sum(-(-v // page) for v in vlens) * 4 + valid.numel() * 4)
-    ops = 4 * sum(vlens) * hq * d
+                             qq, kk, vv, attn_mask=amask, enable_gqa=True,
+                             scale=kw.get("scale")),
+                         lib_sets)
+    # bound: each input read once (the live K/V rows and their scales,
+    # their page ids, q, valid_len), the output written once (bytes), or
+    # the q.k and p.v products at the bf16 peak (operations); the larger
+    moved = (kv_bytes + 2 * q.numel() * 2
+             + sum(-(-v // page) for v in live) * 4 + valid.numel() * 4)
+    ops = 4 * sum(live) * hq * d
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     design = (f"{cfg} splits={splits} "
               f"merge={core.merge_kind(cfg.route, splits)}")
+    extra = "".join(f" {k}={v:.6g}" if isinstance(v, float) else f" {k}={v}"
+                    for k, v in kw.items())
+    sdpa = ("SDPA, enable_gqa, gathered "
+            + ("dequantized " if int8 else "") + "K/V"
+            + ("" if full else f", bool mask: reads all {n * page} "
+               "gathered tokens a row")
+            + (", no softcap" if "softcap" in kw else ""))
     print(f"[K1 time] shape={label} B{b} Hq{hq} Hkv{hkv} D{d} page{page} "
-          f"N{n} valid={vlens} bf16 design='{design}' "
+          f"N{n} valid={vlens} q=bf16 pages="
+          f"{'int8' if int8 else 'bf16'}{extra} design='{design}' "
           f"grid_blocks={b * hkv * splits} resident_blocks_per_sm={blocks} "
           f"pool_copies={copies} card='{card}' ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA, "
-          f"enable_gqa, gathered K/V"
-          f"{'' if full else f', bool mask: reads all {n * page} tokens a row'}"
-          f") "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} ({sdpa}) "
           f"bound_ms={bound_ms:.4f} bound_by={bound_by} "
           f"moved_MB={moved / 1e6:.2f} ratio_to_library="
           f"{ms / library_ms:.2f} ratio_to_bound={ms / bound_ms:.2f} "
@@ -649,60 +741,24 @@ def profile_window(torch, eng, reqs, steps=(("decode window", _prepare_decode),
 def serve_phase(torch, np, card):
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models import build
     from repro_torch.serve import Request, ServeEngine
 
     cfg = ARCHS["gemma-2b"]
-    n_attn = cfg.num_layers
-    t0 = time.perf_counter()
-    bundle = build(cfg)
-    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[model] arch={cfg.name} layers={cfg.num_layers} "
-          f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
-          f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
-          f"vocab={cfg.vocab_size} dtype={cfg.param_dtype} "
-          f"params={n_params} init_s={time.perf_counter() - t0:.2f}",
-          flush=True)
+    bundle, params = load_model(torch, cfg)
     eng = timed_engine_class(torch, ServeEngine)(bundle, params, 8, 1024)
     reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
                          (0, 9, 12, 15), 32)
-    results = {}
-    for run in ("first", "warm"):
-        pa.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        dt = drain(torch, eng, reqs)
-        launches = pa.LAUNCHES
-        st = eng.stats
-        check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
-              f"{run} drain: a request missed its budget")
-        check(all(0 <= t < cfg.vocab_size for r in reqs
-                  for t in r.out_tokens), f"{run} drain: token out of range")
-        check(launches == n_attn * st.decode_steps,
-              f"{run} drain: K1 launches {launches} != {n_attn} x "
-              f"{st.decode_steps} decode ticks")
-        check(launches > 0, "the main path never launched K1")
-        results[run] = launches
-        print(f"[serve] run={run} card='{card}' requests={len(reqs)} "
-              f"batch={eng.bsz} max_len={eng.max_len} page={eng.page} "
-              f"prefill_chunk={eng.prefill_chunk} tokens_out={st.tokens_out} "
-              f"seconds={dt:.3f} tok_s={st.tokens_out / dt:.1f} "
-              f"decode_steps={st.decode_steps} "
-              f"decode_dispatches={st.decode_dispatches} "
-              f"ms_per_decode_tick={1e3 * eng.decode_s / st.decode_steps:.3f} "
-              f"prefill_chunks={st.prefill_chunks} "
-              f"ms_per_prefill_chunk="
-              f"{1e3 * eng.prefill_s / st.prefill_chunks:.3f} "
-              f"prompt_tokens={st.prompt_tokens} "
-              f"prefix_hit_tokens={st.prefix_hit_tokens} "
-              f"pages_peak={st.pages_peak} k1_launches={launches} "
-              f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}",
-              flush=True)
-    check(eng.stats.prefix_hit_tokens > 0, "no prefix hit on shared prompts")
+
+    def checks(run):
+        check(eng.stats.prefix_hit_tokens > 0,
+              f"serve {run}: no prefix hit on shared prompts")
+        return ""
+
+    launches = serve_runs(torch, eng, reqs, "serve", card, cfg.num_layers,
+                          pa, checks)
     for line in profile_window(torch, eng, reqs):
         print(line, flush=True)
-    return results["warm"]
+    return launches
 
 
 def _leaves(tree):
@@ -720,60 +776,27 @@ def _to(tree, device):
 
 def parity_phase(torch, np):
     from repro_torch.configs import ARCHS, override
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models import build
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import Request
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = override(ARCHS["gemma-2b"], num_layers=2, param_dtype="float32",
                    compute_dtype="float32")
-    cpu = build(cfg, device="cpu")
-    params = cpu.init(torch.Generator().manual_seed(1))
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        bundle = cpu if dev == "cpu" else build(cfg, device="cuda")
-        p = params if dev == "cpu" else _to(params, "cuda")
-        eng = ServeEngine(bundle, p, 4, 128, device=dev)
-        reqs = make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40), 17,
-                             (0, 4), 8)
-        before = pa.LAUNCHES
-        for r in reqs:
-            eng.add_request(r)
-        eng.run_to_completion()
-        outs[dev] = [r.out_tokens for r in reqs]
-        if dev == "cuda":
-            check(pa.LAUNCHES - before == 2 * eng.stats.decode_steps,
-                  "parity drain on the card did not run K1 every tick")
-        check(all(len(t) == 8 for t in outs[dev]), f"{dev}: budget missed")
-    same = outs["cpu"] == outs["cuda"]
-    print(f"[parity] arch=gemma-2b full width, 2 layers, float32 "
-          f"requests={len(outs['cpu'])} tokens_each=8 "
-          f"cuda_equals_cpu={same}", flush=True)
-    check(same, f"greedy tokens differ: cpu {outs['cpu']} cuda "
-          f"{outs['cuda']}")
+    card_cpu_parity(
+        torch, np, cfg, None,
+        lambda: make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40), 17,
+                              (0, 4), 8),
+        "parity", "arch=gemma-2b full width, 2 layers, float32")
 
 
 def dense_serve_phase(torch, np, card):
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import RuntimeFlags, build
+    from repro_torch.models import RuntimeFlags
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.tune.plan import next_pow2
 
     cfg = ARCHS["phi4-mini-3.8b"]
     n_attn = cfg.num_layers
-    t0 = time.perf_counter()
-    bundle = build(cfg, RuntimeFlags(attn_impl="pallas"))
-    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[model] arch={cfg.name} layers={cfg.num_layers} "
-          f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
-          f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
-          f"vocab={cfg.vocab_size} dtype={cfg.param_dtype} "
-          f"params={n_params} init_s={time.perf_counter() - t0:.2f}",
-          flush=True)
+    bundle, params = load_model(torch, cfg, RuntimeFlags(attn_impl="pallas"))
     eng = timed_engine_class(torch, ServeEngine)(bundle, params, 8, 1024,
                                                  cache_backend="dense")
     reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
@@ -858,6 +881,304 @@ def dense_parity_phase(torch, np):
           f"cuda_equals_cpu={same}", flush=True)
     check(same, f"greedy tokens differ: cpu {outs['cpu']} cuda "
           f"{outs['cuda']}")
+
+
+# ---------------------------------------------------------------------------
+# ring pages, softcaps and int8 pages on model paths
+# ---------------------------------------------------------------------------
+
+def ring_requests(np, Request, vocab):
+    """8 requests, 32 new tokens each: the first two prompts run past the
+    4096-token window (4160 and 5120 tokens), the other six hold 64-512
+    tokens, three of them sharing a 256-token prefix."""
+    reqs = make_requests(np, Request, vocab, 0, 8, (64, 513), 256, (2, 5, 7),
+                         32)
+    rng = np.random.default_rng(5)
+    for r, n in zip(reqs[:2], (4160, 5120)):
+        more = rng.integers(0, vocab, size=n - r.prompt.shape[0])
+        r.prompt = np.concatenate([r.prompt, more.astype(np.int32)])
+    return reqs
+
+
+def load_model(torch, cfg, flags=None, seed=0):
+    """A bundle on the card and its random weights, drawn there from a
+    seeded generator; prints the ``[model]`` line."""
+    from repro_torch.models import build
+    t0 = time.perf_counter()
+    bundle = build(cfg, flags)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[model] arch={cfg.name} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} dtype={cfg.param_dtype} "
+          f"kv_dtype={bundle.flags.kv_dtype} params={n_params} "
+          f"param_GB={n_params * 2 / 1e9:.2f} "
+          f"init_s={time.perf_counter() - t0:.2f}", flush=True)
+    return bundle, params
+
+
+def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks):
+    """Drain ``reqs`` twice (first, warm) with K1's count set to 0 just
+    before each drain and read just after; checks budgets, token range and
+    K1 launches = layers x decode ticks, then ``extra_checks(run)``.
+    Prints one ``[tag]`` line a run; returns the warm run's launches."""
+    cfg = eng.bundle.cfg
+    launches = 0
+    for run in ("first", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        pa.reset_launches()
+        dt = drain(torch, eng, reqs)
+        launches = pa.LAUNCHES
+        st = eng.stats
+        check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+              f"{tag} {run} drain: a request missed its budget")
+        check(all(0 <= t < cfg.vocab_size for r in reqs
+                  for t in r.out_tokens), f"{tag} {run} drain: token out "
+              "of range")
+        check(launches == n_attn * st.decode_steps > 0,
+              f"{tag} {run} drain: K1 launches {launches} != {n_attn} x "
+              f"{st.decode_steps} decode ticks")
+        extra = extra_checks(run)
+        print(f"[{tag}] run={run} card='{card}' arch={cfg.name} "
+              f"requests={len(reqs)} batch={eng.bsz} max_len={eng.max_len} "
+              f"page={eng.page} prefill_chunk={eng.prefill_chunk} "
+              f"kv_dtype={eng.kv_store_dtype} tokens_out={st.tokens_out} "
+              f"seconds={dt:.3f} tok_s={st.tokens_out / dt:.1f} "
+              f"decode_steps={st.decode_steps} "
+              f"decode_dispatches={st.decode_dispatches} "
+              f"ms_per_decode_tick={1e3 * eng.decode_s / st.decode_steps:.3f} "
+              f"prefill_chunks={st.prefill_chunks} "
+              f"ms_per_prefill_chunk="
+              f"{1e3 * eng.prefill_s / st.prefill_chunks:.3f} "
+              f"prompt_tokens={st.prompt_tokens} "
+              f"prefix_hit_tokens={st.prefix_hit_tokens} "
+              f"pages_peak={st.pages_peak} "
+              f"ring_pages_peak={st.ring_pages_peak} "
+              f"ring_pages_reused={st.ring_pages_reused} "
+              f"k1_launches={launches} kv_pool_GiB="
+              f"{eng.kv_bytes() / 2**30:.3f} "
+              f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f"{extra}", flush=True)
+    return launches
+
+
+def ring_serve_phase(torch, np, card):
+    """Full-width gemma2-27b on the paged engine: K1 on the ring tables of
+    the 23 local layers (window 4096) and the full tables of the 23 global
+    ones, softcap 50 and scale 144^-0.5 on every decode tick."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_core as core
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = ARCHS["gemma2-27b"]
+    bundle, params = load_model(torch, cfg)
+    # 256-token prefill chunks keep the two long prompts at 37 chunks
+    eng = timed_engine_class(torch, ServeEngine)(bundle, params, 4, 8192,
+                                                 prefill_chunk=256)
+    reqs = ring_requests(np, Request, cfg.vocab_size)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    route = pa.route(torch.bfloat16, torch.bfloat16, cfg.resolved_head_dim)
+    split_desc = []
+    for kind, n in (("global", eng.pages_per_seq), ("ring", eng.ring_slots)):
+        splits = pa.split_count(route, eng.bsz, cfg.num_kv_heads, eng.page,
+                                n, sms)
+        split_desc.append(f"{kind}: N={n} splits={splits} merge="
+                          f"{core.merge_kind(route, splits)}")
+    print(f"[ring serve] pools: full {eng.num_pages} pages, ring "
+          f"{eng.num_ring_pages} pages (ring_slots={eng.ring_slots}, "
+          f"window={eng.attn_window}) of {eng.page} tokens, "
+          f"{eng.kv_bytes() / 2**30:.3f} GiB beside "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+          f"K1 route={route}; at the longest length ({eng.max_len} tokens) "
+          f"{'; '.join(split_desc)}", flush=True)
+
+    def checks(run):
+        st = eng.stats
+        check(st.ring_pages_reused > 0, f"ring serve {run}: the ring never "
+              "turned (no ring page reused)")
+        check(st.ring_pages_peak <= eng.bsz * eng.ring_slots,
+              f"ring serve {run}: ring_pages_peak {st.ring_pages_peak} > "
+              f"batch x ring_slots {eng.bsz * eng.ring_slots}")
+        # as in the reference, prefix pages are shared only where every
+        # layer reads them; a ring rotates prefix tokens away
+        check(eng.prefix is None and st.prefix_hit_tokens == 0,
+              f"ring serve {run}: prefix sharing on a windowed stack")
+        return (f" ring_bound={eng.bsz * eng.ring_slots} "
+                f"prefix_sharing=off (windowed stack, as in the reference)")
+
+    launches = serve_runs(torch, eng, reqs, "ring serve", card,
+                          cfg.num_layers, pa, checks)
+    for line in profile_window(torch, eng, reqs):
+        print(line.replace("[profile]", "[profile] arch=gemma2-27b"),
+              flush=True)
+    return launches
+
+
+def int8_serve_phase(torch, np, card):
+    """Full-width gemma-2b with int8 KV pages: K1's int8 route on every
+    decode tick, the serve phase's 16 requests."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import RuntimeFlags
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tune import derive_paged_plan
+
+    cfg = ARCHS["gemma-2b"]
+    bundle, params = load_model(torch, cfg, RuntimeFlags(kv_dtype="int8"))
+    bf16_page = derive_paged_plan(max_len=1024,
+                                  head_dim=cfg.resolved_head_dim,
+                                  dtype=cfg.compute_dtype).page_size
+    int8_page = derive_paged_plan(max_len=1024,
+                                  head_dim=cfg.resolved_head_dim,
+                                  dtype="int8").page_size
+    # the page that holds the bf16 page's bytes: twice its tokens (the
+    # derived rule's 8-token floor gives both dtypes 8 at D 256)
+    page = 2 * bf16_page
+    eng = timed_engine_class(torch, ServeEngine)(bundle, params, 8, 1024,
+                                                 page_size=page)
+    reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
+                         (0, 9, 12, 15), 32)
+    route = pa.route(torch.bfloat16, torch.int8, cfg.resolved_head_dim)
+    check(route == "cuda-cores", f"int8 pages on route {route}")
+    check(eng.page == 2 * bf16_page, "int8 page is not twice the bf16 one")
+
+    def checks(run):
+        check(eng.stats.prefix_hit_tokens > 0,
+              f"int8 serve {run}: no prefix hit on shared prompts")
+        scales = eng.cache["blocks"]["p0"]["k_scale"]
+        check(scales.dtype == torch.float32
+              and tuple(scales.shape[1:]) == (eng.num_pages, eng.page),
+              f"int8 serve: scale lanes {scales.dtype} "
+              f"{tuple(scales.shape)}")
+        return (f" route=int8 ({route}) page_tokens={eng.page} "
+                f"bf16_page_tokens={bf16_page} derived_int8_page={int8_page}")
+
+    launches = serve_runs(torch, eng, reqs, "int8 serve", card,
+                          cfg.num_layers, pa, checks)
+    for line in profile_window(torch, eng, reqs, steps=(
+            ("decode window", _prepare_decode),)):
+        print(line.replace("[profile]", "[profile] arch=gemma-2b kv=int8"),
+              flush=True)
+    return launches
+
+
+def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc):
+    """The same float32 weights (drawn on the card, copied to the CPU)
+    drain the same requests on the card (K1) and on the CPU (the plain
+    path); greedy tokens must agree, every card tick must launch K1 once a
+    layer, and a windowed stack's ring must turn on both."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card_bundle = build(cfg, flags, device="cuda")
+    card_params = card_bundle.init(
+        torch.Generator(device="cuda").manual_seed(1))
+    outs, reused = {}, {}
+    for dev in ("cuda", "cpu"):
+        bundle = card_bundle if dev == "cuda" else build(cfg, flags,
+                                                         device="cpu")
+        p = card_params if dev == "cuda" else _to(card_params, "cpu")
+        eng = ServeEngine(bundle, p, 4, 128, device=dev)
+        reqs = reqs_of()
+        pa.reset_launches()
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_to_completion()
+        outs[dev] = [r.out_tokens for r in reqs]
+        reused[dev] = eng.stats.ring_pages_reused
+        if dev == "cuda":
+            check(pa.LAUNCHES == cfg.num_layers * eng.stats.decode_steps > 0,
+                  f"{tag}: the drain on the card did not run K1 every tick")
+        check(all(len(t) == r.max_new_tokens for t, r in zip(outs[dev],
+                                                               reqs)),
+              f"{tag} {dev}: budget missed")
+        del eng, p
+    if any(s.sliding_window for s in cfg.layer_pattern):
+        check(reused["cuda"] > 0 and reused["cpu"] > 0,
+              f"{tag}: the ring never turned")
+    same = outs["cpu"] == outs["cuda"]
+    print(f"[{tag}] {desc} requests={len(outs['cpu'])} "
+          f"ring_pages_reused={reused['cuda']} cuda_equals_cpu={same}",
+          flush=True)
+    check(same, f"{tag}: greedy tokens differ: cpu {outs['cpu']} cuda "
+          f"{outs['cuda']}")
+
+
+def ring_parity_phase(torch, np):
+    from repro_torch.configs import ARCHS, LayerSpec, override
+    from repro_torch.serve import Request
+
+    # gemma2-27b's (local, global) pair at its published widths; the window
+    # is narrowed from 4096 to 32 so the ring turns within a short drain
+    cfg = override(ARCHS["gemma2-27b"], num_layers=2, param_dtype="float32",
+                   compute_dtype="float32",
+                   layer_pattern=(LayerSpec(sliding_window=32), LayerSpec()))
+    card_cpu_parity(
+        torch, np, cfg, None,
+        lambda: make_requests(np, Request, cfg.vocab_size, 2, 6, (20, 72),
+                              17, (0, 4), 8),
+        "ring parity", "arch=gemma2-27b (local, global) pair, full width, "
+        "float32, window narrowed 4096->32, softcap 50, scale 144^-0.5")
+
+
+def int8_parity_phase(torch, np):
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.models import RuntimeFlags
+    from repro_torch.serve import Request
+
+    cfg = override(ARCHS["gemma-2b"], num_layers=2, param_dtype="float32",
+                   compute_dtype="float32")
+    card_cpu_parity(
+        torch, np, cfg, RuntimeFlags(kv_dtype="int8"),
+        lambda: make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40), 17,
+                              (0, 4), 8),
+        "int8 parity", "arch=gemma-2b full width, 2 layers, float32, int8 KV")
+
+
+BENCH_SWEEPS = ("serve", "kernel_plan", "paged_serve")
+
+
+def bench_serve_phase(torch, card):
+    """The serving sweeps at card scale twice in one call, then the
+    comparator between the two runs: every row and verdict printed; the
+    structural gate (deterministic rows identical, no vanished metric)
+    must pass; wall-clock verdicts are advisory."""
+    from repro_torch.bench import compare, run_sweeps
+
+    out = os.path.join(ROOT, "build", "bench_serve")
+    paths = []
+    for i in (1, 2):
+        print(f"[bench serve] run={i} card='{card}' sweeps="
+              f"{','.join(BENCH_SWEEPS)} scale=card", flush=True)
+        t0 = time.perf_counter()
+        run = run_sweeps(names=BENCH_SWEEPS, fast=False, out_dir=out,
+                         device="cuda")
+        check(not run.failures, f"bench serve run {i}: sweeps failed "
+              f"{sorted(run.failures)}: {run.failures}")
+        paths.append(run.env["path"])
+        det = {r.name: r.gbps_measured for r in run.results
+               if r.extras.get("deterministic")}
+        print(f"[bench serve] run={i} rows={len(run.results)} "
+              f"seconds={time.perf_counter() - t0:.2f} deterministic={det} "
+              f"path={os.path.relpath(paths[-1], ROOT)}", flush=True)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("[bench serve] compare gate=all (wall-clock verdicts advisory):",
+          flush=True)
+    rc_all = compare.main(paths)
+    print("[bench serve] compare gate=structural:", flush=True)
+    rc = compare.main(paths + ["--gate", "structural"])
+    print(f"[bench serve] compare exit gate=all={rc_all} (advisory) "
+          f"gate=structural={rc}", flush=True)
+    check(rc == 0, "compare --gate structural failed between two runs of "
+          "the same code")
 
 
 # ---------------------------------------------------------------------------
@@ -1636,6 +1957,7 @@ def main():
         print("[FAIL] no CUDA card is visible: this smoke run needs one",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     try:
         card = card_line()
         print(f"[card] card='{card}' torch={torch.__version__} "
@@ -1654,6 +1976,14 @@ def main():
         err = k1_check(torch, pa, ref, drain)
         timing = k1_time(torch, pa, ref, card, [1024] * 8, "full")
         k1_time(torch, pa, ref, card, drain, "drain")
+        k1_timed = [
+            dict(shape=label, **k1_time(torch, pa, ref, card, lens, label,
+                                        geometry))
+            for label, lens, geometry in (
+                ("gemma2-27b-ring", RING_LENS, RING_GEOMETRY),
+                ("gemma2-27b-global", RING_LENS[:3] + [8192],
+                 GLOBAL_GEOMETRY),
+                ("gemma-2b-int8-drain", drain, INT8_GEOMETRY))]
         launches = serve_phase(torch, np, card)
         parity_phase(torch, np)
         gc.collect()                 # the gemma-2b engine and weights go
@@ -1692,13 +2022,32 @@ def main():
         torch.cuda.empty_cache()
         k8_err = k8_check(torch, ops, ref, mm)
         k8_timing = k8_time(torch, ops, ref, mm, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ring_launches = ring_serve_phase(torch, np, card)
+        gc.collect()                 # the 54 GB of gemma2-27b go
+        torch.cuda.empty_cache()
+        int8_launches = int8_serve_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ring_parity_phase(torch, np)
+        gc.collect()
+        torch.cuda.empty_cache()
+        int8_parity_phase(torch, np)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bench_serve_phase(torch, card)
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1
     k1 = dict(name="paged_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/paged_attention.cu",
               replaces="src/repro/kernels/paged_attention.py:100",
-              launches=launches, max_abs_err=err, **timing)
+              launches=launches, max_abs_err=err, **timing,
+              launches_by_path={"serve": launches,
+                                "ring serve": ring_launches,
+                                "int8 serve": int8_launches},
+              timed=k1_timed)
     k2 = dict(name="flash_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/flash_attention.cu",
               replaces="src/repro/kernels/flash_attention.py:128",
@@ -1722,6 +2071,8 @@ def main():
               replaces="src/repro/kernels/matmul.py:58",
               launches=tune_launches["matmul"], max_abs_err=k8_err,
               **k8_timing)
+    print(f"[elapsed] seconds={time.perf_counter() - t_start:.1f} "
+          "(the whole run, the kernels' build included)", flush=True)
     print("[previous] not measured in this run: "
           + " ".join(f"{name}_ms={ms}" for name, ms in PREVIOUS_MS.items())
           + " (each kernel before its redesign, from PERF.md section 6: K2 "

@@ -1,4 +1,5 @@
-"""The ported sweeps — one module per paper table/figure, registered in the
+"""The ported sweeps — one module per paper table/figure, then the serving
+sweeps (``serve`` and ``kernel_plan``, ``paged_serve``), registered in the
 reference's order (``repro.bench.sweeps``).  Importing this package
 populates :data:`repro_torch.bench.registry.REGISTRY`.
 
@@ -9,10 +10,10 @@ times the card's 50 MiB L2, or the card would measure its cache.
 """
 from repro_torch.bench.sweeps import (  # noqa: F401  (import order == run order)
     latency, outstanding, unit_size, stride, burst, num_kernels,
-    random_access,
+    random_access, serve, paged_serve,
 )
 
 __all__ = [
     "latency", "outstanding", "unit_size", "stride", "burst", "num_kernels",
-    "random_access",
+    "random_access", "serve", "paged_serve",
 ]

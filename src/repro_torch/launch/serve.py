@@ -5,8 +5,10 @@ drawn from a seeded generator, on the card.
         --requests 16 --batch 8 --max-len 1024 --max-new 32
 
 ``--cache`` picks the KV backend (``auto`` lets the engine pick: paged);
+``--kv-int8`` stores the KV cache as int8 with a float32 scale per token;
 prefill attention is the reference launcher's, ``chunked`` with 64-token
-blocks.  ``--smoke`` serves the same architecture at smoke width;
+blocks.  ``--arch gemma2-27b`` serves its sliding-window layers from ring
+pages.  ``--smoke`` serves the same architecture at smoke width;
 ``--device cpu`` runs the plain PyTorch path on the CPU (without it, a
 host with no card is an error).
 """
@@ -34,6 +36,8 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--window", type=int, default=8,
                     help="decode ticks per host sync")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8 KV cache with per-token float32 scales")
     ap.add_argument("--seed", type=int, default=0,
                     help="weights + traffic seed")
     ap.add_argument("--cache", default="auto",
@@ -44,7 +48,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = smoke_config(ARCHS[args.arch]) if args.smoke else ARCHS[args.arch]
-    flags = RuntimeFlags(attn_impl="chunked", attn_bq=64, attn_bkv=64)
+    flags = RuntimeFlags(attn_impl="chunked", attn_bq=64, attn_bkv=64,
+                         kv_dtype="int8" if args.kv_int8 else "native")
     bundle = build(cfg, flags, device=args.device)
     gen = torch.Generator(device=bundle.device).manual_seed(args.seed)
     params = bundle.init(gen)
@@ -64,14 +69,16 @@ def main(argv=None) -> int:
     where = (torch.cuda.get_device_name(bundle.device)
              if bundle.device.type == "cuda" else str(bundle.device))
     print(f"{cfg.name}{' (smoke)' if args.smoke else ''} on {where}, "
-          f"{eng.backend} cache: {stats.tokens_out} tokens in {dt:.2f}s "
+          f"{eng.backend} cache{' (int8)' if args.kv_int8 else ''}: "
+          f"{stats.tokens_out} tokens in {dt:.2f}s "
           f"({stats.tokens_out / dt:.1f} tok/s), prefills={stats.prefills}, "
           f"prefill_retraces={stats.prefill_retraces}, "
           f"prefill_chunks={stats.prefill_chunks}, "
           f"decode_steps={stats.decode_steps}, "
           f"decode_dispatches={stats.decode_dispatches}, "
           f"prefix_hit_tokens={stats.prefix_hit_tokens}, "
-          f"pages_peak={stats.pages_peak}")
+          f"pages_peak={stats.pages_peak}, "
+          f"ring_pages_peak={stats.ring_pages_peak}")
     return 0
 
 

@@ -71,11 +71,14 @@ def _per_batch(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int32, device=device).reshape(-1, 1, 1)
 
 
-def naive_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
+def naive_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None,
+                    k_positions=None):
     """q: (B,Sq,Hq,D); k/v: (B,Skv,Hkv,D) -> (B,Sq,Hq,D), float32 scores.
 
     ``q_offset`` / ``kv_valid_len``: scalar or per-batch (B,) — continuous
-    batching serves requests at different positions in one step."""
+    batching serves requests at different positions in one step.
+    ``k_positions``: explicit kv positions (B, Skv) for ring-buffer caches
+    (negative = an empty row)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -85,9 +88,16 @@ def naive_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
     s = common.softcap(s, p.softcap)
     q_pos = (_per_batch(q_offset, q.device)
              + torch.arange(sq, dtype=torch.int32, device=q.device)[None, :, None])
-    k_pos = torch.arange(skv, dtype=torch.int32, device=q.device)[None, None, :]
+    if k_positions is None:
+        k_pos = torch.arange(skv, dtype=torch.int32,
+                             device=q.device)[None, None, :]
+    else:
+        k_pos = torch.as_tensor(k_positions, dtype=torch.int32,
+                                device=q.device)[:, None, :]   # (B, 1, skv)
     kvl = None if kv_valid_len is None else _per_batch(kv_valid_len, q.device)
     m = _mask(q_pos, k_pos, p.causal, p.window, kvl)
+    if k_positions is not None:
+        m &= k_pos >= 0
     s = torch.where(m[:, None, None], s, NEG_INF)          # (B?,hkv,g,sq,skv)
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", pr, v.float())

@@ -38,17 +38,25 @@ class ParamBuilder:
     def dense(self, path: str, shape: Sequence[int],
               scale: Optional[float] = None) -> None:
         """Truncated normal in [-2, 2] times ``scale`` (default
-        ``1/sqrt(fan_in)``), drawn in float32 and cast to the param dtype."""
+        ``1/sqrt(fan_in)``), drawn in float32 and cast to the param dtype.
+        A stacked (LAYERS, ...) weight is drawn one layer at a time, so the
+        float32 draw never holds more than one layer (a full-width stack
+        of 23 MLP weights would need 16 GB of it at once)."""
         if self.device.type == "meta":
             self._put(path, torch.empty(tuple(shape), dtype=self.dtype,
                                         device=self.device))
             return
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-        w = torch.empty(tuple(shape), dtype=torch.float32, device=self.device)
-        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                    generator=self.generator)
-        self._put(path, (w * std).to(self.dtype))
+        out = torch.empty(tuple(shape), dtype=self.dtype, device=self.device)
+        parts = out if len(shape) == 3 else out[None]
+        for part in parts:
+            w = torch.empty(part.shape, dtype=torch.float32,
+                            device=self.device)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                        generator=self.generator)
+            part.copy_(w.mul_(std))
+        self._put(path, out)
 
     def zeros(self, path: str, shape: Sequence[int]) -> None:
         self._put(path, torch.zeros(tuple(shape), dtype=self.dtype,

@@ -31,7 +31,8 @@ class ModelBundle:
 
     # -- dense KV backend ------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
-        return transformer.init_cache(self.cfg, batch, max_len, self.device)
+        return transformer.init_cache(self.cfg, batch, max_len, self.device,
+                                      kv_dtype=self.flags.kv_dtype)
 
     def prefill(self, params, batch: dict):
         return transformer.prefill(params, self.cfg, self.flags, batch)
@@ -42,13 +43,17 @@ class ModelBundle:
 
     # -- paged KV backend ------------------------------------------------
     def paged_supported(self) -> bool:
-        """Every stack the port accepts (full-attention ATTN + DENSE
-        decoders) serves from the shared page pools."""
+        """Every stack the port accepts serves from the shared page pools:
+        full-attention layers grow a page table, windowed layers keep a
+        rotating ring of pages, int8 KV stores scale lanes."""
         return True
 
-    def init_paged_cache(self, num_pages: int, page_size: int) -> dict:
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         ring_pages: int = 0) -> dict:
         return transformer.init_paged_cache(self.cfg, num_pages, page_size,
-                                            self.device)
+                                            self.device,
+                                            ring_pages=ring_pages,
+                                            kv_dtype=self.flags.kv_dtype)
 
     def paged_decode_step(self, params, cache, tokens, pos, table):
         return transformer.paged_decode_step(params, self.cfg, self.flags,

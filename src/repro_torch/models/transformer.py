@@ -1,20 +1,32 @@
-"""Decoder-only LM, ATTN + DENSE full-attention stacks, on a dense or a
-paged KV cache.
+"""Decoder-only LM, ATTN + DENSE stacks (full attention and sliding
+windows), on a dense or a paged KV cache.
 
 The port of ``repro.models.transformer`` for these stacks, four modes:
 
 - ``prefill`` (:func:`prefill`): a whole (right-padded) prompt; attention
   through ``flags.attn_impl`` (``pallas`` runs the ``flash_attention``
-  kernel, K2); returns a dense cache of the prompt's k/v;
+  kernel, K2); returns a dense cache of the prompt's k/v (a windowed layer
+  keeps its last ``window`` rows and their positions);
 - ``decode`` (:func:`decode_step`): one token per slot written into the
-  dense ``(B, max_len)`` cache at its own position, then naive attention
-  over the cache;
+  dense ``(B, max_len)`` cache at its own position (a windowed layer's
+  ring buffer of ``min(window, max_len)`` rows at ``pos % rows``, with a
+  ``kpos`` lane of positions, ``-10**9`` for an empty row), then naive
+  attention over the cache;
 - ``paged_extend`` (:func:`paged_prefill_chunk`): a prompt chunk writes its
   k/v through the page table, then attends over the gathered pages with
-  :func:`~repro_torch.models.attention.paged_gather_attention`;
+  :func:`~repro_torch.models.attention.paged_gather_attention`; a windowed
+  layer attends over its ring's gathered pages *before* it writes;
 - ``paged_decode`` (:func:`paged_decode_step`): one token per slot writes
   through the table, then every attention layer runs the
-  ``paged_attention`` kernel (K1, :mod:`repro_torch.kernels.ops`).
+  ``paged_attention`` kernel (K1, :mod:`repro_torch.kernels.ops`) with the
+  softcap, the scale and, on windowed layers, the window over a ring
+  table.
+
+``kv_dtype="int8"`` stores k/v as int8 with a float32 scale per token
+(:func:`_kv_quant`): dense caches in ``k_scale``/``v_scale`` (B, T) lanes,
+page pools in (P, page) lanes that K1 dequantizes.  Attention over the
+chunk being written uses the quantize -> dequantize round trip, so one-shot
+and chunked prefill agree with what decode reads back.
 
 Parameters keep the reference's layout: per-pattern-position weights
 stacked on a leading LAYERS axis (``blocks.p{j}``), remainder layers
@@ -41,31 +53,32 @@ from repro_torch.models.common import ParamBuilder, rms_norm, rope, softcap
 
 @dataclass(frozen=True)
 class RuntimeFlags:
-    """Execution knobs (never affect math).  ``attn_impl`` picks the
-    attention of full-sequence prefill (naive | chunked | pallas);
-    ``attn_bq``/``attn_bkv`` pin chunked's blocks (None = the tuned
-    plan's, :func:`repro_torch.models.attention.resolve_blocks`); the CUDA
-    kernel behind ``pallas`` picks its own tiles.  ``kv_dtype="int8"`` is
-    not ported yet."""
+    """Execution knobs (never affect math, except ``kv_dtype``'s
+    quantization).  ``attn_impl`` picks the attention of full-sequence
+    prefill (naive | chunked | pallas); ``attn_bq``/``attn_bkv`` pin
+    chunked's blocks (None = the tuned plan's,
+    :func:`repro_torch.models.attention.resolve_blocks`); the CUDA kernel
+    behind ``pallas`` picks its own tiles.  ``kv_dtype="int8"`` stores the
+    KV cache as int8 with a float32 scale per token."""
 
     attn_impl: str = "chunked"
     attn_bq: Optional[int] = None
     attn_bkv: Optional[int] = None
-    kv_dtype: str = "native"
+    kv_dtype: str = "native"         # native | int8
+
+
+KV_DTYPES = ("native", "int8")
 
 
 def check_supported(cfg: ModelConfig,
                     flags: Optional[RuntimeFlags] = None) -> None:
-    """The port serves full-attention ATTN + DENSE decoders with a cache in
-    the compute dtype; raise on anything else rather than compute
-    something else."""
+    """The port serves ATTN + DENSE decoders (full attention and sliding
+    windows) with a cache in the compute dtype or in int8; raise on
+    anything else rather than compute something else."""
     if flags is not None:
-        if flags.kv_dtype == "int8":
-            raise NotImplementedError(
-                "kv_dtype='int8' is not ported yet (int8 KV pages and "
-                "scale lanes)")
-        if flags.kv_dtype != "native":
-            raise ValueError(f"unknown kv_dtype {flags.kv_dtype!r}")
+        if flags.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"unknown kv_dtype {flags.kv_dtype!r}; known: "
+                             f"{KV_DTYPES}")
         if flags.attn_impl not in attn_mod.IMPLS:
             raise ValueError(f"unknown attn_impl {flags.attn_impl!r}; known: "
                              f"{sorted(attn_mod.IMPLS)}")
@@ -73,14 +86,37 @@ def check_supported(cfg: ModelConfig,
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and frontend stacks are not ported")
     for spec in tuple(cfg.layer_pattern) + tuple(cfg.remainder_specs):
-        if spec.mixer != ATTN or spec.mlp != DENSE or spec.sliding_window:
+        if spec.mixer != ATTN or spec.mlp != DENSE:
             raise NotImplementedError(
-                f"{cfg.name}: layer {spec} is not ported (full-attention "
-                "ATTN + DENSE layers only)")
+                f"{cfg.name}: layer {spec} is not ported (ATTN + DENSE "
+                "layers only)")
 
 
 def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+SENTINEL = -10 ** 9     # the position of an empty ring row
+
+
+def _kv_quant(x: torch.Tensor):
+    """(B, S, H, D) -> (int8 values, per-token float32 scale (B, S)):
+    the scale is the token's largest magnitude over 127 (at least
+    1e-6 / 127), values rounded half to even and clipped to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(2, 3))
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[:, :, None, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequant(q: torch.Tensor, scale: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[:, :, None, None]).to(dtype)
+
+
+def _kv_store_dtype(cfg: ModelConfig, kv_dtype: str) -> torch.dtype:
+    return torch.int8 if kv_dtype == "int8" else dtype_of(cfg.compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -118,43 +154,69 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     return b.params
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """Dense decode cache: per-layer ``k``/``v`` of shape
-    (batch, max_len, Hkv, D) in the compute dtype, stacked on LAYERS like
-    the params."""
-    check_supported(cfg)
-    dtype = dtype_of(cfg.compute_dtype)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-
-    def kv(lead):
-        return {n: torch.zeros(lead + shape, dtype=dtype, device=device)
-                for n in ("k", "v")}
-
+def _stacked(cfg: ModelConfig, make) -> dict:
+    """A cache tree: ``make(spec, lead)`` for every pattern position (lead
+    = (LAYERS,)) and every remainder layer (lead = ())."""
     nb = cfg.num_pattern_blocks
-    return dict(blocks={f"p{j}": kv((nb,))
-                        for j, _ in enumerate(cfg.layer_pattern)},
-                rem={f"r{j}": kv(())
-                     for j, _ in enumerate(cfg.remainder_specs)})
+    return dict(blocks={f"p{j}": make(spec, (nb,))
+                        for j, spec in enumerate(cfg.layer_pattern)},
+                rem={f"r{j}": make(spec, ())
+                     for j, spec in enumerate(cfg.remainder_specs)})
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               kv_dtype: str = "native") -> dict:
+    """Dense decode cache, stacked on LAYERS like the params: per layer
+    ``k``/``v`` of shape (batch, T, Hkv, D) with T = max_len, or
+    ``min(window, max_len)`` ring rows and a ``kpos`` (batch, T) int32
+    lane (``-10**9`` = empty) for a windowed layer; int8 adds float32
+    ``k_scale``/``v_scale`` (batch, T) lanes."""
+    check_supported(cfg)
+    kvd = _kv_store_dtype(cfg, kv_dtype)
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def make(spec: LayerSpec, lead):
+        t = (min(spec.sliding_window, max_len)
+             if spec.sliding_window is not None else max_len)
+        c = {n: torch.zeros(lead + (batch, t, hkv, hd), dtype=kvd,
+                            device=device) for n in ("k", "v")}
+        if spec.sliding_window is not None:
+            c["kpos"] = torch.full(lead + (batch, t), SENTINEL,
+                                   dtype=torch.int32, device=device)
+        if kv_dtype == "int8":
+            for n in ("k_scale", "v_scale"):
+                c[n] = torch.zeros(lead + (batch, t), dtype=torch.float32,
+                                   device=device)
+        return c
+
+    return _stacked(cfg, make)
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device) -> dict:
+                     device, ring_pages: int = 0,
+                     kv_dtype: str = "native") -> dict:
     """Per-layer page pools ``k_pages``/``v_pages`` of shape
-    (P, page, Hkv, D), stacked on LAYERS like the params; page ids are
-    shared by every layer (one host-side allocator and table)."""
+    (P, page, Hkv, D), stacked on LAYERS like the params.  Full-attention
+    layers share the ``num_pages`` pool's ids, windowed layers the
+    ``ring_pages`` pool's (default: ``num_pages``): one host-side allocator
+    and table for each kind.  int8 adds float32 ``k_scale``/``v_scale``
+    (P, page) lanes."""
     check_supported(cfg)
-    dtype = dtype_of(cfg.compute_dtype)
-    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    kvd = _kv_store_dtype(cfg, kv_dtype)
+    ring_pages = ring_pages or num_pages
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
 
-    def pools(lead):
-        return {n: torch.zeros(lead + shape, dtype=dtype, device=device)
-                for n in ("k_pages", "v_pages")}
+    def make(spec: LayerSpec, lead):
+        p = ring_pages if spec.sliding_window is not None else num_pages
+        c = {n: torch.zeros(lead + (p, page_size, hkv, hd), dtype=kvd,
+                            device=device) for n in ("k_pages", "v_pages")}
+        if kv_dtype == "int8":
+            for n in ("k_scale", "v_scale"):
+                c[n] = torch.zeros(lead + (p, page_size),
+                                   dtype=torch.float32, device=device)
+        return c
 
-    nb = cfg.num_pattern_blocks
-    return dict(blocks={f"p{j}": pools((nb,))
-                        for j, _ in enumerate(cfg.layer_pattern)},
-                rem={f"r{j}": pools(())
-                     for j, _ in enumerate(cfg.remainder_specs)})
+    return _stacked(cfg, make)
 
 
 # ---------------------------------------------------------------------------
@@ -172,71 +234,191 @@ def _attn_params(cfg: ModelConfig, spec: LayerSpec,
                       bq=flags.attn_bq, bkv=flags.attn_bkv)
 
 
-def _paged_attn(q, k, v, cache, ap: AttnParams, pos, table, chunk_valid,
-                cfg: ModelConfig, mode: str):
-    """The paged-cache mixer body for full-attention layers.
+def _ring_gather(cache, tbl, off, page, dtype):
+    """A ring table's live tokens as a contiguous view: (k, v, positions)
+    with k/v (B, R*page, Hkv, D) and positions (B, R*page) int32
+    (``-10**9`` = a dead row).  Ring slot j holds logical page
+    ``cur - ((cur - j) mod R)``, ``cur`` the logical page of the last
+    token already written (``off - 1``); stale rows of rotated-out pages
+    map to positions >= off and are masked."""
+    b, r = tbl.shape
+    t = tbl.long()
+    kg = cache["k_pages"][t]                          # (B, R, page, Hkv, D)
+    vg = cache["v_pages"][t]
+    if "k_scale" in cache:
+        kg = kg.float() * cache["k_scale"][t][..., None, None]
+        vg = vg.float() * cache["v_scale"][t][..., None, None]
+    dev = tbl.device
+    cur = torch.clamp(off - 1, min=0)[:, None] // page          # (B, 1)
+    j = torch.arange(r, dtype=torch.int32, device=dev)[None, :]
+    base = (cur - torch.remainder(cur - j, r)) * page           # (B, R)
+    kpos = (base[:, :, None]
+            + torch.arange(page, dtype=torch.int32, device=dev)[None, None])
+    ok = (kpos < off[:, None, None]) & (kpos >= 0)
+    kpos = torch.where(ok, kpos, SENTINEL).reshape(b, r * page)
+    kg = kg.reshape(b, r * page, *kg.shape[3:]).to(dtype)
+    vg = vg.reshape(b, r * page, *vg.shape[3:]).to(dtype)
+    return kg, vg, kpos
 
-    Logical page j of a row covers absolute positions [j*page, (j+1)*page).
-    The new k/v are written through the table first; positions outside the
-    chunk (bucket padding) are steered to page 0, which the engine reserves
-    as a null page, so masked writes never touch live data.  Decode (S=1)
-    then runs the ``paged_attention`` kernel; extend attends over the
-    gathered pages."""
+
+def _paged_attn(q, k, v, cache, ap: AttnParams, spec: LayerSpec, pos, table,
+                chunk_valid, cfg: ModelConfig, flags: RuntimeFlags,
+                mode: str):
+    """The paged-cache mixer body (both paged modes).
+
+    Full-attention layers read ``table["full"]`` (logical page j covers
+    absolute positions [j*page, (j+1)*page)); windowed layers read
+    ``table["ring"]`` (``ring_slots`` rotating slots, positions recovered
+    from the valid length).  Decode (S=1) writes the token through the
+    table, then runs the ``paged_attention`` kernel with the softcap, the
+    scale, the window and the int8 scale lanes; extend attends over a
+    gathered view: ring layers *before* they write, because a chunk that
+    crosses a page boundary rotates out the trailing page that its own
+    early queries still read.  Positions outside the chunk (bucket
+    padding) and ring positions older than the ring can hold are steered
+    to page 0, which the engine reserves as a null page, so masked writes
+    never touch live data."""
     bsz, s = q.shape[:2]
-    kp, vp = cache["k_pages"], cache["v_pages"]
-    page = kp.shape[1]
-    n = table.shape[1]
+    page = cache["k_pages"].shape[1]
+    ring = spec.sliding_window is not None
+    tbl = table["ring"] if ring else table["full"]
+    n = tbl.shape[1]
     dev = q.device
     posv = pos.reshape(-1).to(torch.int32).expand(bsz)
-    positions = posv[:, None] + torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    positions = (posv[:, None]
+                 + torch.arange(s, dtype=torch.int32, device=dev)[None, :])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if chunk_valid is None:
         valid = torch.full((bsz,), s, dtype=torch.int32, device=dev)
     else:
         valid = chunk_valid.reshape(-1).to(torch.int32).expand(bsz)
-    in_chunk = torch.arange(s, device=dev)[None, :] < valid[:, None]
-    pidx = torch.clamp(positions // page, max=n - 1).long()
-    rows = torch.arange(bsz, device=dev)[:, None]
-    pids = torch.where(in_chunk, table.long()[rows, pidx], 0)
-    slots = torch.where(in_chunk, (positions % page).long(), 0)
-    kp[pids, slots] = k.to(kp.dtype)
-    vp[pids, slots] = v.to(vp.dtype)
-    if mode == "paged_decode":
-        o = kops.paged_attention(q[:, 0], kp, vp, table, posv + 1,
-                                 scale=ap.scale, softcap=ap.softcap)[:, None]
+    in_chunk = (torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+                < valid[:, None])
+    writable = in_chunk
+    if ring:
+        pidx = torch.remainder(positions // page, n).long()
+        if s > 1:
+            # a chunk wider than the ring would write two logical pages
+            # through one slot; only the trailing (R-1) pages of positions
+            # can matter to a later query ((R-1)*page >= window), and they
+            # cannot alias: older ones go to the null page
+            end = (posv + valid)[:, None]
+            writable = in_chunk & (positions >= end - (n - 1) * page)
     else:
-        o = paged_gather_attention(q, kp, vp, table, ap, q_offset=posv,
-                                   kv_valid_len=posv + valid)
+        pidx = torch.clamp(positions // page, max=n - 1).long()
+    rows = torch.arange(bsz, device=dev)[:, None]
+    pids = torch.where(writable, tbl.long()[rows, pidx], 0)
+    slots = torch.where(writable, (positions % page).long(), 0)
+
+    int8kv = flags.kv_dtype == "int8"
+    if int8kv:
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+    else:
+        kq, vq = k, v
+
+    if mode != "paged_decode" and ring:
+        if int8kv:
+            # the chunk attends over what readers will dequantize (the
+            # other paths read it back from the pages)
+            k = _kv_dequant(kq, ks, q.dtype)
+            v = _kv_dequant(vq, vs, q.dtype)
+        kg, vg, kpos = _ring_gather(cache, tbl, posv, page, q.dtype)
+        cpos = torch.where(in_chunk, positions, SENTINEL)
+        o = attn_mod.naive_attention(
+            q, torch.cat([kg, k.to(q.dtype)], dim=1),
+            torch.cat([vg, v.to(q.dtype)], dim=1), ap, q_offset=posv,
+            k_positions=torch.cat([kpos, cpos], dim=1))
+
+    kp, vp = cache["k_pages"], cache["v_pages"]
+    kp[pids, slots] = kq.to(kp.dtype)
+    vp[pids, slots] = vq.to(vp.dtype)
+    k_scale = v_scale = None
+    if int8kv:
+        k_scale, v_scale = cache["k_scale"], cache["v_scale"]
+        k_scale[pids, slots] = ks
+        v_scale[pids, slots] = vs
+
+    if mode == "paged_decode":
+        o = kops.paged_attention(q[:, 0], kp, vp, tbl, posv + 1,
+                                 scale=ap.scale, softcap=ap.softcap,
+                                 window=spec.sliding_window, k_scale=k_scale,
+                                 v_scale=v_scale)[:, None]
+    elif not ring:
+        o = paged_gather_attention(q, kp, vp, tbl, ap, q_offset=posv,
+                                   kv_valid_len=posv + valid,
+                                   k_scale=k_scale, v_scale=v_scale)
     return o
 
 
-def _dense_attn(q, k, v, cache, ap: AttnParams, pos, cfg: ModelConfig,
-                mode: str):
+def _dense_attn(q, k, v, cache, ap: AttnParams, spec: LayerSpec, pos,
+                cfg: ModelConfig, flags: RuntimeFlags, mode: str):
     """The dense-cache mixer body.  Decode writes each slot's k/v into its
-    cache row at its own position, then attends over the row up to it;
-    prefill attends over the whole (right-padded) sequence through
-    ``ap.impl`` and hands its k/v back as the request's cache."""
+    cache row at its own position (a windowed layer at ``pos % rows`` of
+    its ring, recording the position in ``kpos``), then attends over the
+    row; prefill attends over the whole (right-padded) sequence through
+    ``ap.impl`` and hands back the request's cache (a windowed layer's
+    last ``window`` rows and their positions)."""
     bsz, s = q.shape[:2]
     dev = q.device
+    int8kv = flags.kv_dtype == "int8"
     if mode == "decode":
         posv = torch.as_tensor(pos, dtype=torch.int32, device=dev
                                ).reshape(-1).expand(bsz)
         q = rope(q, posv[:, None], cfg.rope_theta)
         k = rope(k, posv[:, None], cfg.rope_theta)
+        if int8kv:
+            kq, ks = _kv_quant(k)
+            vq, vs = _kv_quant(v)
+        else:
+            kq, vq = k, v
         rows = torch.arange(bsz, device=dev)
         kc, vc = cache["k"], cache["v"]
-        kc[rows, posv.long()] = k[:, 0].to(kc.dtype)
-        vc[rows, posv.long()] = v[:, 0].to(vc.dtype)
-        o = attn_mod.naive_attention(q, kc, vc, ap, q_offset=posv,
-                                     kv_valid_len=posv + 1)
+        ring = spec.sliding_window is not None
+        idx = (torch.remainder(posv, kc.shape[1]) if ring else posv).long()
+        kc[rows, idx] = kq[:, 0].to(kc.dtype)
+        vc[rows, idx] = vq[:, 0].to(vc.dtype)
+        if ring:
+            cache["kpos"][rows, idx] = posv
+        if int8kv:
+            cache["k_scale"][rows, idx] = ks[:, 0]
+            cache["v_scale"][rows, idx] = vs[:, 0]
+            kc = _kv_dequant(kc, cache["k_scale"], k.dtype)
+            vc = _kv_dequant(vc, cache["v_scale"], v.dtype)
+        if ring:
+            o = attn_mod.naive_attention(q, kc, vc, ap, q_offset=posv,
+                                         k_positions=cache["kpos"])
+        else:
+            o = attn_mod.naive_attention(q, kc, vc, ap, q_offset=posv,
+                                         kv_valid_len=posv + 1)
         return o, cache
     positions = torch.arange(s, dtype=torch.int32, device=dev
                              )[None].expand(bsz, s)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if int8kv:
+        # prefill attends over the round trip it stores, so its logits
+        # agree with decode and with paged chunked prefill
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        k = _kv_dequant(kq, ks, q.dtype)
+        v = _kv_dequant(vq, vs, q.dtype)
     o = attn_mod.attention(q, k, v, ap)
-    return o, dict(k=k, v=v)
+    if spec.sliding_window is not None:
+        w = min(spec.sliding_window, s)
+        sl = slice(s - w, None)
+        new = dict(kpos=torch.arange(s - w, s, dtype=torch.int32, device=dev
+                                     )[None].expand(bsz, w))
+    else:
+        sl = slice(None)
+        new = {}
+    if int8kv:
+        new.update(k=kq[:, sl], k_scale=ks[:, sl], v=vq[:, sl],
+                   v_scale=vs[:, sl])
+    else:
+        new.update(k=k[:, sl], v=v[:, sl])
+    return o, new
 
 
 def _apply_attn(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
@@ -248,10 +430,11 @@ def _apply_attn(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
     v = (x @ p["wv"]).reshape(bsz, s, cfg.num_kv_heads, hd)
     ap = _attn_params(cfg, spec, flags)
     if mode in ("paged_decode", "paged_extend"):
-        o = _paged_attn(q, k, v, cache, ap, pos, table, chunk_valid, cfg,
-                        mode)
+        o = _paged_attn(q, k, v, cache, ap, spec, pos, table, chunk_valid,
+                        cfg, flags, mode)
     else:
-        o, cache = _dense_attn(q, k, v, cache, ap, pos, cfg, mode)
+        o, cache = _dense_attn(q, k, v, cache, ap, spec, pos, cfg, flags,
+                               mode)
     return o.reshape(bsz, s, cfg.num_heads * hd) @ p["wo"], cache
 
 
@@ -306,9 +489,13 @@ def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
     """tokens: (B, S) -> (final-normed hidden states (B, S, d), cache).
     ``prefill`` builds a new dense cache from the prompt (stacked like the
     params); the other modes write ``cache`` in place and return it.
-    ``table``/``chunk_valid`` only apply to the paged modes."""
+    ``table``/``chunk_valid`` only apply to the paged modes: ``table`` is
+    ``{"full": (B, N), "ring": (B, R)}`` (a bare (B, N) table serves a
+    stack without windowed layers)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the port runs {MODES}")
+    if table is not None and not isinstance(table, dict):
+        table = dict(full=table)
     x = embed_tokens(params, cfg, tokens)
     blocks = {f"p{j}": [] for j, _ in enumerate(cfg.layer_pattern)}
     for i in range(cfg.num_pattern_blocks):
@@ -326,7 +513,7 @@ def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
                                        chunk_valid)
     if mode == "prefill":
         cache = dict(blocks={name: {n: torch.stack([c[n] for c in cs])
-                                    for n in ("k", "v")}
+                                    for n in cs[0]}
                              for name, cs in blocks.items()},
                      rem=rem)
     return rms_norm(x, params["final_norm"]), cache
@@ -364,11 +551,12 @@ def decode_step(params, cfg: ModelConfig, flags: RuntimeFlags, cache: dict,
 @torch.no_grad()
 def paged_decode_step(params, cfg: ModelConfig, flags: RuntimeFlags,
                       cache: dict, tokens, pos, table):
-    """One decode tick against the page pool.  tokens: (B, 1); pos: (B,)
-    per-slot positions; table: (B, N) int32 page table (padded entries ->
-    the null page).  Every attention layer appends k/v through the table
-    and runs the ``paged_attention`` kernel.  Returns (logits (B, V),
-    cache)."""
+    """One decode tick against the page pools.  tokens: (B, 1); pos: (B,)
+    per-slot positions; table: ``{"full": (B, N), "ring": (B, R)}`` int32
+    page tables (padded entries -> the null page; windowed layers read the
+    ring table, full-attention layers the full one).  Every attention
+    layer appends k/v through its table and runs the ``paged_attention``
+    kernel.  Returns (logits (B, V), cache)."""
     x, cache = forward(params, cfg, flags, tokens, "paged_decode", cache, pos,
                        table)
     return compute_logits(params, cfg, x)[:, 0], cache
@@ -380,7 +568,8 @@ def paged_prefill_chunk(params, cfg: ModelConfig, flags: RuntimeFlags,
     """One chunked-prefill step: ``tokens`` (B, C) is a prompt chunk
     (right-padded to a bucket; ``chunk_valid`` (B,) marks its true length)
     at absolute offset ``pos`` (B,).  Appends the chunk's k/v into the
-    pages and returns (cache, logits at the chunk's last valid position)."""
+    pages (full tables and rotating ring tables alike) and returns (cache,
+    logits at the chunk's last valid position)."""
     x, cache = forward(params, cfg, flags, tokens, "paged_extend", cache, pos,
                        table, chunk_valid)
     bsz = x.shape[0]

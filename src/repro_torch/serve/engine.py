@@ -24,9 +24,17 @@ keeps its token and position, and writes ``-1`` into the window's output),
 tokens and positions staying on the device, and one host sync per window
 when the token block is read back.
 
+Sliding-window layers keep a *ring* of ``ceil(window/page)+1`` pages per
+request in a pool of their own (a second allocator and a ring table that
+K1 reads as ``logical % ring_slots``), rotating the trailing page in place
+as the window slides past it; prefix sharing serves only stacks without
+windowed layers, as in the reference.  ``kv_dtype="int8"`` stores int8
+pools with float32 scale lanes, and its derived page holds as many tokens
+as the int8 row width allows.
+
 Not ported yet: preemption and the host tier, speculative decoding,
-sampling beyond greedy, tensor/data parallelism, ring pages for sliding
-windows, int8 KV, CUDA-graph capture of the decode window.
+sampling beyond greedy, tensor/data parallelism, CUDA-graph capture of the
+decode window.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN
 from repro_torch.models.registry import ModelBundle
+from repro_torch.models.transformer import SENTINEL
 from repro_torch.serve.kvcache import (PageAllocator, PoolExhausted,
                                        PrefixIndex, page_hashes)
 from repro_torch.serve.sampling import select_greedy
@@ -67,7 +76,9 @@ class ServeStats:
     prefill_retraces: int = 0        # distinct prefill shapes met
     prompt_tokens: int = 0           # prompt tokens admitted
     prefix_hit_tokens: int = 0       # prompt tokens served from shared pages
-    pages_peak: int = 0              # peak pages_in_use over the run
+    pages_peak: int = 0              # peak full-pool pages_in_use
+    ring_pages_peak: int = 0         # peak ring-pool pages_in_use (windowed)
+    ring_pages_reused: int = 0       # ring pages rotated and reused in place
     pool_stalls: int = 0             # admissions deferred by PoolExhausted
 
 
@@ -84,10 +95,13 @@ class ServeEngine:
 
     Paged knobs: ``page_size=None`` derives the page from the pool's dtype
     and head width (:func:`repro_torch.tune.derive_paged_plan`);
-    ``num_pages=None`` sizes the pool at the dense footprint plus the
-    reserved null page — shrink it to admit by live tokens and exercise
-    backpressure.  ``prefill_chunk`` caps prompt tokens per prefill step.
-    ``device`` is ``cuda`` unless named; it must be the bundle's device."""
+    ``num_pages=None`` sizes the full-attention pool at the dense
+    footprint plus the reserved null page — shrink it to admit by live
+    tokens and exercise backpressure.  ``num_ring_pages=None`` sizes the
+    windowed layers' ring pool at ``batch x (ceil(window/page)+1)`` pages
+    plus the null page, the bound however long windowed sequences run.
+    ``prefill_chunk`` caps prompt tokens per prefill step.  ``device`` is
+    ``cuda`` unless named; it must be the bundle's device."""
 
     def __init__(self, bundle: ModelBundle, params, batch_size: int,
                  max_len: int, *, window: int = 8,
@@ -95,6 +109,7 @@ class ServeEngine:
                  cache_backend: Optional[str] = None,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
+                 num_ring_pages: Optional[int] = None,
                  prefill_chunk: int = 32,
                  device: Optional[str] = None):
         self.device = resolve_device(device)
@@ -118,14 +133,32 @@ class ServeEngine:
         self.bucket_prompts = (self._bucketable(cfg) if bucket_prompts is None
                                else bucket_prompts)
         if self.backend == "paged":
+            specs = tuple(cfg.layer_pattern) + tuple(cfg.remainder_specs)
+            self.has_full = any(s.sliding_window is None for s in specs)
+            windows = [s.sliding_window for s in specs
+                       if s.sliding_window is not None]
+            # the ring is sized by the largest window (smaller ones mask
+            # more); a window past max_len holds everything
+            self.attn_window = (min(max(windows), max_len) if windows
+                                else None)
+            # int8 pages halve the row, so the derived page (rows of at
+            # least 512 bytes) holds more tokens: plan from the stored dtype
             self.plan = derive_paged_plan(max_len=max_len,
                                           head_dim=cfg.resolved_head_dim,
-                                          dtype=cfg.compute_dtype)
+                                          dtype=self.kv_store_dtype)
             self.page = int(page_size or self.plan.page_size)
-            self.pages_per_seq = -(-max_len // self.page)
+            self.pages_per_seq = (-(-max_len // self.page) if self.has_full
+                                  else 0)
+            self.ring_slots = (-(-self.attn_window // self.page) + 1
+                               if self.attn_window is not None else 0)
             self.num_pages = int(num_pages
                                  or 1 + batch_size * self.pages_per_seq)
+            self.num_ring_pages = int(num_ring_pages
+                                      or 1 + batch_size * self.ring_slots)
             self.prefill_chunk = max(8, prefill_chunk)
+            # prefix pages are reusable only when every layer reads them:
+            # a ring rotates prefix tokens away
+            self.prefix_sharing = self.has_full and not windows
         # prefill shapes met so far (dense prompt buckets, paged chunk
         # buckets); survives reset(), as the reference's compiled shapes do
         self._seen_prefill_shapes: set = set()
@@ -143,10 +176,21 @@ class ServeEngine:
         if self.backend == "dense":
             self.cache = self.bundle.init_cache(self.bsz, self.max_len)
             return
-        self.alloc = PageAllocator(self.num_pages, self.page, reserved=1)
-        self.prefix = PrefixIndex()
-        self.cache = self.bundle.init_paged_cache(self.num_pages, self.page)
-        self._htable = np.zeros((self.bsz, self.pages_per_seq), np.int32)
+        self.alloc = (PageAllocator(self.num_pages, self.page, reserved=1)
+                      if self.has_full else None)
+        self.ralloc = (PageAllocator(self.num_ring_pages, self.page,
+                                     reserved=1, window=self.attn_window)
+                       if self.attn_window is not None else None)
+        self.prefix = PrefixIndex() if self.prefix_sharing else None
+        self.cache = self.bundle.init_paged_cache(
+            self.num_pages if self.has_full else 1, self.page,
+            ring_pages=self.num_ring_pages)
+        self._htable = np.zeros((self.bsz, max(1, self.pages_per_seq)),
+                                np.int32)
+        # a ring table is exactly ring_slots wide: K1 maps logical page j
+        # to slot j % width
+        self._hrtable = np.zeros((self.bsz, max(1, self.ring_slots)),
+                                 np.int32)
         self._sync_table()
         self._hashes: Dict[int, List[str]] = {}  # rid -> full-page hashes
 
@@ -158,9 +202,16 @@ class ServeEngine:
         self._init_state()
 
     def _sync_table(self) -> None:
-        """Publish the host table mirror as the device table."""
-        self._table = torch.as_tensor(self._htable).to(self.device)
+        """Publish the host table mirrors as the device tables."""
+        self._table = dict(full=torch.as_tensor(self._htable).to(self.device),
+                           ring=torch.as_tensor(self._hrtable).to(self.device))
         self._table_dirty = False
+
+    @property
+    def kv_store_dtype(self) -> str:
+        """The dtype the KV cache stores: ``int8`` or the compute dtype."""
+        return ("int8" if self.bundle.flags.kv_dtype == "int8"
+                else self.bundle.cfg.compute_dtype)
 
     @staticmethod
     def _bucketable(cfg) -> bool:
@@ -181,6 +232,44 @@ class ServeEngine:
         return int(sum(t.numel() * t.element_size()
                        for t in leaves(self.cache)))
 
+    def _page_bytes_by_kind(self):
+        """(full, ring) device bytes of ONE page summed over every layer
+        of that kind (k + v, plus the int8 scale lanes)."""
+        cfg = self.bundle.cfg
+        nb = cfg.num_pattern_blocks
+        n_full = n_ring = 0
+        for spec, mult in ([(s, nb) for s in cfg.layer_pattern]
+                           + [(s, 1) for s in cfg.remainder_specs]):
+            if spec.sliding_window is None:
+                n_full += mult
+            else:
+                n_ring += mult
+        int8 = self.bundle.flags.kv_dtype == "int8"
+        itemsize = getattr(torch, self.kv_store_dtype).itemsize
+        per_layer = (2 * self.page * cfg.num_kv_heads
+                     * cfg.resolved_head_dim * itemsize
+                     + (2 * self.page * 4 if int8 else 0))
+        return n_full * per_layer, n_ring * per_layer
+
+    @property
+    def bytes_per_page(self) -> int:
+        """One page across every layer pool of its kind (k + v)."""
+        if self.backend != "paged":
+            raise ValueError("bytes_per_page is a paged-backend figure")
+        full_pb, ring_pb = self._page_bytes_by_kind()
+        return full_pb or ring_pb
+
+    def live_kv_bytes_peak(self) -> int:
+        """Peak *live-token* device bytes: what the pools actually held
+        (full-pool and ring-pool page peaks), against the ``batch x
+        max_len`` footprint the dense backend commits up front (its
+        :meth:`kv_bytes`)."""
+        if self.backend == "paged":
+            full_pb, ring_pb = self._page_bytes_by_kind()
+            return (self.stats.pages_peak * full_pb
+                    + self.stats.ring_pages_peak * ring_pb)
+        return self.kv_bytes()
+
     # ------------------------------------------------------------------
     def add_request(self, req: Request) -> None:
         self.queue.append(req)
@@ -192,8 +281,13 @@ class ServeEngine:
         return None
 
     def _track_peaks(self) -> None:
-        self.stats.pages_peak = max(self.stats.pages_peak,
-                                    self.alloc.pages_in_use)
+        if self.alloc is not None:
+            self.stats.pages_peak = max(self.stats.pages_peak,
+                                        self.alloc.pages_in_use)
+        if self.ralloc is not None:
+            self.stats.ring_pages_peak = max(self.stats.ring_pages_peak,
+                                             self.ralloc.pages_in_use)
+            self.stats.ring_pages_reused = self.ralloc.reused
 
     # ------------------------------------------------------------------
     # dense prefill (whole prompt, one step)
@@ -202,9 +296,10 @@ class ServeEngine:
     def _scatter_slot_cache(cache, cache1, slot: int):
         """Write a single-request prefill cache into the batch cache at
         ``slot``, in place.  Stacked leaves (under ``blocks``) carry batch
-        at axis 1, remainder leaves at axis 0; a prompt shorter than
-        ``max_len`` leaves zeros after it (masked by the decode step's
-        valid length).  Returns the batch cache."""
+        at axis 1, remainder leaves at axis 0; rows past the prompt's are
+        cleared: k/v and scales to 0 (masked by the decode step's valid
+        length), a ring's ``kpos`` to ``-10**9`` (empty).  Returns the
+        batch cache."""
         for part, lead in (("blocks", (slice(None),)), ("rem", ())):
             for name, layer in cache[part].items():
                 for n, tgt in layer.items():
@@ -212,14 +307,16 @@ class ServeEngine:
                     row = tgt[lead + (slot,)]
                     s = upd.shape[len(lead)]
                     row[lead + (slice(0, s),)] = upd.to(tgt.dtype)
-                    row[lead + (slice(s, None),)] = 0
+                    row[lead + (slice(s, None),)] = (
+                        SENTINEL if tgt.dtype == torch.int32 else 0)
         return cache
 
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
         """Prefill a request's whole prompt in one step (right-padded to a
         power-of-two bucket of at least 8, at most ``max_len``), write its
-        cache into the slot's rows and seed decoding from its last
-        logits."""
+        cache into the slot's rows and seed decoding from its last logits.
+        A windowed layer's rows hold the prompt's last ``window`` tokens
+        from row 0, as in the reference."""
         prompt = req.prompt
         s = int(prompt.shape[0])
         if s > self.max_len:
@@ -257,32 +354,51 @@ class ServeEngine:
         s = int(prompt.shape[0])
         if s > self.max_len:
             raise ValueError(f"prompt ({s}) exceeds max_len ({self.max_len})")
-        need = -(-s // self.page)
-        if need > self.num_pages - 1:
-            # no amount of backpressure can admit this one; waiting would
-            # drop it silently and block the queue behind it
-            raise ValueError(
-                f"prompt needs {need} pages ({s} tokens) but the pool holds "
-                f"only {self.num_pages - 1}; raise num_pages")
+        if self.alloc is not None:
+            need = -(-s // self.page)
+            if need > self.num_pages - 1:
+                # no amount of backpressure can admit this one; waiting
+                # would drop it silently and block the queue behind it
+                raise ValueError(
+                    f"prompt needs {need} pages ({s} tokens) but the pool "
+                    f"holds only {self.num_pages - 1}; raise num_pages")
+        if self.ralloc is not None:
+            need = min(-(-s // self.page), self.ralloc.ring_slots)
+            if need > self.num_ring_pages - 1:
+                raise ValueError(
+                    f"prompt needs {need} ring pages but the ring pool "
+                    f"holds only {self.num_ring_pages - 1}; raise "
+                    "num_ring_pages")
         hit_len = 0
-        self.alloc.alloc(req.rid)
-        hashes = page_hashes(prompt, self.page)
-        # at most (s-1) tokens: the last token must be computed so the final
-        # chunk yields the logits that seed decoding
-        usable = (s - 1) // self.page
-        pages = self.prefix.lookup(hashes[:usable], alloc=self.alloc)
-        if pages:
-            hit_len = len(pages) * self.page
-            self.alloc.attach(req.rid, pages, hit_len)
+        hashes: List[str] = []
+        if self.alloc is not None:
+            self.alloc.alloc(req.rid)
+            if self.prefix is not None:
+                hashes = page_hashes(prompt, self.page)
+                # at most (s-1) tokens: the last token must be computed so
+                # the final chunk yields the logits that seed decoding
+                usable = (s - 1) // self.page
+                pages = self.prefix.lookup(hashes[:usable], alloc=self.alloc)
+                if pages:
+                    hit_len = len(pages) * self.page
+                    self.alloc.attach(req.rid, pages, hit_len)
+        if self.ralloc is not None:
+            self.ralloc.alloc(req.rid)
         try:
-            try:
-                self.alloc.reserve(req.rid, s)
-            except PoolExhausted:
-                if not self.prefix.evict_unused(self.alloc):
-                    raise
-                self.alloc.reserve(req.rid, s)
+            if self.alloc is not None:
+                try:
+                    self.alloc.reserve(req.rid, s)
+                except PoolExhausted:
+                    if (self.prefix is None
+                            or not self.prefix.evict_unused(self.alloc)):
+                        raise
+                    self.alloc.reserve(req.rid, s)
+            if self.ralloc is not None:
+                self.ralloc.reserve(req.rid, s)
         except PoolExhausted:
-            self.alloc.release(req.rid)
+            for a in (self.alloc, self.ralloc):
+                if a is not None:
+                    a.release(req.rid)
             raise
         self._hashes[req.rid] = hashes
         self.slots[slot] = req
@@ -308,14 +424,19 @@ class ServeEngine:
             self.stats.prefill_retraces += 1
         chunk = np.zeros((1, cb), np.int64)
         chunk[0, :c] = prompt[off:off + c]
-        row = self.alloc.tables[req.rid]
-        trow = np.zeros((1, self.pages_per_seq), np.int32)
+        row = self.alloc.tables[req.rid] if self.alloc is not None else []
+        trow = np.zeros((1, max(1, self.pages_per_seq)), np.int32)
         trow[0, :len(row)] = row
+        rrow = np.zeros((1, max(1, self.ring_slots)), np.int32)
+        if self.ralloc is not None:
+            rring = self.ralloc.tables[req.rid]
+            rrow[0, :len(rring)] = rring
         dev = self.device
         self.cache, logits = self.bundle.paged_prefill_chunk(
             self.params, self.cache, torch.as_tensor(chunk).to(dev),
             torch.tensor([off], dtype=torch.int32).to(dev),
-            torch.as_tensor(trow).to(dev),
+            dict(full=torch.as_tensor(trow).to(dev),
+                 ring=torch.as_tensor(rrow).to(dev)),
             torch.tensor([c], dtype=torch.int32).to(dev))
         self.stats.prefill_chunks += 1
         off += c
@@ -323,13 +444,17 @@ class ServeEngine:
             self._pending[slot] = off
             return
         # prompt complete: register its full pages, seed decoding, publish
-        # the table row
+        # the table rows
         del self._pending[slot]
-        for i, h in enumerate(self._hashes.pop(req.rid)):
+        for i, h in enumerate(self._hashes.pop(req.rid, [])):
             if self.prefix.register(h, row[i]):
                 self.alloc.pin(row[i])
         self._htable[slot, :] = 0
         self._htable[slot, :len(row)] = row
+        if self.ralloc is not None:
+            rring = self.ralloc.tables[req.rid]
+            self._hrtable[slot, :] = 0
+            self._hrtable[slot, :len(rring)] = rring
         self._table_dirty = True
         self.pos[slot] = s
         self._hpos[slot] = s
@@ -378,31 +503,40 @@ class ServeEngine:
         return budgets
 
     def _reserve_window_pages(self, budgets: np.ndarray) -> np.ndarray:
-        """Pre-allocate pages covering each slot's window budget (allocation
-        is host-side; the decode loop must never need a page).  Pool
-        pressure shrinks budgets, possibly to zero (the slot waits), after
-        evicting prefix-cache pages nothing references.  Returns the slots
-        the pool blocked outright."""
+        """Pre-allocate pages covering each slot's window budget on every
+        pool the stack uses (allocation is host-side; the decode loop must
+        never need a page).  A ring rotates in place past its window, so
+        windowed decode in steady state allocates nothing and its table
+        row changes only where a shared page was split off.  Pool pressure
+        shrinks budgets, possibly to zero (the slot waits), after evicting
+        prefix-cache pages nothing references.  Returns the slots the pool
+        blocked outright."""
         blocked = np.zeros((self.bsz,), bool)
         for i, req in enumerate(self.slots):
             if req is None or budgets[i] == 0:
                 continue
             target = int(self._hpos[i] + budgets[i])
-            feasible = self.alloc.can_grow(req.rid, target)
-            if feasible < target:
-                self.prefix.evict_unused(self.alloc)
+            feasible = target
+            if self.alloc is not None:
                 feasible = self.alloc.can_grow(req.rid, target)
+                if feasible < target and self.prefix is not None:
+                    self.prefix.evict_unused(self.alloc)
+                    feasible = self.alloc.can_grow(req.rid, target)
+            if self.ralloc is not None:
+                feasible = min(feasible,
+                               self.ralloc.can_grow(req.rid, target))
             grant = max(0, feasible - int(self._hpos[i]))
             if grant < budgets[i]:
                 budgets[i] = grant
                 blocked[i] = grant == 0
             if budgets[i] > 0:
-                fresh = self.alloc.reserve(req.rid,
-                                           int(self._hpos[i] + budgets[i]))
-                if fresh:
-                    row = self.alloc.tables[req.rid]
-                    self._htable[i, :len(row)] = row
-                    self._table_dirty = True
+                target = int(self._hpos[i] + budgets[i])
+                for a, table in ((self.alloc, self._htable),
+                                 (self.ralloc, self._hrtable)):
+                    if a is not None and a.reserve(req.rid, target):
+                        row = a.tables[req.rid]
+                        table[i, :len(row)] = row
+                        self._table_dirty = True
         self._track_peaks()
         return blocked
 
@@ -453,12 +587,15 @@ class ServeEngine:
         top = int(budgets.max(initial=0))
         if top == 0:
             if blocked.any() and not self._pending:
+                pools = [a for a in (self.alloc, self.ralloc)
+                         if a is not None]
                 raise PoolExhausted(
                     "every active slot is pool-blocked and nothing can free "
                     "pages: the pool is smaller than the live working set",
-                    pool="engine", num_pages=self.num_pages,
-                    live_pages=self.alloc.pages_in_use,
-                    free_pages=len(self.alloc.free))
+                    pool="engine",
+                    num_pages=sum(a.num_pages for a in pools),
+                    live_pages=sum(a.pages_in_use for a in pools),
+                    free_pages=sum(len(a.free) for a in pools))
             return 0
         n_run = min(n, next_pow2(top))
         if self.backend == "paged" and self._table_dirty:
@@ -491,9 +628,12 @@ class ServeEngine:
         self.slots[i] = None
         if self.backend == "dense":
             return
-        self.alloc.release(req.rid)
+        for a in (self.alloc, self.ralloc):
+            if a is not None:
+                a.release(req.rid)
         self._hashes.pop(req.rid, None)
         self._htable[i, :] = 0
+        self._hrtable[i, :] = 0
         self._table_dirty = True
 
     # ------------------------------------------------------------------

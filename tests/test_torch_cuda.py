@@ -177,6 +177,44 @@ def test_kernel_bf16_within_one_rounding(cuda, case):
                  <= TOL["float32"] + 2.0 ** -8 * want.abs()).all())
 
 
+# the decode geometries of the model paths: gemma2-27b's local layers (a
+# ring table of ring_slots = 4096/8 + 1 pages, window 4096) and global
+# layers at up to 8192 tokens, softcap 50 and scale 144^-0.5, batch 4; and
+# gemma-2b with int8 pages of 16 tokens at a serve drain's lengths
+GEMMA2_SCALE = 144.0 ** -0.5
+MODEL_CASES = [
+    ("gemma2-27b-ring", 4, 32, 16, 128, 8, 513, [4176, 5136, 300, 8000],
+     dict(window=4096, softcap=50.0, scale=GEMMA2_SCALE)),
+    ("gemma2-27b-global", 4, 32, 16, 128, 8, 1024, [4176, 5136, 300, 8192],
+     dict(softcap=50.0, scale=GEMMA2_SCALE)),
+    ("gemma-2b-int8", 8, 8, 1, 256, 16, 64,
+     [273, 429, 166, 401, 388, 310, 385, 418], dict(int8=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MODEL_CASES, ids=[c[0] for c in MODEL_CASES])
+def test_kernel_matches_plain_at_model_geometry(cuda, case, dtype):
+    """K1 at the geometry its model paths give it, against the plain
+    version (bfloat16 also within one rounding of the plain version run
+    in float32); the launch counts once."""
+    (q, k, v, table, vl), kw = _on_card(case, dtype, cuda)
+    before = pa.LAUNCHES
+    got = ops.paged_attention(q, k, v, table, vl, **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == before + 1
+    want = ref.paged_attention(q, k, v, table, vl, **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        if k.dtype != torch.int8:
+            k, v = k.float(), v.float()
+        w32 = ref.paged_attention(q.float(), k, v, table, vl, **kw)
+        assert bool(((got.float() - w32).abs()
+                     <= TOL["float32"] + 2.0 ** -8 * w32.abs()).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 16])   # one block per row, and split rows
 def test_kernel_fully_masked_row_is_exactly_zero(cuda, n):

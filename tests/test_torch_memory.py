@@ -317,8 +317,8 @@ def test_samples_from_run_keeps_the_fit_sweeps():
 def both_runs():
     jrun = j_run_sweeps(names=list(SWEEPS), fast=True, echo=False)
     # the reference's constants, so that the model columns compare too
-    trun = t_run_sweeps(fast=True, echo=False, device="cpu",
-                        spec=V5E_AS_HOPPER)
+    trun = t_run_sweeps(names=list(SWEEPS), fast=True, echo=False,
+                        device="cpu", spec=V5E_AS_HOPPER)
     return jrun, trun
 
 

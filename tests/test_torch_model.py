@@ -285,8 +285,19 @@ def test_dense_prefill_and_decode_match_reference(name, impl):
 
 
 def test_runtime_flags_refuse_what_is_not_ported():
+    """int8 KV and sliding windows are served; unknown flags and the
+    recurrent, MoE and encoder-decoder stacks are refused."""
+    from repro_torch.configs import LayerSpec
+    from repro_torch.configs.base import MOE, SSD
     cfg = t_smoke(T_ARCHS["phi4-mini-3.8b"])
-    with pytest.raises(NotImplementedError, match="int8"):
-        t_build(cfg, TRuntimeFlags(kv_dtype="int8"), device="cpu")
+    t_build(cfg, TRuntimeFlags(kv_dtype="int8"), device="cpu")
+    t_build(t_smoke(T_ARCHS["gemma2-27b"]), device="cpu")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        t_build(cfg, TRuntimeFlags(kv_dtype="fp8"), device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         t_build(cfg, TRuntimeFlags(attn_impl="unrolled"), device="cpu")
+    for spec in (LayerSpec(mixer=SSD), LayerSpec(mlp=MOE)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            t_build(t_override(cfg, layer_pattern=(spec,)), device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        t_build(t_override(cfg, enc_dec=True), device="cpu")

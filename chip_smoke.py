@@ -19,17 +19,21 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    a ring window, int8 lanes, rows with no live token, the main path's
    own shape, gemma2-27b's ring and global layers at 8192 tokens (B 4,
    32/16 heads, D 128, softcap 50, window 4096 on a table of 513 ring
-   slots) and gemma-2b's int8 pages of 16 tokens, each in
+   slots), gemma-2b's int8 pages of 16 tokens, and int8 pages at D 64,
+   128 and 256 (GQA 8/2, pages of 8 and 16, softcap, a ring window, rows
+   with no token, a cluster merge of 4 splits, and one row over 4096 pages
+   whose 64 splits merge through the counter), each in
    float32 (tolerance 1e-4) and bfloat16 (3e-2; and, held against the
    plain version run in float32 on the same inputs, within one bfloat16
-   rounding of its output), each line naming its route (bfloat16 at D 64,
-   128 and 256 on the tensor cores);
+   rounding of its output), each line naming its configuration, split
+   count and merge (bfloat16 q with bfloat16 or int8 pages at D 64, 128
+   and 256 on the tensor cores);
 4. K1 time at the main path's shape (B 8, 128 pages of 8 tokens), full
    and at the serve drain's ragged lengths (its first 8 prompts plus 16
    decoded tokens), then at gemma2-27b's ring and global geometry and at
-   gemma-2b's int8 pages, each beside its plain version, one SDPA call on
-   the gathered (dequantized) K/V, and its bound, with the configuration
-   run;
+   gemma-2b's int8 pages (the drain's lengths and full rows of 1024
+   tokens), each beside its plain version, one SDPA call on the gathered
+   (dequantized) K/V, and its bound, with the configuration run;
 5. serve: full-width gemma-2b (bf16, random weights from a seeded
    generator) through the paged ``ServeEngine``: 16 requests, batch 8,
    four sharing a 256-token prefix, 32 new tokens each, drained twice.
@@ -123,7 +127,8 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    follow;
 21. int8 serve: full-width gemma-2b with ``kv_dtype="int8"`` (pages of 16
    tokens, the bf16 page's bytes), the serve phase's 16 requests drained
-   twice; every tick launches K1's int8 route once per layer;
+   twice; every tick launches K1 once per layer on its tensor-core route
+   with int8 pages;
 22. ring parity and int8 parity: gemma2-27b's (local, global) pair at its
    published widths (window narrowed to 32 so the ring turns in a short
    drain) and 2-layer gemma-2b with int8 KV, float32, drained on the card
@@ -138,7 +143,8 @@ Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
 
 It ends with a ``[previous]`` line (K1's, K2's, K3's, K4's and K8's times
-before their redesign, as PERF.md records them: not measured in this run),
+before their redesign, and K1's int8 pages on the CUDA cores, as PERF.md
+records them: not measured in this run),
 the kernels' JSON line (K1, K2, K3, K4 and K8 also carry their design, K7
 its latency bound; K1 its launches on each serving path and its times at
 the new geometries), the card line and the result line.
@@ -172,7 +178,7 @@ PORT_KERNELS = ("paged_attention", "flash_attention")
 # never in the kernels' line, which holds this run's numbers
 PREVIOUS_MS = {"paged_attention": 0.0389, "flash_attention": 0.2287,
                "decode_attention": 0.1717, "matmul": 20.78,
-               "stream_copy": 0.7588}
+               "stream_copy": 0.7588, "paged_attention_int8_drain": 0.0368}
 
 
 class SmokeFailure(Exception):
@@ -217,9 +223,9 @@ def sass_phase(kbuild):
 # K1: paged_attention
 # ---------------------------------------------------------------------------
 
-# geometries K1 is timed at: gemma-2b's main path, and the two this slice
-# puts on a model path (gemma2-27b's ring and global layers at batch 4 and
-# 8192 tokens; gemma-2b with int8 pages of 16 tokens)
+# geometries K1 is timed at: gemma-2b's main path, and those of its other
+# model paths (gemma2-27b's ring and global layers at batch 4 and 8192
+# tokens; gemma-2b with int8 pages of 16 tokens)
 GEMMA2_SCALE = 144.0 ** -0.5        # query_pre_attn_scalar 144
 MAIN_GEOMETRY = dict(b=8, hq=8, hkv=1, d=256, page=8, n=128, int8=False,
                      kw={})
@@ -283,15 +289,37 @@ def k1_cases(drain):
          dict(window=4096, softcap=50.0, scale=GEMMA2_SCALE)),
         ("gemma2-27b-global", 4, 32, 16, 128, 8, 1024, RING_LENS[:3] + [8192],
          dict(softcap=50.0, scale=GEMMA2_SCALE)),
-        # gemma-2b with int8 pages of 16 tokens at the drain's lengths
+        # gemma-2b with int8 pages of 16 tokens at the drain's lengths (8
+        # splits, a cluster merge)
         ("gemma-2b-int8", 8, 8, 1, 256, 16, 64, drain, dict(int8=True)),
+        # int8 pages (bfloat16 q: the tensor cores) at D 64, 128 and 256,
+        # GQA 8/2, pages of 8 and 16, softcap, a ring window, rows with no
+        # token, a cluster merge of 4 splits, and one row over 4096 pages
+        # of 8 (past the whole-table limit): 64 splits, the counter merge
+        ("int8-d64-gqa", 3, 8, 2, 64, 8, 12, [3, 50, 96], dict(int8=True)),
+        ("int8-d128-gqa-page16", 3, 8, 2, 128, 16, 6, [5, 50, 96],
+         dict(int8=True)),
+        ("int8-d256-gqa-page16", 3, 8, 2, 256, 16, 6, [7, 70, 96],
+         dict(int8=True)),
+        ("int8-softcap", 3, 8, 2, 128, 8, 12, [1, 40, 96],
+         dict(int8=True, softcap=30.0)),
+        ("int8-ring-window", 4, 8, 1, 256, 16, 4, [5, 30, 61, 200],
+         dict(int8=True, window=40)),
+        ("int8-empty-rows", 3, 8, 1, 256, 8, 16, [0, 0, 40],
+         dict(int8=True)),
+        ("int8-cluster-4", 4, 8, 2, 128, 16, 32, [100, 512, 300, 0],
+         dict(int8=True)),
+        ("int8-counter-64", 1, 8, 1, 256, 8, 4096, [30001],
+         dict(int8=True)),
     ]
 
 
 def k1_check(torch, pa, ref, drain):
     """Every case in both dtypes against the plain version; returns the
     largest absolute error seen."""
+    from repro_torch.kernels import decode_core as core
     gen = torch.Generator().manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     for name, b, hq, hkv, d, page, n, vlens, kw in k1_cases(drain):
         kw = dict(kw)
@@ -326,10 +354,15 @@ def k1_check(torch, pa, ref, drain):
                          f"tol_f32_plus_one_rounding=1e-4+2^-8*|w| "
                          f"ok_f32_plain={ok32}")
                 ok = ok and ok32
+            route = pa.route(q.dtype, kp.dtype, d)
+            splits = pa.split_count(route, b, hkv, page, n, sms)
+            cfg = pa.kernel_config(q.dtype, kp.dtype, d, page, n, splits)
             print(f"[K1] case={name} dtype={dname} B={b} Hq={hq} Hkv={hkv} "
-                  f"D={d} page={page} N={n} route="
-                  f"{pa.route(q.dtype, kp.dtype, d)} max_abs_err={err:.3e} "
-                  f"tol={tol}{tight} ok={ok}", flush=True)
+                  f"D={d} page={page} N={n} pages="
+                  f"{str(kp.dtype).replace('torch.', '')} config='{cfg}' "
+                  f"splits={splits} merge={core.merge_kind(route, splits)} "
+                  f"max_abs_err={err:.3e} tol={tol}{tight} ok={ok}",
+                  flush=True)
             check(ok, f"K1 {name} {dname}: max_abs_err {err} over {tol}, "
                   "or more than one bfloat16 rounding from the float32 "
                   "plain version")
@@ -414,7 +447,8 @@ def k1_time(torch, pa, ref, card, vlens, label, geometry=MAIN_GEOMETRY):
     route = pa.route(q.dtype, kv_dtype, d)
     splits = pa.split_count(route, b, hkv, page, n, sms)
     cfg = pa.kernel_config(q.dtype, kv_dtype, d, page, n, splits)
-    blocks = (pa.occupancy(d, cfg.warps, cfg.stages, page, n, splits)
+    blocks = (pa.occupancy(d, cfg.warps, cfg.stages, page, n, splits,
+                           kv_dtype)
               if route == "mma.sync" else None)
 
     def call(mod):
@@ -1041,8 +1075,15 @@ def int8_serve_phase(torch, np, card):
                                                  page_size=page)
     reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
                          (0, 9, 12, 15), 32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     route = pa.route(torch.bfloat16, torch.int8, cfg.resolved_head_dim)
-    check(route == "cuda-cores", f"int8 pages on route {route}")
+    splits = pa.split_count(route, eng.bsz, cfg.num_kv_heads, page,
+                            eng.pages_per_seq, sms)
+    kcfg = pa.kernel_config(torch.bfloat16, torch.int8,
+                            cfg.resolved_head_dim, page, eng.pages_per_seq,
+                            splits)
+    check(route == "mma.sync" and kcfg.pages == "int8",
+          f"int8 pages with bf16 q on route {route} ({kcfg})")
     check(eng.page == 2 * bf16_page, "int8 page is not twice the bf16 one")
 
     def checks(run):
@@ -1053,7 +1094,8 @@ def int8_serve_phase(torch, np, card):
               and tuple(scales.shape[1:]) == (eng.num_pages, eng.page),
               f"int8 serve: scale lanes {scales.dtype} "
               f"{tuple(scales.shape)}")
-        return (f" route=int8 ({route}) page_tokens={eng.page} "
+        return (f" route=int8 ({route}) config='{kcfg}' splits={splits} "
+                f"page_tokens={eng.page} "
                 f"bf16_page_tokens={bf16_page} derived_int8_page={int8_page}")
 
     launches = serve_runs(torch, eng, reqs, "int8 serve", card,
@@ -1983,7 +2025,8 @@ def main():
                 ("gemma2-27b-ring", RING_LENS, RING_GEOMETRY),
                 ("gemma2-27b-global", RING_LENS[:3] + [8192],
                  GLOBAL_GEOMETRY),
-                ("gemma-2b-int8-drain", drain, INT8_GEOMETRY))]
+                ("gemma-2b-int8-drain", drain, INT8_GEOMETRY),
+                ("gemma-2b-int8-full", [1024] * 8, INT8_GEOMETRY))]
         launches = serve_phase(torch, np, card)
         parity_phase(torch, np)
         gc.collect()                 # the gemma-2b engine and weights go
@@ -2078,7 +2121,8 @@ def main():
           + " (each kernel before its redesign, from PERF.md section 6: K2 "
           "and K8 on the CUDA cores, timed without a spin before the "
           "events; K1 and K3 with their first CUDA bodies; K4 with one "
-          "block per tile; NVIDIA H100 80GB HBM3, 700.00 W)")
+          "block per tile; K1's int8 pages at the drain's lengths on the "
+          "CUDA cores; NVIDIA H100 80GB HBM3, 700.00 W)")
     print(json.dumps({"kernels": [k1, k2, k3] + mem + [k8]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
 // What is here:
 //   - the 16-byte cp.async ring helpers, mma.sync / ldmatrix wrappers and
 //     the swizzled shared layout (as flash_attention.cu uses them);
-//   - `WarpWalk`, the bfloat16 tensor-core body: one warp walks its own
+//   - `WarpWalk`, the tensor-core body (bfloat16 q; bfloat16 K/V, or int8
+//     K/V with per-token float32 scales, K1 only): one warp walks its own
 //     contiguous slice of tokens in tiles of kTile = 16, through a ring of
 //     `stages` tiles of its own (no block barrier per tile: the only
 //     per-tile synchronisation is the ring's cp.async wait and __syncwarp).
@@ -184,28 +185,100 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-// Shared memory of the tensor-core body at head dim D: the 16 query rows
-// (swizzled), then each warp's ring of `stages` tiles, K then V, then the
-// cluster merge's receive buffers (other blocks write them while this one
-// may still walk, so they have bytes of their own).  After the walk the
-// ring holds the warps' merge (16 rows of D + kAccPad floats a warp) and
-// then the counter merge's weights.
+// ---- int8 pages -----------------------------------------------------------
+// byte offset of 16-byte chunk c of row r in a [16][D] int8 tile.  The
+// products read it with plain shared loads: K as 16-byte chunks of token
+// rows t and t + 1 at once, V as 4-byte words of rows 2c, 2c + 1, 2c + 8 and
+// 2c + 9 (c = lane % 4).  Flipping chunk bit 2 between odd and even rows and
+// bits 1-2 by (r / 2) % 4 spreads both over the banks from D 128 up (at D 64
+// the V reads conflict two ways).
 template <int D>
+__device__ __forceinline__ uint32_t swz8(int r, int c) {
+  constexpr int kMask = D / 16 - 1;
+  return r * D + ((c ^ (((r & 6) ^ ((r & 1) << 2)) & kMask)) << 4);
+}
+// 4 bytes global -> shared (cp.async.cg takes 16 bytes only); with
+// live == false nothing is read and the 4 bytes are zero-filled
+__device__ __forceinline__ void copy4_zfill(void* dst, const void* src,
+                                            bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 r;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "r"(addr)
+               : "memory");
+  return r;
+}
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t r;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(r) : "r"(addr) : "memory");
+  return r;
+}
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 r;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(r.x), "=f"(r.y)
+               : "r"(addr)
+               : "memory");
+  return r;
+}
+// Two int8 values at bits 0-7 and 16-23 of w (the other bits are ignored)
+// -> the bfloat16 pair (low, high), exactly: with m = x & 127 and s the
+// sign bit, x = m - 128 s, and 128 + m (0x4300 | m) and 128 + 128 s
+// (0x4300 | s << 7) are bfloat16 numbers whose difference is x
+__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w) {
+  const uint32_t a = (w & 0x007F007Fu) | 0x43004300u;
+  const uint32_t c = (w & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// Shared memory of the tensor-core body at head dim D with pages of T
+// (bfloat16, or int8 with float32 scales): the 16 bfloat16 query rows
+// (swizzled), then each warp's ring of `stages` tiles, K then V (and for
+// int8 the tile's 16 k_scale and 16 v_scale floats), then the cluster
+// merge's receive buffers (other blocks write them while this one may
+// still walk, so they have bytes of their own).  After the walk the ring
+// holds the warps' merge (16 rows of D + kAccPad floats a warp) and then
+// the counter merge's weights.  A bfloat16 ring of kMinStages already holds
+// a warp's merge rows; an int8 stage is half as large, so a warp's region
+// is the larger of its stages and its merge rows.
+template <int D, typename T = __nv_bfloat16>
 struct MmaLayout {
-  static constexpr int kRowBytes = D * 2;
+  static constexpr bool kInt8 = sizeof(T) == 1;
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
   static constexpr int kTileBytes = kTile * kRowBytes;   // K or V
-  static constexpr int kStageBytes = 2 * kTileBytes;
-  static constexpr int kQBytes = 16 * kRowBytes;
+  static constexpr int kScaleBytes = kInt8 ? 2 * kTile * 4 : 0;
+  static constexpr int kStageBytes = 2 * kTileBytes + kScaleBytes;
+  static constexpr int kQBytes = 16 * D * 2;
+  static constexpr int kMergeBytes = 16 * (D + kAccPad) * 4;
   // a slice of every split's accumulator, [splits][g][ceil(D/4 / splits)]
   // float4, then every split's (m, l) per row, [splits][g] float2
   static constexpr int kRecvAccBytes =
       kMaxGroup * (D / 4 + kMaxClusterSplits) * 16;
   static constexpr int kRecvBytes =
       kRecvAccBytes + kMaxClusterSplits * kMaxGroup * 8;
-  static_assert(16 * (D + kAccPad) * 4 <= kStageBytes * kMinStages,
-                "a warp's merge rows fit its ring");
+  __host__ __device__ static constexpr size_t warp_ring(int stages) {
+    return static_cast<size_t>(stages) * kStageBytes > kMergeBytes
+               ? static_cast<size_t>(stages) * kStageBytes
+               : kMergeBytes;
+  }
+  static_assert(kInt8 || kMergeBytes <= kStageBytes * kMinStages,
+                "a bfloat16 warp's merge rows fit its ring");
+  static_assert(!kInt8 || (warp_ring(kMinStages) >= kMergeBytes &&
+                           kQBytes + kMaxWarps * warp_ring(kMinStages) +
+                                   kRecvBytes <= 227 * 1024),
+                "an int8 warp's region holds its merge rows, and the "
+                "smallest ring of the most warps fits a block");
   __host__ __device__ static constexpr size_t recv(int warps, int stages) {
-    return kQBytes + static_cast<size_t>(warps) * stages * kStageBytes;
+    return kQBytes + static_cast<size_t>(warps) * warp_ring(stages);
   }
   __host__ __device__ static constexpr size_t smem(int warps, int stages) {
     return recv(warps, stages) + kRecvBytes;
@@ -230,10 +303,27 @@ __device__ __forceinline__ void load_q(const __nv_bfloat16* q_rows, int g,
 // tensor-core body.  Src supplies the K/V bases and `offset(idx)`: the
 // element offset of token idx's row from those bases, or -1 if the token is
 // not live.
-template <int D, class Src>
+//
+// Pages of int8 (T = int8_t; Src then also supplies `row(idx)`, the row of
+// the (P, page) scale lanes `ks`/`vs`, with offset = row * row_elems): the
+// stage holds the int8 rows and the tile's scales, landed by the same
+// commit group.  The products build their bfloat16 fragments in registers
+// from 32-bit and 128-bit shared loads (int8 -> bfloat16 is exact, two
+// values at a time: i8x2_bf16), so no bfloat16 copy of the tile is written.
+// S's k-steps take the head dims in another order than ldmatrix would
+// (k-step 4w + s, lane column group c: dims 64w + 16c + 4s + {0,2} in the
+// fragment's first pair, + {1,3} in its second), and q's fragments follow
+// that order; P V's n-blocks take the columns in another order too (n-block
+// 4u + i, lane row n: column 32u + 4n + i), which finish_warps undoes.
+// Scales stay outside the products: S's columns are multiplied by k_scale
+// before the softmax scale, and p by v_scale before its bfloat16 split (the
+// running sum takes the unscaled p), which is the reference's k * k_scale
+// and v * v_scale in float32 up to the order of the sums.
+template <int D, class Src, typename T = __nv_bfloat16>
 struct WarpWalk {
-  using L = MmaLayout<D>;
-  static constexpr int kChunks = D / 8;          // 16-byte chunks a row
+  using L = MmaLayout<D, T>;
+  static constexpr bool kInt8 = L::kInt8;
+  static constexpr int kChunks = L::kRowBytes / 16;   // 16-byte chunks a row
   static constexpr int kRowsPerPass = 32 / kChunks;
   static constexpr int kPasses = kTile / kRowsPerPass;
 
@@ -258,7 +348,18 @@ struct WarpWalk {
     uint8_t* kst = ring + stage * L::kStageBytes;
     uint8_t* vst = kst + L::kTileBytes;
     long long off = -1;
-    if (lane < kTile && t0 + lane < t_hi) off = src.offset(t0 + lane);
+    if constexpr (kInt8) {
+      // lane l copies token (l % 16)'s k_scale (l < 16) or v_scale
+      long long row = -1;
+      if (lane < kTile && t0 + lane < t_hi) row = src.row(t0 + lane);
+      if (row >= 0) off = row * src.row_elems;
+      const long long r = __shfl_sync(0xffffffffu, row, lane & (kTile - 1));
+      copy4_zfill(vst + L::kTileBytes + lane * 4,
+                  (lane < kTile ? src.ks : src.vs) + (r >= 0 ? r : 0),
+                  r >= 0);
+    } else {
+      if (lane < kTile && t0 + lane < t_hi) off = src.offset(t0 + lane);
+    }
     const unsigned mask = __ballot_sync(0xffffffffu, off >= 0);
     if (lane == 0) live[stage] = mask;
     const int prow = lane / kChunks;
@@ -267,9 +368,66 @@ struct WarpWalk {
     for (int p = 0; p < kPasses; ++p) {
       const int tt = p * kRowsPerPass + prow;
       const long long o = __shfl_sync(0xffffffffu, off, tt);
-      const long long e = (o >= 0 ? o : 0) + pch * 8;
-      copy16_zfill(kst + swz<D>(tt, pch), src.k + e, o >= 0);
-      copy16_zfill(vst + swz<D>(tt, pch), src.v + e, o >= 0);
+      const long long e =
+          (o >= 0 ? o : 0) + pch * static_cast<int>(16 / sizeof(T));
+      const uint32_t at = kInt8 ? swz8<D>(tt, pch) : swz<D>(tt, pch);
+      copy16_zfill(kst + at, src.k + e, o >= 0);
+      copy16_zfill(vst + at, src.v + e, o >= 0);
+    }
+  }
+
+  // int8: q's A fragments of the four k-steps of 64-dim window w, in the
+  // order the int8 K fragments take the dims: rows lane/4 (a[s][0],
+  // a[s][2]) and lane/4 + 8 (a[s][1], a[s][3]), dims 64w + 16c + 4s +
+  // {0,2} (a[s][0], a[s][1]) and + {1,3} (a[s][2], a[s][3])
+  __device__ __forceinline__ void q_window_i8(uint32_t q_base, int w,
+                                              uint32_t (*a)[4]) const {
+    const int r = lane >> 2;
+    const int c = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 lo = lds128(q_base + swz<D>(r, 8 * w + 2 * c + h));
+      const uint4 hi = lds128(q_base + swz<D>(r + 8, 8 * w + 2 * c + h));
+      a[2 * h][0] = __byte_perm(lo.x, lo.y, 0x5410);
+      a[2 * h][1] = __byte_perm(hi.x, hi.y, 0x5410);
+      a[2 * h][2] = __byte_perm(lo.x, lo.y, 0x7632);
+      a[2 * h][3] = __byte_perm(hi.x, hi.y, 0x7632);
+      a[2 * h + 1][0] = __byte_perm(lo.z, lo.w, 0x5410);
+      a[2 * h + 1][1] = __byte_perm(hi.z, hi.w, 0x5410);
+      a[2 * h + 1][2] = __byte_perm(lo.z, lo.w, 0x7632);
+      a[2 * h + 1][3] = __byte_perm(hi.z, hi.w, 0x7632);
+    }
+  }
+
+  // int8: S's four k-steps of 64-dim window w into s (even) and s2 (odd),
+  // q's fragments in a (q_window_i8's order).  K rows lane/4 (tokens 0-7)
+  // and lane/4 + 8: a 16-byte chunk of each holds four k-steps' B
+  // fragments, converted in registers
+  __device__ __forceinline__ void s_window_i8(uint32_t kb,
+                                              const uint32_t (*a)[4], int w,
+                                              float (&s)[2][4],
+                                              float (&s2)[2][4]) const {
+    const int t = lane >> 2;
+    const int c = lane & 3;
+    const uint4 k0 = lds128(kb + swz8<D>(t, 4 * w + c));
+    const uint4 k1 = lds128(kb + swz8<D>(t + 8, 4 * w + c));
+    const uint32_t kw[2][4] = {{k0.x, k0.y, k0.z, k0.w},
+                               {k1.x, k1.y, k1.z, k1.w}};
+#pragma unroll
+    for (int s4 = 0; s4 < 4; ++s4) {
+      uint32_t b[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {   // bytes 0 and 2, then 1 and 3
+        b[j][0] = i8x2_bf16(kw[j][s4]);
+        b[j][1] = i8x2_bf16(kw[j][s4] >> 8);
+      }
+      if (s4 & 1) {
+        mma_bf16(s2[0], a[s4], b[0][0], b[0][1]);
+        mma_bf16(s2[1], a[s4], b[1][0], b[1][1]);
+      } else {
+        mma_bf16(s[0], a[s4], b[0][0], b[0][1]);
+        mma_bf16(s[1], a[s4], b[1][0], b[1][1]);
+      }
     }
   }
 
@@ -299,11 +457,15 @@ struct WarpWalk {
     const int k_col = (lane >> 3) & 1;
     constexpr bool kQInRegs = D <= 128;   // D 256: the registers are spent
     uint32_t qf[kQInRegs ? D / 16 : 1][4];
-    if constexpr (kQInRegs) {
+    if constexpr (kQInRegs && kInt8) {
+#pragma unroll
+      for (int w = 0; w < D / 64; ++w) q_window_i8(q_base, w, qf + 4 * w);
+    } else if constexpr (kQInRegs) {
 #pragma unroll
       for (int kd = 0; kd < D / 16; ++kd)
         ldmatrix_x4(qf[kd], q_base + swz<D>(a_row, 2 * kd + a_col));
     }
+    const int c4 = lane & 3;   // int8: the lane's column group
     constexpr int kVGroup = D / 16 < 4 ? D / 16 : 4;
 
     for (int i = 0; i < nt; ++i) {
@@ -321,22 +483,53 @@ struct WarpWalk {
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = s2[j][e] = 0.f;
+      if constexpr (kInt8 && kQInRegs) {
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        uint32_t a[4], kf[4];
-        if constexpr (kQInRegs) {
-#pragma unroll
-          for (int x = 0; x < 4; ++x) a[x] = qf[kd][x];
-        } else {
-          ldmatrix_x4(a, q_base + swz<D>(a_row, 2 * kd + a_col));
+        for (int w = 0; w < D / 64; ++w) s_window_i8(kb, qf + 4 * w, w, s, s2);
+      } else if constexpr (kInt8) {
+        // D 256: q's fragments are reloaded a window at a time, and the
+        // windows stay a loop.  Unrolled, the kernel is 344 instructions
+        // longer, 3% faster after one GEMM and 9% slower after a decode
+        // step's other kernels on an H100 (tools/k1_context.py; PERF.md's
+        // K1 findings)
+#pragma unroll 1
+        for (int w = 0; w < D / 64; ++w) {
+          uint32_t aw[4][4];
+          q_window_i8(q_base, w, aw);
+          s_window_i8(kb, aw, w, s, s2);
         }
-        ldmatrix_x4(kf, kb + swz<D>(k_row, 2 * kd + k_col));
-        if (kd & 1) {
-          mma_bf16(s2[0], a, kf[0], kf[1]);
-          mma_bf16(s2[1], a, kf[2], kf[3]);
-        } else {
-          mma_bf16(s[0], a, kf[0], kf[1]);
-          mma_bf16(s[1], a, kf[2], kf[3]);
+      } else {
+#pragma unroll
+        for (int kd = 0; kd < D / 16; ++kd) {
+          uint32_t a[4], kf[4];
+          if constexpr (kQInRegs) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) a[x] = qf[kd][x];
+          } else {
+            ldmatrix_x4(a, q_base + swz<D>(a_row, 2 * kd + a_col));
+          }
+          ldmatrix_x4(kf, kb + swz<D>(k_row, 2 * kd + k_col));
+          if (kd & 1) {
+            mma_bf16(s2[0], a, kf[0], kf[1]);
+            mma_bf16(s2[1], a, kf[2], kf[3]);
+          } else {
+            mma_bf16(s[0], a, kf[0], kf[1]);
+            mma_bf16(s[1], a, kf[2], kf[3]);
+          }
+        }
+      }
+      // int8: the scales of the tokens this lane's fragments hold, [j][e % 2]
+      float ksc[2][2], vsc[2][2];
+      if constexpr (kInt8) {
+        const uint32_t sb = vb + L::kTileBytes;   // k_scale[16], v_scale[16]
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 k2 = lds_f2(sb + 4 * (8 * j + 2 * c4));
+          const float2 v2 = lds_f2(sb + 4 * (kTile + 8 * j + 2 * c4));
+          ksc[j][0] = k2.x;
+          ksc[j][1] = k2.y;
+          vsc[j][0] = v2.x;
+          vsc[j][1] = v2.y;
         }
       }
 
@@ -349,7 +542,8 @@ struct WarpWalk {
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float raw = s[j][e] + s2[j][e];
+          float raw = s[j][e] + s2[j][e];
+          if constexpr (kInt8) raw *= ksc[j][e & 1];
           float x = capped ? cap_log2 * tanhf(raw * scale_cap)
                            : raw * scale_log2;
           const int tok = 8 * j + 2 * (lane & 3) + (e & 1);
@@ -382,24 +576,59 @@ struct WarpWalk {
       }
 
       // acc += P V, P as bfloat16 hi + lo, V fragments by ldmatrix.trans
+      // (int8: P scaled by v_scale first, V fragments built in registers)
+      if constexpr (kInt8) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= vsc[j][e & 1];
+      }
       uint32_t ph[4], pl[4];
       split_bf16(s[0][0], s[0][1], ph[0], pl[0]);
       split_bf16(s[0][2], s[0][3], ph[1], pl[1]);
       split_bf16(s[1][0], s[1][1], ph[2], pl[2]);
       split_bf16(s[1][2], s[1][3], ph[3], pl[3]);
+      if constexpr (kInt8) {
+        // a word of V rows 2c, 2c + 1, 2c + 8 and 2c + 9 at column 32u + 4n
+        // (n = lane/4) is column 4n of the B fragments of n-blocks 4u..4u+3
+        const int n = lane >> 2;
 #pragma unroll
-      for (int g0 = 0; g0 < D / 16; g0 += kVGroup) {
-        uint32_t vf[kVGroup][4];
+        for (int u = 0; u < D / 32; ++u) {
+          uint32_t vw[4], b[4][2];
 #pragma unroll
-        for (int x = 0; x < kVGroup; ++x)
-          ldmatrix_x4_trans(vf[x], vb + swz<D>(a_row, 2 * (g0 + x) + a_col));
+          for (int x = 0; x < 4; ++x)
+            vw[x] = lds32(vb + swz8<D>(2 * c4 + (x & 1) + 8 * (x >> 1),
+                                       2 * u + (n >> 2)) +
+                          4 * (n & 3));
 #pragma unroll
-        for (int x = 0; x < kVGroup; ++x) {
-          const int dp = g0 + x;
-          mma_bf16(acc[2 * dp], ph, vf[x][0], vf[x][1]);
-          mma_bf16(acc[2 * dp + 1], ph, vf[x][2], vf[x][3]);
-          mma_bf16(acc[2 * dp], pl, vf[x][0], vf[x][1]);
-          mma_bf16(acc[2 * dp + 1], pl, vf[x][2], vf[x][3]);
+          for (int i = 0; i < 4; ++i) {   // byte i of rows 2c and 2c + 1, ...
+            const int sel = i * 0x11 + (4 + i) * 0x1100;
+            b[i][0] = i8x2_bf16(__byte_perm(vw[0], vw[1], sel));
+            b[i][1] = i8x2_bf16(__byte_perm(vw[2], vw[3], sel));
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            mma_bf16(acc[4 * u + i], ph, b[i][0], b[i][1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            mma_bf16(acc[4 * u + i], pl, b[i][0], b[i][1]);
+        }
+      } else {
+#pragma unroll
+        for (int g0 = 0; g0 < D / 16; g0 += kVGroup) {
+          uint32_t vf[kVGroup][4];
+#pragma unroll
+          for (int x = 0; x < kVGroup; ++x)
+            ldmatrix_x4_trans(vf[x],
+                              vb + swz<D>(a_row, 2 * (g0 + x) + a_col));
+#pragma unroll
+          for (int x = 0; x < kVGroup; ++x) {
+            const int dp = g0 + x;
+            mma_bf16(acc[2 * dp], ph, vf[x][0], vf[x][1]);
+            mma_bf16(acc[2 * dp + 1], ph, vf[x][2], vf[x][3]);
+            mma_bf16(acc[2 * dp], pl, vf[x][0], vf[x][1]);
+            mma_bf16(acc[2 * dp + 1], pl, vf[x][2], vf[x][3]);
+          }
         }
       }
       __syncwarp();   // every lane has read the stage before it is refilled
@@ -624,8 +853,11 @@ __host__ __device__ constexpr size_t merge_scratch_bytes(int splits, int g) {
 // The end of the tensor-core body: every warp of the block hands its state
 // for rows < g to shared memory, the block merges them once and either
 // writes the output (one split) or its partial, then the split merge.
-// Needs the whole block; the ring's copies must all have completed.
-template <int D, typename OutT>
+// Needs the whole block; the ring's copies must all have completed.  T is
+// the walk's page type: int8 walks leave their accumulator's columns in the
+// order WarpWalk's int8 P V gives them (acc[4u + i] register e: column
+// 32u + 8 (lane % 4) + 4 (e % 2) + i), put back in order here.
+template <int D, typename OutT, typename T = __nv_bfloat16>
 __device__ void finish_warps(float (&acc)[D / 8][4], float (&m_run)[2],
                              float (&l_run)[2], uint8_t* scratch_bytes,
                              const Recv& recv, OutT* out_rows,
@@ -653,11 +885,23 @@ __device__ void finish_warps(float (&acc)[D / 8][4], float (&m_run)[2],
   for (int r = 0; r < 2; ++r) {
     const int row = lane / 4 + 8 * r;
     if (row >= g) continue;
+    if constexpr (sizeof(T) == 1) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(mine + row * kStride + 8 * j +
-                                 2 * (lane & 3)) =
-          make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+      for (int u = 0; u < D / 32; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float4*>(mine + row * kStride + 32 * u +
+                                     8 * (lane & 3) + 4 * h) =
+              make_float4(acc[4 * u][2 * r + h], acc[4 * u + 1][2 * r + h],
+                          acc[4 * u + 2][2 * r + h],
+                          acc[4 * u + 3][2 * r + h]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(mine + row * kStride + 8 * j +
+                                   2 * (lane & 3)) =
+            make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+    }
     if ((lane & 3) == 0) {
       wm_s[warp][row] = m_run[r];
       wl_s[warp][row] = l_run[r];

@@ -1,5 +1,6 @@
-// Paged-KV decode attention for Hopper (sm_90a): bfloat16 on the tensor
-// cores (mma.sync), float32 and int8 pages on the CUDA cores.
+// Paged-KV decode attention for Hopper (sm_90a): bfloat16 q with bfloat16
+// or int8 pages on the tensor cores (mma.sync), float32 (and float32 q with
+// int8 pages) on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel `paged_attention` in
 // src/repro/kernels/paged_attention.py (function `paged_attention`, body
@@ -17,7 +18,8 @@
 // `q * scale`; mask `pos < valid_len`; optional softcap c*tanh(s/c) on the
 // raw scores; optional ring `window` (slot j of the table holds logical page
 // cur_L - ((cur_L - j) mod N), masked to pos > valid-1-window); a masked
-// token contributes exactly 0; out = acc / max(l, 1e-30).
+// token contributes exactly 0; out = acc / max(l, 1e-30).  int8 pages:
+// k * k_scale and v * v_scale in float32.
 //
 // Bound: bytes.  A decode step reads every live K/V row once and does
 // 4 g flops per element of K or V, far below the card's ridge point.  At
@@ -28,34 +30,70 @@
 // design back: one 32-token tile a block with three block barriers and a
 // serial softmax step, scalar 2-byte shared reads and g FMAs per element on
 // the CUDA cores, and a second launch to merge 32 splits whose partials
-// were a quarter of the K/V bytes.
+// were a quarter of the K/V bytes.  int8 pages halve the K/V bytes and add
+// 8 bytes of scales a token (D + 4 bytes a token for K, the same for V);
+// at a serve drain's lengths (a third of gemma-2b's 1024 tokens) the live
+// int8 K/V are 1.4 MB, under half a microsecond of the card's bandwidth, so
+// what bounds an int8 call in practice is the same fixed chain.
 //
-// bfloat16 route (`paged_attention_bf16_launch`; bfloat16 q and pages, D 64,
-// 128, 256), the device code in decode_core.cuh: a block per (sequence, kv
-// head, split); a block loads its table row (or, for a table over 2048 pages,
-// its split's page ids) into shared memory in one pass, beside valid_len, then
-// each of its warps walks its own contiguous slice of the block's tokens in
-// tiles of 16 through a ring of `stages` tiles of its own (no block barrier
-// per tile); S = q K^T and P V are mma.sync.m16n8k16 with the g query rows as
-// M (P in two bfloat16 parts); the warps merge once through shared memory, and
-// the splits merge in the same launch: 2 to 8 splits as one thread-block
-// cluster through distributed shared memory, more through global partials and
-// an arrival counter the wrapper keeps per device (reset by the merging
-// block). Tokens past valid_len and ring-masked tokens are never loaded. At
-// the main path's shape the wrapper runs 4 warps, 3 stages and 8 splits (64
+// Tensor-core route (`paged_attention_mma_launch`; bfloat16 q, bfloat16 or
+// int8 pages, D 64, 128, 256), the device code in decode_core.cuh: a block
+// per (sequence, kv head, split); a block loads its table row (or, for a
+// table over 2048 pages, its split's page ids) into shared memory in one
+// pass, beside valid_len, then each of its warps walks its own contiguous
+// slice of the block's tokens in tiles of 16 through a ring of `stages`
+// tiles of its own (no block barrier per tile); S = q K^T and P V are
+// mma.sync.m16n8k16 with the g query rows as M (P in two bfloat16 parts);
+// the warps merge once through shared memory, and the splits merge in the
+// same launch: 2 to 8 splits as one thread-block cluster through
+// distributed shared memory, more through global partials and an arrival
+// counter the wrapper keeps per device (reset by the merging block).
+// Tokens past valid_len and ring-masked tokens are never loaded.  At the
+// main path's shape the wrapper runs 4 warps, 3 stages and 8 splits (64
 // blocks, one per SM); timed on an H100 by a development sweep (PERF.md's
-// K1/K3 findings), 2 and 8 warps, 2 stages, 4 and 16 splits and the counter merge were slower or no faster.
+// K1/K3 findings), 2 and 8 warps, 2 stages, 4 and 16 splits and the counter
+// merge were slower or no faster.
 //
-// CUDA-core route (`paged_attention_cc_launch`; float32, int8 pages, and
-// bfloat16 at other head dims), kept from the first port apart from the merge:
-// the token walk of each (sequence, kv head) is split across blocks (grid.y);
-// a block walks its share in tiles of kTile tokens: (0) the tile's pool rows,
-// (1) every live K and V row of the tile copied into shared memory with
-// 16-byte asynchronous copies, all in flight at once, (2) each warp scores its
-// tokens against all g rows (lanes split D, a warp reduction per row), (3) one
-// warp per row updates the running max/sum, (4) each thread owns one of the D
-// output columns and accumulates p*v for all g rows in registers. The splits
-// merge in the launch as above.
+// int8 pages on the tensor cores (the same walk, `WarpWalk<D, Src, int8_t>`):
+// the first port ran them on the CUDA cores with the CUDA-core split rule
+// (32 one-tile splits at the serve drain's geometry, whose global partials
+// moved more bytes than the K/V), a dependent chain of loads (page id, row,
+// scales) before each tile's copies, four block barriers a tile, and every
+// product on the CUDA cores; 1.76x SDPA on dequantized K/V (PERF.md's K1
+// row).
+// Now a warp's ring stage holds the tile's int8 K and V rows (16-byte
+// cp.async, zero-filled for masked tokens) and its 16 k_scale and 16
+// v_scale floats (4-byte cp.async in the same commit group, zero-filled
+// where masked), so the scales ride `stages - 1` tiles ahead with the rows.
+// The products build their bfloat16 fragments in registers straight from
+// 32-bit and 128-bit shared loads (design (b): int8 -> bfloat16 is exact,
+// two values at a time by two masks and one bfloat16 subtraction; no
+// bfloat16 copy of the tile is written back to shared memory).  Design
+// (a), converting each landed tile into a bfloat16 tile that the bfloat16
+// products read as they are, was timed against (b) on an H100 and was
+// slower: 3% at the drain's lengths, 11% at full rows, 8% after a decode
+// step's other kernels (PERF.md's K1 findings).  The scales stay outside the
+// products: S's columns are multiplied by k_scale before the softmax scale
+// and softcap, p by v_scale before its bfloat16 split, and the running sum
+// takes the unscaled p.  q is never quantized and k * k_scale never rounded
+// to bfloat16.  The split rule and merge are the bfloat16 route's (8 splits
+// and a cluster merge at the drain's geometry).  A warp's ring region is
+// the larger of its stages and its merge rows (two int8 stages are smaller
+// than the 16 x (D + 8) floats finish_warps puts there).  At D 256 the
+// score windows stay a loop: unrolled, the kernel was 3% faster after one
+// GEMM and 9% slower after a decode step's other kernels
+// (tools/k1_context.py).
+//
+// CUDA-core route (`paged_attention_cc_launch`; float32, float32 q with int8
+// pages, and bfloat16 at other head dims), kept from the first port apart
+// from the merge: the token walk of each (sequence, kv head) is split across
+// blocks (grid.y); a block walks its share in tiles of kTile tokens: (0) the
+// tile's pool rows, (1) every live K and V row of the tile copied into
+// shared memory with 16-byte asynchronous copies, all in flight at once, (2)
+// each warp scores its tokens against all g rows (lanes split D, a warp
+// reduction per row), (3) one warp per row updates the running max/sum, (4)
+// each thread owns one of the D output columns and accumulates p*v for all
+// g rows in registers. The splits merge in the launch as above.
 #include "decode_core.cuh"
 
 namespace {
@@ -69,24 +107,35 @@ using decode::kNegInf;
 
 constexpr int kTile = 32;         // CUDA-core route: tokens per tile
 constexpr int kMaxHeadDim = 512;
-constexpr int kWholeTable = 2048; // bfloat16 route: a table row kept whole
+constexpr int kWholeTable = 2048; // tensor-core route: a table row kept whole
 static_assert(kTile == 32, "the softmax pass gives each lane one token");
 
 enum DType { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 // ---------------------------------------------------------------------------
-// bfloat16 route: the tensor cores
+// Tensor-core route: bfloat16 q, bfloat16 or int8 pages
 // ---------------------------------------------------------------------------
 
 // Token idx of the walk -> its row in the pools, through the block's page
 // ids (pid: pool pages of logical slots j0, j0 + 1, ...), or -1 if masked.
+// T is the pages' element type; int8 pages also carry their (P, page)
+// scale lanes, whose index is the row.  With the row found first and
+// scaled to an offset after (and the struct a template), the bfloat16 D
+// 128 kernel runs 13-16% faster on an H100 than with one offset() computed
+// in place; its machine code differs only in integer address arithmetic
+// (14 fewer instructions) and in 206 registers against 179
+// (tools/k1_compare.py; PERF.md's K1 findings).  Check that tool's output
+// after editing this struct.
+template <typename T>
 struct PagedRows {
-  const __nv_bfloat16* k;   // k_pages + kvh D
-  const __nv_bfloat16* v;
+  const T* k;               // k_pages + kvh D
+  const T* v;
+  const float* ks;          // int8: k_scale, v_scale (else null)
+  const float* vs;
   const int* pid;
   long long row_elems;      // Hkv D: one pool row to the next
   int j0, page, n_pages, n_tok, valid, window, cur_l;
-  __device__ __forceinline__ long long offset(int idx) const {
+  __device__ __forceinline__ long long row(int idx) const {
     if (idx >= n_tok) return -1;
     const int j = idx / page;
     const int r = idx - j * page;
@@ -99,16 +148,21 @@ struct PagedRows {
     } else {
       ok = idx < valid;
     }
-    return ok ? (static_cast<long long>(pid[j - j0]) * page + r) * row_elems
-              : -1;
+    return ok ? static_cast<long long>(pid[j - j0]) * page + r : -1;
+  }
+  __device__ __forceinline__ long long offset(int idx) const {
+    const long long rw = row(idx);
+    return rw >= 0 ? rw * row_elems : -1;
   }
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k_pages,
-                               const __nv_bfloat16* __restrict__ v_pages,
+                               const T* __restrict__ k_pages,
+                               const T* __restrict__ v_pages,
+                               const float* __restrict__ k_scale,
+                               const float* __restrict__ v_scale,
                                const int* __restrict__ page_table,
                                const int* __restrict__ valid_len,
                                __nv_bfloat16* __restrict__ out,
@@ -118,7 +172,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                                int page, int n_pages, int stages, float scale,
                                float softcap, int window, int cluster) {
   if (cluster) decode::cluster_arrive();   // this block is running
-  using L = decode::MmaLayout<D>;
+  using L = decode::MmaLayout<D, T>;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ uint32_t live_s[kMaxWarps][kMaxStages];
   const int bh = blockIdx.x;
@@ -185,19 +239,21 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int wper = (te - tb + warps - 1) / warps;
   const int wt0 = min(te, tb + warp * wper);
   const int wt1 = min(te, wt0 + wper);
-  const PagedRows src{k_pages + static_cast<long long>(kvh) * D,
-                      v_pages + static_cast<long long>(kvh) * D,
-                      pid_s,
-                      static_cast<long long>(hkv) * D,
-                      j0,
-                      page,
-                      n_pages,
-                      n_tok,
-                      valid,
-                      window,
-                      valid > 0 ? (valid - 1) / page : 0};
-  decode::WarpWalk<D, PagedRows> walk(
-      src, ring + static_cast<long>(warp) * stages * L::kStageBytes,
+  const PagedRows<T> src{k_pages + static_cast<long long>(kvh) * D,
+                         v_pages + static_cast<long long>(kvh) * D,
+                         k_scale,
+                         v_scale,
+                         pid_s,
+                         static_cast<long long>(hkv) * D,
+                         j0,
+                         page,
+                         n_pages,
+                         n_tok,
+                         valid,
+                         window,
+                         valid > 0 ? (valid - 1) / page : 0};
+  decode::WarpWalk<D, PagedRows<T>, T> walk(
+      src, ring + static_cast<long>(warp) * L::warp_ring(stages),
       live_s[warp], stages, wt0 * decode::kTile,
       min(wt1 * decode::kTile, t_hi));
   walk.prologue();
@@ -215,12 +271,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   walk.run(decode::smem_u32(q_s), scale * decode::kLog2e,
            capped ? scale / softcap : 0.f,
            capped ? softcap * decode::kLog2e : 0.f, acc, m_run, l_run);
-  decode::finish_warps<D>(acc, m_run, l_run, ring, recv, out + row0 * D, sp,
-                          g);
+  decode::finish_warps<D, __nv_bfloat16, T>(acc, m_run, l_run, ring, recv,
+                                            out + row0 * D, sp, g);
 }
 
-// Page ids a block of the bfloat16 route holds: the table's whole row, or
-// for a longer one its share of the table's 16-token tiles and one more
+// Page ids a block of the tensor-core route holds: the table's whole row,
+// or for a longer one its share of the table's 16-token tiles and one more
 // page where the share starts mid-page.
 int pid_capacity(int page, int n_pages, int splits) {
   if (n_pages <= kWholeTable) return n_pages;
@@ -229,35 +285,36 @@ int pid_capacity(int page, int n_pages, int splits) {
   return (per * decode::kTile + page - 1) / page + 1;
 }
 
-template <int D>
-size_t smem_bf16(int warps, int stages, int page, int n_pages, int splits) {
-  return decode::MmaLayout<D>::smem(warps, stages) +
+template <int D, typename T>
+size_t smem_mma(int warps, int stages, int page, int n_pages, int splits) {
+  return decode::MmaLayout<D, T>::smem(warps, stages) +
          static_cast<size_t>(pid_capacity(page, n_pages, splits)) *
              sizeof(int);
 }
 
-template <int D>
-cudaError_t set_smem_bf16(size_t smem) {
-  return cudaFuncSetAttribute(paged_attention_mma_kernel<D>,
+template <int D, typename T>
+cudaError_t set_smem_mma(size_t smem) {
+  return cudaFuncSetAttribute(paged_attention_mma_kernel<D, T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k_pages,
-                        const void* v_pages, const void* page_table,
-                        const void* valid_len, void* out, float* part_ml,
-                        float* part_acc, int* counter, int batch, int hq,
-                        int hkv, int page, int n_pages, int warps, int stages,
-                        int splits, int cluster, float scale, float softcap,
-                        int window, cudaStream_t stream) {
+template <int D, typename T>
+cudaError_t launch_mma(const void* q, const void* k_pages,
+                       const void* v_pages, const void* k_scale,
+                       const void* v_scale, const void* page_table,
+                       const void* valid_len, void* out, float* part_ml,
+                       float* part_acc, int* counter, int batch, int hq,
+                       int hkv, int page, int n_pages, int warps, int stages,
+                       int splits, int cluster, float scale, float softcap,
+                       int window, cudaStream_t stream) {
+  using L = decode::MmaLayout<D, T>;
   const int g = hq / hkv;
   if (decode::merge_scratch_bytes(splits, g) >
-      decode::MmaLayout<D>::smem(warps, stages) -
-          decode::MmaLayout<D>::kQBytes)
+      L::smem(warps, stages) - L::kQBytes)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bf16<D>(warps, stages, page, n_pages, splits);
-  const cudaError_t err = set_smem_bf16<D>(smem);
+  const size_t smem = smem_mma<D, T>(warps, stages, page, n_pages, splits);
+  const cudaError_t err = set_smem_mma<D, T>(smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * hkv, splits);
@@ -272,24 +329,24 @@ cudaError_t launch_bf16(const void* q, const void* k_pages,
   cfg.attrs = &attr;
   cfg.numAttrs = cluster ? 1 : 0;
   const cudaError_t launched = cudaLaunchKernelEx(
-      &cfg, paged_attention_mma_kernel<D>,
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pages),
-      static_cast<const __nv_bfloat16*>(v_pages),
-      static_cast<const int*>(page_table), static_cast<const int*>(valid_len),
-      static_cast<__nv_bfloat16*>(out), part_ml, part_acc, counter, hq, hkv,
-      page, n_pages, stages, scale, softcap, window, cluster);
+      &cfg, paged_attention_mma_kernel<D, T>,
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(page_table),
+      static_cast<const int*>(valid_len), static_cast<__nv_bfloat16*>(out),
+      part_ml, part_acc, counter, hq, hkv, page, n_pages, stages, scale,
+      softcap, window, cluster);
   if (launched != cudaSuccess) return launched;
   return cudaGetLastError();
 }
 
-template <int D>
-int occupancy_bf16(int warps, int stages, int page, int n_pages, int splits) {
-  const size_t smem = smem_bf16<D>(warps, stages, page, n_pages, splits);
-  if (set_smem_bf16<D>(smem) != cudaSuccess) return -1;
+template <int D, typename T>
+int occupancy_mma(int warps, int stages, int page, int n_pages, int splits) {
+  const size_t smem = smem_mma<D, T>(warps, stages, page, n_pages, splits);
+  if (set_smem_mma<D, T>(smem) != cudaSuccess) return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, paged_attention_mma_kernel<D>, warps * 32, smem) !=
+          &blocks, paged_attention_mma_kernel<D, T>, warps * 32, smem) !=
       cudaSuccess)
     return -1;
   return blocks;
@@ -599,45 +656,56 @@ void partials(void* work, int batch, int hkv, int splits, int g,
 // B*Hkv int32 arrival counters that are 0 before the launch and are 0 again
 // after it.  Page rows must be 16-byte aligned: D*itemsize a multiple of 16.
 
-// bfloat16 q and pages on the tensor cores: D 64, 128 or 256; `warps`
-// (1..8) warps a block, each with a ring of `stages` (1..8) tiles of 16
-// tokens; with `cluster` (2 to 8 splits) the splits of a (sequence, kv
-// head) launch as one thread-block cluster and merge through distributed
-// shared memory (`work` and `counter` are then not used).
-extern "C" int paged_attention_bf16_launch(
+// bfloat16 q on the tensor cores, pages of bfloat16 (kv_dtype 1) or int8
+// with their float32 scale lanes (kv_dtype 2; k_scale and v_scale are null
+// otherwise): D 64, 128 or 256; `warps` (1..8) warps a block, each with a
+// ring of `stages` (2..8) tiles of 16 tokens; with `cluster` (2 to 8
+// splits) the splits of a (sequence, kv head) launch as one thread-block
+// cluster and merge through distributed shared memory (`work` and
+// `counter` are then not used).
+extern "C" int paged_attention_mma_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* valid_len, void* out, void* work,
-    void* counter, int batch, int hq, int hkv, int d, int page, int n_pages,
-    int warps, int stages, int splits, int cluster, float scale,
-    float softcap, int window, void* stream) {
+    const void* k_scale, const void* v_scale, const void* page_table,
+    const void* valid_len, void* out, void* work, void* counter, int batch,
+    int hq, int hkv, int d, int page, int n_pages, int warps, int stages,
+    int splits, int cluster, float scale, float softcap, int window,
+    int kv_dtype, void* stream) {
   if (bad_common(batch, hq, hkv, d, page, n_pages, splits, work, counter,
                  cluster) ||
       warps < 1 || warps > kMaxWarps || stages < kMinStages ||
       stages > kMaxStages ||
-      (cluster && (splits < 2 || splits > decode::kMaxClusterSplits)))
+      (cluster && (splits < 2 || splits > decode::kMaxClusterSplits)) ||
+      (kv_dtype != kBFloat16 && kv_dtype != kInt8) ||
+      (kv_dtype == kInt8) != (k_scale != nullptr && v_scale != nullptr) ||
+      (kv_dtype != kInt8 && (k_scale != nullptr || v_scale != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   float *part_ml, *part_acc;
   partials(work, batch, hkv, splits, hq / hkv, &part_ml, &part_acc);
   int* cnt = static_cast<int*>(counter);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_PA_ARGS                                                        \
-  q, k_pages, v_pages, page_table, valid_len, out, part_ml, part_acc, cnt,  \
-      batch, hq, hkv, page, n_pages, warps, stages, splits, cluster, scale, \
-      softcap, window, s
+  q, k_pages, v_pages, k_scale, v_scale, page_table, valid_len, out,        \
+      part_ml, part_acc, cnt, batch, hq, hkv, page, n_pages, warps, stages, \
+      splits, cluster, scale, softcap, window, s
+#define REPRO_PA_D(D)                                                    \
+  err = kv_dtype == kInt8                                                \
+            ? launch_mma<D, int8_t>(REPRO_PA_ARGS)                       \
+            : launch_mma<D, __nv_bfloat16>(REPRO_PA_ARGS)
   cudaError_t err;
   switch (d) {
     case 64:
-      err = launch_bf16<64>(REPRO_PA_ARGS);
+      REPRO_PA_D(64);
       break;
     case 128:
-      err = launch_bf16<128>(REPRO_PA_ARGS);
+      REPRO_PA_D(128);
       break;
     case 256:
-      err = launch_bf16<256>(REPRO_PA_ARGS);
+      REPRO_PA_D(256);
       break;
     default:
       err = cudaErrorInvalidValue;
   }
+#undef REPRO_PA_D
 #undef REPRO_PA_ARGS
   return static_cast<int>(err);
 }
@@ -677,19 +745,25 @@ extern "C" int paged_attention_cc_launch(
   return static_cast<int>(err);
 }
 
-// Blocks of the bfloat16 route resident on one SM (-1 on error), from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor.
-extern "C" int paged_attention_bf16_occupancy(int d, int warps, int stages,
-                                              int page, int n_pages,
-                                              int splits) {
+// Blocks of the tensor-core route resident on one SM (-1 on error), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; kv_dtype as above.
+extern "C" int paged_attention_mma_occupancy(int d, int kv_dtype, int warps,
+                                             int stages, int page,
+                                             int n_pages, int splits) {
+#define REPRO_PA_OCC(D)                                                       \
+  return kv_dtype == kInt8                                                    \
+             ? occupancy_mma<D, int8_t>(warps, stages, page, n_pages, splits) \
+             : occupancy_mma<D, __nv_bfloat16>(warps, stages, page, n_pages,  \
+                                               splits)
   switch (d) {
     case 64:
-      return occupancy_bf16<64>(warps, stages, page, n_pages, splits);
+      REPRO_PA_OCC(64);
     case 128:
-      return occupancy_bf16<128>(warps, stages, page, n_pages, splits);
+      REPRO_PA_OCC(128);
     case 256:
-      return occupancy_bf16<256>(warps, stages, page, n_pages, splits);
+      REPRO_PA_OCC(256);
     default:
       return -1;
   }
+#undef REPRO_PA_OCC
 }

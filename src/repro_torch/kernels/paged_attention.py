@@ -2,12 +2,14 @@
 ``csrc/paged_attention.cu`` (the port of the Pallas kernel
 ``repro.kernels.paged_attention.paged_attention``).
 
-Two routes (:func:`route`): bfloat16 q and pages at D 64, 128 or 256 run on
-the tensor cores (``mma.sync``; warps that own token slices, each with its
-own ring of 16-token tiles; see ``csrc/decode_core.cuh``); float32, int8
-pages and other head dims on the CUDA cores.  Both merge the split
-partials inside the one launch.  :func:`split_count` and
-:func:`kernel_config` say what a call runs.
+Two routes (:func:`route`): bfloat16 q with bfloat16 or int8 pages at D
+64, 128 or 256 runs on the tensor cores (``mma.sync``; warps that own token
+slices, each with its own ring of 16-token tiles; int8 tiles become exact
+bfloat16 fragments in registers, their scales applied outside the products;
+see ``csrc/decode_core.cuh``); float32, float32 q with int8 pages and other
+head dims on the CUDA cores.  Both merge the split partials inside the one
+launch.  :func:`split_count` and :func:`kernel_config` say what a call
+runs.
 
 The wrapper checks what it is given, allocates the output and the split
 partials (``torch.empty``), launches on PyTorch's current stream and raises
@@ -55,8 +57,8 @@ def reset_launches() -> None:
 def _launcher(name: str):
     fn = getattr(build.load("paged_attention"), name)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "paged_attention_bf16_launch":
-        fn.argtypes = [vp] * 8 + [i] * 10 + [f, f, i, vp]
+    if name == "paged_attention_mma_launch":
+        fn.argtypes = [vp] * 10 + [i] * 10 + [f, f, i, i, vp]
     else:
         fn.argtypes = [vp] * 10 + [i] * 6 + [f, f] + [i] * 4 + [vp]
     fn.restype = ctypes.c_int
@@ -64,20 +66,21 @@ def _launcher(name: str):
 
 
 def occupancy(d: int, warps: int, stages: int, page: int, n_pages: int,
-              splits: int) -> int:
+              splits: int, kv_dtype: torch.dtype = torch.bfloat16) -> int:
     """Blocks of the tensor-core route resident on an SM, as the card
     reports (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; needs a
     card)."""
-    fn = build.load("paged_attention").paged_attention_bf16_occupancy
-    fn.argtypes = [ctypes.c_int] * 6
+    fn = build.load("paged_attention").paged_attention_mma_occupancy
+    fn.argtypes = [ctypes.c_int] * 7
     fn.restype = ctypes.c_int
-    return fn(d, warps, stages, page, n_pages, splits)
+    return fn(d, _DTYPE_CODE[kv_dtype], warps, stages, page, n_pages, splits)
 
 
 def route(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int) -> str:
-    """``mma.sync`` for bfloat16 q and pages at D 64, 128 or 256 (the
-    tensor cores), else ``cuda-cores``."""
-    if q_dtype == kv_dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
+    """``mma.sync`` for bfloat16 q with bfloat16 or int8 pages at D 64, 128
+    or 256 (the tensor cores), else ``cuda-cores``."""
+    if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
+            and d in MMA_HEAD_DIMS):
         return "mma.sync"
     return "cuda-cores"
 
@@ -111,20 +114,23 @@ def split_count(route_: str, b: int, hkv: int, page: int, n_pages: int,
 def kernel_config(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int,
                   page: int, n_pages: int, splits: int) -> KernelConfig:
     """What a call runs: on the tensor cores ``MMA_WARPS`` warps with rings
-    of ``MMA_STAGES`` 16-token tiles, fewer where the block's page ids
-    (:func:`pid_capacity`) leave less shared memory (a table that leaves
-    room for fewer than 2 stages raises); on the CUDA cores one 32-token
-    tile at a time in a block of ``max(4, D/32)`` warps."""
+    of ``MMA_STAGES`` 16-token tiles (int8 pages: ``pages=int8``), fewer
+    where the block's page ids (:func:`pid_capacity`) leave less shared
+    memory (a table that leaves room for fewer than 2 stages raises); on
+    the CUDA cores one 32-token tile at a time in a block of
+    ``max(4, D/32)`` warps."""
     if route(q_dtype, kv_dtype, d) == "mma.sync":
+        int8 = kv_dtype == torch.int8
         fit = core.mma_stages_fit(
-            d, MMA_WARPS, extra=4 * pid_capacity(page, n_pages, splits))
+            d, MMA_WARPS, extra=4 * pid_capacity(page, n_pages, splits),
+            kv_bytes=1 if int8 else 2)
         if fit < core.MIN_STAGES:
             raise ValueError(f"a table of {n_pages} pages of {page} tokens "
                              f"in {splits} splits leaves a block's shared "
                              f"memory no room for {core.MIN_STAGES} stages "
                              f"at D={d}")
         return KernelConfig("mma.sync", core.TILE, min(MMA_STAGES, fit),
-                            MMA_WARPS)
+                            MMA_WARPS, "int8" if int8 else "")
     return KernelConfig("cuda-cores", TILE, 1, max(4, -(-d // 32)))
 
 
@@ -224,6 +230,10 @@ def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     b, hq, d = q.shape
     _, page, hkv, _ = k_pages.shape
     n = page_table.shape[1]
+    if cfg.route == "mma.sync" and (cfg.pages == "int8") != (
+            k_pages.dtype == torch.int8):
+        raise ValueError(f"configuration {cfg} does not match pages of "
+                         f"{k_pages.dtype}")
     out = torch.empty_like(q)
     if b == 0:
         return out
@@ -241,21 +251,21 @@ def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                    if counted else None)
         ptrs = (work.data_ptr() if work is not None else None,
                 counter.data_ptr() if counter is not None else None)
+        scales = ((k_scale.data_ptr(), v_scale.data_ptr())
+                  if k_scale is not None else (None, None))
         if cfg.route == "mma.sync":
-            err = _launcher("paged_attention_bf16_launch")(
+            err = _launcher("paged_attention_mma_launch")(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-                *ptrs, b, hq, hkv, d, page, n, cfg.warps, cfg.stages, splits,
-                int(cluster), scale, softcap or 0.0, window or 0, stream)
+                *scales, page_table.data_ptr(), valid_len.data_ptr(),
+                out.data_ptr(), *ptrs, b, hq, hkv, d, page, n, cfg.warps,
+                cfg.stages, splits, int(cluster), scale, softcap or 0.0,
+                window or 0, _DTYPE_CODE[k_pages.dtype], stream)
         else:
-            quant = k_scale is not None
             err = _launcher("paged_attention_cc_launch")(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                k_scale.data_ptr() if quant else None,
-                v_scale.data_ptr() if quant else None,
-                page_table.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-                *ptrs, b, hq, hkv, d, page, n, scale, softcap or 0.0,
-                window or 0, splits, _DTYPE_CODE[q.dtype],
+                *scales, page_table.data_ptr(), valid_len.data_ptr(),
+                out.data_ptr(), *ptrs, b, hq, hkv, d, page, n, scale,
+                softcap or 0.0, window or 0, splits, _DTYPE_CODE[q.dtype],
                 _DTYPE_CODE[k_pages.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import decode_core
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ops
@@ -213,6 +214,92 @@ def test_kernel_matches_plain_at_model_geometry(cuda, case, dtype):
         w32 = ref.paged_attention(q.float(), k, v, table, vl, **kw)
         assert bool(((got.float() - w32).abs()
                      <= TOL["float32"] + 2.0 ** -8 * w32.abs()).all())
+
+
+# bfloat16 q with int8 pages on the tensor cores: (name, B, Hq, Hkv, D,
+# page, N, valid lens, extra kwargs); a valid length of 0 leaves a row
+# without a token
+INT8_MMA_CASES = [
+    ("d64-gqa-page8", 3, 8, 2, 64, 8, 6, [1, 20, 48], dict(int8=True)),
+    ("d128-gqa-page16", 3, 8, 2, 128, 16, 6, [5, 50, 96], dict(int8=True)),
+    ("d256-gqa-page16", 3, 8, 2, 256, 16, 6, [7, 70, 96], dict(int8=True)),
+    ("d256-page8-empty-rows", 3, 8, 1, 256, 8, 12, [0, 33, 0], dict(int8=True)),
+    ("softcap-d128", 3, 8, 2, 128, 8, 6, [1, 20, 48], dict(int8=True, softcap=20.0)),
+    ("softcap-d256-page16", 2, 8, 1, 256, 16, 8, [100, 128],
+     dict(int8=True, softcap=30.0)),
+    ("ring-window-d256", 3, 8, 1, 256, 8, 4, [5, 30, 61], dict(int8=True, window=24)),
+    ("ring-window-d64-page16", 3, 8, 2, 64, 16, 4, [9, 60, 130],
+     dict(int8=True, window=40)),
+]
+
+
+def _within_one_rounding(got, q, k, v, table, vl, kw):
+    """The kernel computes in float32 and rounds its output once: it is
+    held against the plain version run in float32 on the same inputs."""
+    want = ref.paged_attention(q.float(), k, v, table, vl, **kw)
+    return bool(((got.float() - want).abs()
+                 <= TOL["float32"] + 2.0 ** -8 * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_MMA_CASES,
+                         ids=[c[0] for c in INT8_MMA_CASES])
+def test_kernel_int8_pages_on_the_tensor_cores(cuda, case):
+    """bfloat16 q with int8 pages takes the tensor-core route (one launch),
+    within one bfloat16 rounding of the float32 plain version; a row
+    without a token is exactly 0."""
+    (q, k, v, table, vl), kw = _on_card(case, "bfloat16", cuda)
+    assert k.dtype == v.dtype == torch.int8
+    assert pa.route(q.dtype, k.dtype, q.shape[2]) == "mma.sync"
+    n_pages = table.shape[1]
+    splits = pa.split_count("mma.sync", q.shape[0], k.shape[2], k.shape[1],
+                            n_pages, decode_core.sm_count(cuda.index or 0))
+    assert pa.kernel_config(q.dtype, k.dtype, q.shape[2], k.shape[1],
+                            n_pages, splits).pages == "int8"
+    before = pa.LAUNCHES
+    got = ops.paged_attention(q, k, v, table, vl, **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == before + 1
+    assert _within_one_rounding(got, q, k, v, table, vl, kw)
+    empty = vl == 0
+    assert torch.count_nonzero(got[empty]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits, merge", [
+    (2, "cluster"), (5, "cluster"), (8, "cluster"),   # a thread-block cluster
+    (16, "counter"), (64, "counter"),                 # global partials
+])
+def test_kernel_int8_pages_split_merges(cuda, splits, merge):
+    """int8 pages on the tensor cores with the walk split 2 to 64 ways:
+    the cluster merge (2-8 splits) and the counter merge (more); at 64
+    splits most blocks of the short row find no token.  Twice on the same
+    buffers: the same bits, so the counters were reset."""
+    (q, k, v, table, vl), kw = _on_card(
+        ("split-rows", 2, 8, 2, 128, 16, 32, [100, 512], dict(int8=True)),
+        "bfloat16", cuda)
+    cfg = pa.kernel_config(q.dtype, k.dtype, 128, 16, 32, splits)
+    assert cfg.pages == "int8"
+    assert decode_core.merge_kind(cfg.route, splits) == merge
+    first = pa.launch(q, k, v, table, vl, cfg, splits, **kw)
+    second = pa.launch(q, k, v, table, vl, cfg, splits, **kw)
+    assert torch.equal(first, second)
+    assert _within_one_rounding(first, q, k, v, table, vl, kw)
+
+
+@pytest.mark.cuda
+def test_kernel_int8_pages_counter_merge_past_a_whole_table(cuda):
+    """One row over 4096 pages of 8 (past WHOLE_TABLE, so each block loads
+    its split's page ids): the split rule gives 64 splits, merged through
+    global partials and an arrival counter."""
+    case = ("long-row", 1, 8, 1, 256, 8, 4096, [30001], dict(int8=True))
+    (q, k, v, table, vl), kw = _on_card(case, "bfloat16", cuda)
+    splits = pa.split_count(pa.route(q.dtype, k.dtype, 256), 1, 1, 8, 4096,
+                            decode_core.sm_count(cuda.index or 0))
+    assert 4096 > pa.WHOLE_TABLE
+    assert decode_core.merge_kind("mma.sync", splits) == "counter"
+    got = ops.paged_attention(q, k, v, table, vl, **kw)
+    assert _within_one_rounding(got, q, k, v, table, vl, kw)
 
 
 @pytest.mark.cuda

@@ -127,18 +127,59 @@ def test_kernel_split_rule(dtype, b, hkv, n_pages, want):
                            132) == want
 
 
+@pytest.mark.parametrize("q_dtype, want, merge", [
+    # the int8 serve's geometry: the tensor cores' rule, 64 tiles cap 16
+    ("bfloat16", 8, "cluster"),
+    # float32 q keeps the CUDA cores' rule: 32 one-tile splits
+    ("float32", 32, "counter"),
+])
+def test_kernel_split_rule_int8_pages(q_dtype, want, merge):
+    """gemma-2b's int8 pages (B 8, 8/1 heads, D 256, 64 pages of 16
+    tokens) on a 132-SM card: bfloat16 q takes the tensor-core route's
+    split rule and merges its splits in a cluster."""
+    route = tpa.route(getattr(torch, q_dtype), torch.int8, 256)
+    splits = tpa.split_count(route, 8, 1, 16, 64, 132)
+    assert (splits, tcore.merge_kind(route, splits)) == (want, merge)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_kernel_int8_ring_holds_the_merge_rows(d):
+    """An int8 stage is half a bfloat16 one, so two of them are smaller
+    than the 16 x (D + 8) floats a warp leaves for the block's merge; a
+    warp's region is the larger of the two, and at every stage count the
+    route allows the whole block fits a block's 227 KiB."""
+    merge = 16 * (d + tcore.ACC_PAD) * 4
+    assert tcore.MIN_STAGES * tcore.stage_bytes(d, 1) < merge
+    fit = tcore.mma_stages_fit(d, tpa.MMA_WARPS, kv_bytes=1)
+    assert fit >= tpa.MMA_STAGES
+    for stages in range(tcore.MIN_STAGES, min(fit, tcore.MAX_STAGES) + 1):
+        region = tcore.warp_ring_bytes(d, stages, 1)
+        assert region >= merge and region >= stages * tcore.stage_bytes(d, 1)
+        smem = tcore.mma_smem(d, tpa.MMA_WARPS, stages, 1)
+        assert smem == (16 * d * 2 + tpa.MMA_WARPS * region
+                        + tcore.recv_bytes(d))
+        assert smem + tcore.STATIC_SMEM <= tcore.SMEM_BYTES
+    cfg = tpa.kernel_config(torch.bfloat16, torch.int8, d, 16, 64, 8)
+    assert (cfg.pages, cfg.stages) == ("int8", tpa.MMA_STAGES)
+
+
 @pytest.mark.parametrize("q_dtype, kv_dtype, d, want", [
     ("bfloat16", "bfloat16", 256, "mma.sync tile=16 stages=3 warps=4"),
     ("bfloat16", "bfloat16", 64, "mma.sync tile=16 stages=3 warps=4"),
     ("bfloat16", "bfloat16", 32, "cuda-cores tile=32 stages=1 warps=4"),
-    ("bfloat16", "int8", 256, "cuda-cores tile=32 stages=1 warps=8"),
+    ("bfloat16", "int8", 256, "mma.sync tile=16 stages=3 warps=4 pages=int8"),
+    ("bfloat16", "int8", 128, "mma.sync tile=16 stages=3 warps=4 pages=int8"),
+    ("bfloat16", "int8", 64, "mma.sync tile=16 stages=3 warps=4 pages=int8"),
+    ("bfloat16", "int8", 32, "cuda-cores tile=32 stages=1 warps=4"),
+    ("float32", "int8", 256, "cuda-cores tile=32 stages=1 warps=8"),
     ("float32", "float32", 512, "cuda-cores tile=32 stages=1 warps=16"),
 ])
 def test_kernel_config_routes_by_dtype_and_head_dim(q_dtype, kv_dtype, d,
                                                     want):
-    """bfloat16 q and pages at D 64, 128 and 256 run on the tensor cores;
-    float32, int8 pages and other head dims on the CUDA cores (the main
-    path's table: 128 pages of 8 in 8 splits)."""
+    """bfloat16 q with bfloat16 or int8 pages at D 64, 128 and 256 runs on
+    the tensor cores (int8 pages named in the configuration); float32,
+    float32 q with int8 pages and other head dims on the CUDA cores (the
+    main path's table: 128 pages of 8 in 8 splits)."""
     cfg = tpa.kernel_config(getattr(torch, q_dtype), getattr(torch, kv_dtype),
                             d, 8, 128, 8)
     assert str(cfg) == want
@@ -161,6 +202,19 @@ def test_kernel_ring_fits_the_page_ids(n_pages, splits, want):
     smem = (tcore.mma_smem(256, cfg.warps, cfg.stages)
             + 4 * tpa.pid_capacity(8, n_pages, splits) + tcore.STATIC_SMEM)
     assert smem <= tcore.SMEM_BYTES
+
+
+def test_kernel_launch_refuses_a_configuration_of_other_pages():
+    """A tensor-core configuration names its pages' type; a launch with
+    pages of another type raises before anything reaches the card."""
+    q, k, v, table, vl, ks, vs = make_inputs(2, 2, 8, 1, 64, 8, 3, [5, 20],
+                                             int8=True)
+    q = torch.from_numpy(q).to(torch.bfloat16)
+    args = [torch.from_numpy(a) for a in (k, v, table, vl)]
+    bf16_cfg = tpa.kernel_config(torch.bfloat16, torch.bfloat16, 64, 8, 3, 1)
+    with pytest.raises(ValueError, match="does not match"):
+        tpa.launch(q, *args, bf16_cfg, 1, k_scale=torch.from_numpy(ks),
+                   v_scale=torch.from_numpy(vs))
 
 
 def test_kernel_refuses_a_table_the_ring_cannot_fit_beside():

@@ -133,11 +133,32 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    published widths (window narrowed to 32 so the ring turns in a short
    drain) and 2-layer gemma-2b with int8 KV, float32, drained on the card
    (K1) and on the CPU (plain path); the tokens must agree;
-23. bench serve: the ``serve``, ``kernel_plan`` and ``paged_serve`` sweeps
-   at card scale, twice, persisted under ``build/bench_serve``, then
-   ``repro_torch.bench.compare`` between the two runs: every row and
-   verdict printed, and ``--gate structural`` (deterministic rows equal,
-   no vanished metric) must pass; wall-clock verdicts are advisory.
+23. prng: JAX's threefry keys and bits (``repro_torch.serve.prng``) at
+   (8, 256000) on the card exactly equal to the CPU's (bits, ``split``,
+   ``fold_in``, ``subkey_chain``, ``uniform``), ``gumbel`` within 2 ulp;
+   the sampler at gemma-2b's vocab for (temperature 0.9, top_p 0.95) and
+   (temperature 0.8, top_k 50): masks, draws and times;
+24. sampled serve: full-width gemma-2b (bf16) through the paged engine
+   with each sampling setting (keys seeded with 3), then the first on
+   int8 pages: the serve phase's 16 requests drained twice with identical
+   tokens, K1 once a layer on every tick, the warm tick beside the greedy
+   tick of phase 5;
+25. sampled parity: the parity phase's model and requests sampled with
+   (temperature 0.9, top_p 0.95) on the card and on the CPU: tokens and
+   final keys must agree;
+26. spec serve: full-width gemma-2b in float32, the serve phase's first 8
+   requests through the vanilla engine and speculative engines (spec_k 3),
+   greedy and sampled, drafting with the target itself and with weights
+   from another seed (the draft's dense prefill through K2): tokens equal
+   to vanilla, the self-draft's accept rate 1.0, the other draft's
+   sampled proposals partly rejected, the pools conserve pages; rounds,
+   accepted drafts per round and ms per round printed;
+27. bench serve: the ``serve``, ``kernel_plan``, ``paged_serve`` and
+   ``spec_serve`` sweeps at card scale, twice, persisted under
+   ``build/bench_serve``, then ``repro_torch.bench.compare`` between the
+   two runs: every row and verdict printed, and ``--gate structural``
+   (deterministic rows equal, no vanished metric) must pass; wall-clock
+   verdicts are advisory.
 
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
@@ -146,8 +167,9 @@ It ends with a ``[previous]`` line (K1's, K2's, K3's, K4's and K8's times
 before their redesign, and K1's int8 pages on the CUDA cores, as PERF.md
 records them: not measured in this run),
 the kernels' JSON line (K1, K2, K3, K4 and K8 also carry their design, K7
-its latency bound; K1 its launches on each serving path and its times at
-the new geometries), the card line and the result line.
+its latency bound; K1 its launches on each serving path, the sampled ones
+included, and its times at the new geometries), the card line and the
+result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
 """
@@ -788,11 +810,11 @@ def serve_phase(torch, np, card):
               f"serve {run}: no prefix hit on shared prompts")
         return ""
 
-    launches = serve_runs(torch, eng, reqs, "serve", card, cfg.num_layers,
-                          pa, checks)
+    launches, warm = serve_runs(torch, eng, reqs, "serve", card,
+                                cfg.num_layers, pa, checks)
     for line in profile_window(torch, eng, reqs):
         print(line, flush=True)
-    return launches
+    return launches, warm
 
 
 def _leaves(tree):
@@ -943,12 +965,13 @@ def load_model(torch, cfg, flags=None, seed=0):
     params = bundle.init(torch.Generator(device="cuda").manual_seed(seed))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"[model] arch={cfg.name} layers={cfg.num_layers} "
           f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
           f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
           f"vocab={cfg.vocab_size} dtype={cfg.param_dtype} "
           f"kv_dtype={bundle.flags.kv_dtype} params={n_params} "
-          f"param_GB={n_params * 2 / 1e9:.2f} "
+          f"param_GB={n_bytes / 1e9:.2f} "
           f"init_s={time.perf_counter() - t0:.2f}", flush=True)
     return bundle, params
 
@@ -957,9 +980,11 @@ def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks):
     """Drain ``reqs`` twice (first, warm) with K1's count set to 0 just
     before each drain and read just after; checks budgets, token range and
     K1 launches = layers x decode ticks, then ``extra_checks(run)``.
-    Prints one ``[tag]`` line a run; returns the warm run's launches."""
+    Prints one ``[tag]`` line a run; returns the warm run's launches and
+    its ms per decode tick and tokens per second."""
     cfg = eng.bundle.cfg
     launches = 0
+    warm = {}
     for run in ("first", "warm"):
         torch.cuda.reset_peak_memory_stats()
         pa.reset_launches()
@@ -995,7 +1020,9 @@ def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks):
               f"{eng.kv_bytes() / 2**30:.3f} "
               f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}"
               f"{extra}", flush=True)
-    return launches
+        warm = dict(tick_ms=1e3 * eng.decode_s / st.decode_steps,
+                    tok_s=st.tokens_out / dt)
+    return launches, warm
 
 
 def ring_serve_phase(torch, np, card):
@@ -1043,8 +1070,8 @@ def ring_serve_phase(torch, np, card):
         return (f" ring_bound={eng.bsz * eng.ring_slots} "
                 f"prefix_sharing=off (windowed stack, as in the reference)")
 
-    launches = serve_runs(torch, eng, reqs, "ring serve", card,
-                          cfg.num_layers, pa, checks)
+    launches, _ = serve_runs(torch, eng, reqs, "ring serve", card,
+                             cfg.num_layers, pa, checks)
     for line in profile_window(torch, eng, reqs):
         print(line.replace("[profile]", "[profile] arch=gemma2-27b"),
               flush=True)
@@ -1098,8 +1125,8 @@ def int8_serve_phase(torch, np, card):
                 f"page_tokens={eng.page} "
                 f"bf16_page_tokens={bf16_page} derived_int8_page={int8_page}")
 
-    launches = serve_runs(torch, eng, reqs, "int8 serve", card,
-                          cfg.num_layers, pa, checks)
+    launches, _ = serve_runs(torch, eng, reqs, "int8 serve", card,
+                             cfg.num_layers, pa, checks)
     for line in profile_window(torch, eng, reqs, steps=(
             ("decode window", _prepare_decode),)):
         print(line.replace("[profile]", "[profile] arch=gemma-2b kv=int8"),
@@ -1107,11 +1134,14 @@ def int8_serve_phase(torch, np, card):
     return launches
 
 
-def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc):
+def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc,
+                    sampling=None):
     """The same float32 weights (drawn on the card, copied to the CPU)
     drain the same requests on the card (K1) and on the CPU (the plain
-    path); greedy tokens must agree, every card tick must launch K1 once a
-    layer, and a windowed stack's ring must turn on both."""
+    path); tokens must agree (greedy, or drawn with ``sampling`` from keys
+    seeded with 3, whose final values must agree too), every card tick
+    must launch K1 once a layer, and a windowed stack's ring must turn on
+    both."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import build
     from repro_torch.serve import ServeEngine
@@ -1121,12 +1151,13 @@ def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc):
     card_bundle = build(cfg, flags, device="cuda")
     card_params = card_bundle.init(
         torch.Generator(device="cuda").manual_seed(1))
-    outs, reused = {}, {}
+    outs, reused, keys = {}, {}, {}
     for dev in ("cuda", "cpu"):
         bundle = card_bundle if dev == "cuda" else build(cfg, flags,
                                                          device="cpu")
         p = card_params if dev == "cuda" else _to(card_params, "cpu")
-        eng = ServeEngine(bundle, p, 4, 128, device=dev)
+        eng = ServeEngine(bundle, p, 4, 128, sampling=sampling, seed=3,
+                          device=dev)
         reqs = reqs_of()
         pa.reset_launches()
         for r in reqs:
@@ -1134,6 +1165,7 @@ def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc):
         eng.run_to_completion()
         outs[dev] = [r.out_tokens for r in reqs]
         reused[dev] = eng.stats.ring_pages_reused
+        keys[dev] = eng.keys.cpu()
         if dev == "cuda":
             check(pa.LAUNCHES == cfg.num_layers * eng.stats.decode_steps > 0,
                   f"{tag}: the drain on the card did not run K1 every tick")
@@ -1145,11 +1177,17 @@ def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc):
         check(reused["cuda"] > 0 and reused["cpu"] > 0,
               f"{tag}: the ring never turned")
     same = outs["cpu"] == outs["cuda"]
+    same_keys = bool(torch.equal(keys["cpu"], keys["cuda"]))
     print(f"[{tag}] {desc} requests={len(outs['cpu'])} "
-          f"ring_pages_reused={reused['cuda']} cuda_equals_cpu={same}",
-          flush=True)
-    check(same, f"{tag}: greedy tokens differ: cpu {outs['cpu']} cuda "
+          f"ring_pages_reused={reused['cuda']} cuda_equals_cpu={same} "
+          f"keys_equal={same_keys}", flush=True)
+    check(same, f"{tag}: tokens differ: cpu {outs['cpu']} cuda "
           f"{outs['cuda']}")
+    check(same_keys, f"{tag}: final keys differ: cpu {keys['cpu']} cuda "
+          f"{keys['cuda']}")
+    if sampling is not None and not sampling.greedy:
+        check(bool(keys["cpu"].any()), f"{tag}: the sampled drain left "
+              "every key zero")
 
 
 def ring_parity_phase(torch, np):
@@ -1183,7 +1221,228 @@ def int8_parity_phase(torch, np):
         "int8 parity", "arch=gemma-2b full width, 2 layers, float32, int8 KV")
 
 
-BENCH_SWEEPS = ("serve", "kernel_plan", "paged_serve")
+# ---------------------------------------------------------------------------
+# sampling and speculative decoding
+# ---------------------------------------------------------------------------
+
+# the sampled phases' settings, both with keys seeded by 3
+SAMPLINGS = (dict(temperature=0.9, top_p=0.95),
+             dict(temperature=0.8, top_k=50))
+VOCAB = 256000                    # gemma-2b's
+
+
+def _desc(params):
+    return ",".join(f"{k}={v}" for k, v in params.items())
+
+
+def prng_phase(torch, np, card):
+    """Threefry keys and bits, ``split``, ``fold_in`` and ``subkey_chain``
+    at (8, 256000) on the card exactly equal to the CPU's; ``uniform``
+    exactly, ``gumbel`` within 2 ulp (counted at max(|g|, 1)); then the
+    sampler at gemma-2b's vocab for both settings: top-k masks exactly
+    equal, top-p masks' differing entries counted, draws equal.  Times
+    (CUDA events behind a spin) of the bits and of one sampled draw."""
+    from repro_torch.serve import prng
+    from repro_torch.serve.sampling import (SamplingParams, mask_logits,
+                                            sample_tokens, subkey_chain)
+
+    keys = prng.split(prng.prng_key(3), 8)
+    ck = keys.cuda()
+    exact = {
+        "bits": lambda k: prng.random_bits(k, (VOCAB,)),
+        "split": lambda k: prng.split(k, 2),
+        "fold_in": lambda k: prng.fold_in(k, 12345),
+        "subkey_chain": lambda k: torch.cat(subkey_chain(k, 4), dim=1),
+        "uniform": lambda k: prng.uniform(k, (VOCAB,)).view(torch.int32)}
+    for name, fn in exact.items():
+        check(torch.equal(fn(ck).cpu(), fn(keys)),
+              f"[prng] {name} at (8, {VOCAB}): card != cpu")
+    g_card = prng.gumbel(ck, (VOCAB,)).cpu().double()
+    g_cpu = prng.gumbel(keys, (VOCAB,)).double()
+    unit = torch.clamp(g_cpu.abs(), min=1.0) * 2.0 ** -23
+    ulp = float(((g_card - g_cpu).abs() / unit).max())
+    check(ulp <= 2.0, f"[prng] gumbel: card {ulp} ulp from cpu")
+    bits_ms = time_ms(torch, lambda k: prng.random_bits(k, (VOCAB,)),
+                      [(ck,)], iters=10, warmup=2)
+    print(f"[prng] card='{card}' shape=(8, {VOCAB}) "
+          f"{'/'.join(exact)}_card_equals_cpu=True gumbel_max_ulp={ulp:.2f} "
+          f"bits_ms={bits_ms:.4f}", flush=True)
+    logits = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (8, VOCAB)) * 4).astype(np.float32))
+    cl = logits.cuda()
+    for params in SAMPLINGS:
+        sp = SamplingParams(**params)
+        m_card = mask_logits(cl, sp).cpu()
+        m_cpu = mask_logits(logits, sp)
+        differ = int((m_card.view(torch.int32)
+                      != m_cpu.view(torch.int32)).sum())
+        if sp.top_p == 1.0:
+            check(differ == 0, f"[prng] {_desc(params)}: top-k masks differ "
+                  f"in {differ} entries")
+        same = torch.equal(sample_tokens(ck, cl, sp).cpu(),
+                           sample_tokens(keys, logits, sp))
+        check(same, f"[prng] {_desc(params)}: card draws != cpu draws")
+        ms = time_ms(torch, lambda k, l: sample_tokens(k, l, sp),
+                     [(ck, cl)], iters=10, warmup=2)
+        kept = int((m_cpu > -1e29).sum())
+        print(f"[prng] sampler {_desc(params)} shape=(8, {VOCAB}) "
+              f"kept={kept} mask_entries_differing={differ} "
+              f"draws_card_equal_cpu={same} sample_ms={ms:.4f}", flush=True)
+
+
+def sampled_serve_phase(torch, np, card, greedy):
+    """Full-width gemma-2b (bf16) through the paged engine with sampling:
+    the serve phase's 16 requests for each setting, then the first setting
+    on int8 pages of 16 tokens; each drained twice with identical tokens,
+    K1 once a layer on every tick, the warm tick beside the greedy one."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import RuntimeFlags, build
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg = ARCHS["gemma-2b"]
+    bundle, params = load_model(torch, cfg)
+    int8 = build(cfg, RuntimeFlags(kv_dtype="int8"))
+    reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
+                         (0, 9, 12, 15), 32)
+    launches = {}
+    runs = [(b, p, {}, "bf16") for b, p in ((bundle, SAMPLINGS[0]),
+                                            (bundle, SAMPLINGS[1]))]
+    runs.append((int8, SAMPLINGS[0], dict(page_size=16), "int8"))
+    for b, sp, kw, kv in runs:
+        eng = timed_engine_class(torch, ServeEngine)(
+            b, params, 8, 1024, sampling=SamplingParams(**sp), seed=3, **kw)
+        toks = {}
+
+        def checks(run, eng=eng, toks=toks, sp=sp):
+            toks[run] = [list(r.out_tokens) for r in reqs]
+            check(bool(eng.keys.any()), "sampled serve: no key was set")
+            return (f" sampling='{_desc(sp)}' seed=3 "
+                    f"greedy_ms_per_decode_tick={greedy['tick_ms']:.3f} "
+                    f"greedy_tok_s={greedy['tok_s']:.1f}")
+
+        n, warm = serve_runs(torch, eng, reqs, "sampled serve", card,
+                             cfg.num_layers, pa, checks)
+        check(toks["first"] == toks["warm"], f"sampled serve {_desc(sp)} "
+              f"{kv}: two drains gave different tokens")
+        launches[f"sampled serve {kv} {_desc(sp)}"] = n
+        print(f"[sampled serve] kv={kv} sampling='{_desc(sp)}' "
+              f"first_equals_warm=True warm_ms_per_decode_tick="
+              f"{warm['tick_ms']:.3f} greedy_ms_per_decode_tick="
+              f"{greedy['tick_ms']:.3f} ratio="
+              f"{warm['tick_ms'] / greedy['tick_ms']:.3f} warm_tok_s="
+              f"{warm['tok_s']:.1f} greedy_tok_s={greedy['tok_s']:.1f}",
+              flush=True)
+        del eng
+    return launches
+
+
+def sampled_parity_phase(torch, np):
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.serve import Request
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg = override(ARCHS["gemma-2b"], num_layers=2, param_dtype="float32",
+                   compute_dtype="float32")
+    card_cpu_parity(
+        torch, np, cfg, None,
+        lambda: make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40), 17,
+                              (0, 4), 8),
+        "sampled parity", "arch=gemma-2b full width, 2 layers, float32, "
+        f"sampling='{_desc(SAMPLINGS[0])}' seed=3",
+        sampling=SamplingParams(**SAMPLINGS[0]))
+
+
+def spec_serve_phase(torch, np, card):
+    """Full-width gemma-2b in float32 (the verify pass and K1 round
+    differently in bf16, so only float32 can hold speculative tokens to
+    vanilla ones bit for bit; TF32 is off): the serve phase's first 8
+    requests (one batch) through the vanilla engine and speculative ones
+    with ``spec_k`` 3, greedy and sampled, drafting with the target itself
+    (every proposal accepted) and with weights from another seed (sampled,
+    it rejects proposals, so ``truncate`` rolls reservations back; greedy
+    random-weight models mostly repeat their input token and agree).
+    Tokens must equal vanilla, the pools conserve pages, and the
+    self-draft's accept rate is 1.0.  The draft's whole-prompt prefill
+    runs K2 (``attn_impl="pallas"``); the target's paged prefill and
+    verify gather pages as the reference does."""
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import RuntimeFlags
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = override(ARCHS["gemma-2b"], param_dtype="float32",
+                   compute_dtype="float32")
+    bundle, params = load_model(torch, cfg, RuntimeFlags(attn_impl="pallas"))
+    _, other = load_model(torch, cfg, seed=5)
+    reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
+                         (0, 9, 12, 15), 32)[:8]
+    timed = timed_engine_class(torch, ServeEngine)
+    for label, sp in (("greedy", {}), ("sampled", SAMPLINGS[0])):
+        sampling = SamplingParams(**sp)
+        vanilla = timed(bundle, params, 8, 1024, sampling=sampling, seed=3)
+        pa.reset_launches()
+        dt = drain(torch, vanilla, reqs)
+        want = [list(r.out_tokens) for r in reqs]
+        vst = vanilla.stats
+        check(pa.LAUNCHES == cfg.num_layers * vst.decode_steps > 0,
+              f"spec serve vanilla {label}: K1 did not run every tick")
+        print(f"[spec serve] card='{card}' engine=vanilla sampling="
+              f"'{label}' tokens_out={vst.tokens_out} seconds={dt:.3f} "
+              f"decode_steps={vst.decode_steps} ms_per_decode_tick="
+              f"{1e3 * vanilla.decode_s / vst.decode_steps:.3f} "
+              f"k1_launches={pa.LAUNCHES}", flush=True)
+        del vanilla
+        for draft, dparams in (("self", params), ("seed-5", other)):
+            eng = timed(bundle, params, 8, 1024, sampling=sampling, seed=3,
+                        draft_bundle=bundle, draft_params=dparams, spec_k=3)
+            pa.reset_launches()
+            fa.reset_launches()
+            dt = drain(torch, eng, reqs)
+            got = [list(r.out_tokens) for r in reqs]
+            st, a = eng.stats, eng.alloc
+            check(got == want, f"spec serve {label} draft={draft}: tokens "
+                  "differ from vanilla")
+            check(st.spec_steps > 0 and st.draft_tokens > 0,
+                  f"spec serve {label} draft={draft}: no speculative round")
+            check(fa.LAUNCHES == cfg.num_layers * st.prefills,
+                  f"spec serve {label} draft={draft}: K2 launches "
+                  f"{fa.LAUNCHES} != {cfg.num_layers} x {st.prefills} "
+                  "draft prefills")
+            if draft == "self":
+                check(st.accept_rate == 1.0, f"spec serve {label}: the "
+                      f"self-draft accepted {st.accept_rate}")
+            elif label == "sampled":
+                check(st.draft_accepted < st.draft_tokens,
+                      f"spec serve {label} draft={draft}: no proposal was "
+                      "rejected, so no rollback ran")
+            check(not a.tables and a.pages_in_use + len(a.free)
+                  == a.num_pages - a.reserved
+                  and all(r >= 1 for r in a.ref.values()),
+                  f"spec serve {label} draft={draft}: pages not conserved")
+            print(f"[spec serve] card='{card}' engine=spec draft={draft} "
+                  f"spec_k={eng.spec_k} sampling='{label}' "
+                  f"tokens_equal_vanilla=True tokens_out={st.tokens_out} "
+                  f"seconds={dt:.3f} spec_steps={st.spec_steps} "
+                  f"draft_tokens={st.draft_tokens} "
+                  f"draft_accepted={st.draft_accepted} "
+                  f"rejected={st.draft_tokens - st.draft_accepted} "
+                  f"accept_rate={st.accept_rate:.4f} "
+                  f"accepted_per_step={st.accepted_per_step:.3f} "
+                  f"ms_per_round={1e3 * eng.decode_s / st.spec_steps:.3f} "
+                  f"ms_per_prefill_chunk="
+                  f"{1e3 * eng.prefill_s / st.prefill_chunks:.3f} "
+                  f"(draft prefills included) pages_conserved=True "
+                  f"k1_launches={pa.LAUNCHES} k2_launches={fa.LAUNCHES}",
+                  flush=True)
+            del eng
+
+
+BENCH_SWEEPS = ("serve", "kernel_plan", "paged_serve", "spec_serve")
 
 
 def bench_serve_phase(torch, card):
@@ -2027,7 +2286,7 @@ def main():
                  GLOBAL_GEOMETRY),
                 ("gemma-2b-int8-drain", drain, INT8_GEOMETRY),
                 ("gemma-2b-int8-full", [1024] * 8, INT8_GEOMETRY))]
-        launches = serve_phase(torch, np, card)
+        launches, greedy = serve_phase(torch, np, card)
         parity_phase(torch, np)
         gc.collect()                 # the gemma-2b engine and weights go
         torch.cuda.empty_cache()
@@ -2079,6 +2338,16 @@ def main():
         int8_parity_phase(torch, np)
         gc.collect()
         torch.cuda.empty_cache()
+        prng_phase(torch, np, card)
+        sampled_launches = sampled_serve_phase(torch, np, card, greedy)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sampled_parity_phase(torch, np)
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec_serve_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
         bench_serve_phase(torch, card)
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
@@ -2089,7 +2358,8 @@ def main():
               launches=launches, max_abs_err=err, **timing,
               launches_by_path={"serve": launches,
                                 "ring serve": ring_launches,
-                                "int8 serve": int8_launches},
+                                "int8 serve": int8_launches,
+                                **sampled_launches},
               timed=k1_timed)
     k2 = dict(name="flash_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/flash_attention.cu",

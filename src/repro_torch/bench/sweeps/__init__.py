@@ -1,7 +1,7 @@
 """The ported sweeps — one module per paper table/figure, then the serving
-sweeps (``serve`` and ``kernel_plan``, ``paged_serve``), registered in the
-reference's order (``repro.bench.sweeps``).  Importing this package
-populates :data:`repro_torch.bench.registry.REGISTRY`.
+sweeps (``serve`` and ``kernel_plan``, ``paged_serve``, ``spec_serve``),
+registered in the reference's order (``repro.bench.sweeps``).  Importing
+this package populates :data:`repro_torch.bench.registry.REGISTRY`.
 
 Every sweep keeps the reference's rows at ``fast`` (names, patterns, knobs
 and bytes moved; the CPU tests compare them) and runs at the card's own
@@ -10,10 +10,10 @@ times the card's 50 MiB L2, or the card would measure its cache.
 """
 from repro_torch.bench.sweeps import (  # noqa: F401  (import order == run order)
     latency, outstanding, unit_size, stride, burst, num_kernels,
-    random_access, serve, paged_serve,
+    random_access, serve, paged_serve, spec_serve,
 )
 
 __all__ = [
     "latency", "outstanding", "unit_size", "stride", "burst", "num_kernels",
-    "random_access", "serve", "paged_serve",
+    "random_access", "serve", "paged_serve", "spec_serve",
 ]

@@ -65,6 +65,12 @@ class ModelBundle:
                                                cache, tokens, pos, table,
                                                chunk_valid)
 
+    def paged_verify(self, params, cache, tokens, pos, table, chunk_valid,
+                     plan=None):
+        return transformer.paged_verify(params, self.cfg, self.flags, cache,
+                                        tokens, pos, table, chunk_valid,
+                                        plan)
+
 
 def build(cfg: ModelConfig, flags: Optional[RuntimeFlags] = None,
           device: Optional[str] = None) -> ModelBundle:

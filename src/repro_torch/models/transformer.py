@@ -16,6 +16,8 @@ The port of ``repro.models.transformer`` for these stacks, four modes:
   k/v through the page table, then attends over the gathered pages with
   :func:`~repro_torch.models.attention.paged_gather_attention`; a windowed
   layer attends over its ring's gathered pages *before* it writes;
+  :func:`paged_verify` runs the same mode over a speculative burst and
+  returns logits at every position;
 - ``paged_decode`` (:func:`paged_decode_step`): one token per slot writes
   through the table, then every attention layer runs the
   ``paged_attention`` kernel (K1, :mod:`repro_torch.kernels.ops`) with the
@@ -576,3 +578,28 @@ def paged_prefill_chunk(params, cfg: ModelConfig, flags: RuntimeFlags,
     idx = chunk_valid.reshape(-1).long().expand(bsz) - 1
     last = x[torch.arange(bsz, device=x.device), idx][:, None]
     return cache, compute_logits(params, cfg, last)[:, 0]
+
+
+@torch.no_grad()
+def paged_verify(params, cfg: ModelConfig, flags: RuntimeFlags, cache: dict,
+                 tokens, pos, table, chunk_valid, plan=None):
+    """Speculative k-token verification: one ``paged_extend`` pass.
+
+    ``tokens`` (B, C) is ``[pending, draft_0 .. draft_{C-2}]`` per slot at
+    absolute offset ``pos`` (B,); ``chunk_valid`` (B,) caps how many
+    positions each slot writes (the rest go to the null page, as in
+    chunked prefill).  Unlike :func:`paged_prefill_chunk` it returns the
+    logits at every position, (B, C, V): query i attends rows ``<= pos +
+    i`` of the gathered pages, so row i's logits are what
+    :func:`paged_decode_step` gives after the same prefix.  ``plan`` is
+    the engine's verify plan (``bq`` the width, ``bkv`` the pool's page);
+    it must describe the pool read.  Returns (cache, logits)."""
+    # every pool leaf is (..., P, page, Hkv, D)
+    page = next(layer["k_pages"].shape[-3] for part in ("blocks", "rem")
+                for layer in cache[part].values())
+    if plan is not None and plan.page_size != page:
+        raise ValueError(f"verify plan pages of {plan.page_size} tokens, "
+                         f"the pool's hold {page}")
+    x, cache = forward(params, cfg, flags, tokens, "paged_extend", cache, pos,
+                       table, chunk_valid)
+    return cache, compute_logits(params, cfg, x)

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over a dense or a paged KV cache,
-greedy.
+greedy or sampled, with speculative draft->verify decoding.
 
 The port of ``repro.serve.engine.ServeEngine`` with its two backends:
 slot-based scheduling over a fixed decode batch, each slot one request at
@@ -32,12 +32,29 @@ windowed layers, as in the reference.  ``kv_dtype="int8"`` stores int8
 pools with float32 scale lanes, and its derived page holds as many tokens
 as the int8 row width allows.
 
-Not ported yet: preemption and the host tier, speculative decoding,
-sampling beyond greedy, tensor/data parallelism, CUDA-graph capture of the
+Token selection is greedy argmax by default, or temperature/top-k/top-p
+sampling (``sampling``) with per-slot threefry keys bit-exact with JAX's
+(:mod:`repro_torch.serve.prng`): a slot's key is ``fold_in(PRNGKey(seed),
+rid)`` from admission and splits once per emitted token, on the engine's
+device; masked slots keep their key, and a greedy engine touches none.
+
+Speculative decoding (``draft_bundle``) rides the paged backend: a draft
+model proposes ``spec_k`` tokens per round from a dense per-slot cache,
+the target verifies all of them in one ``paged_verify`` pass over the page
+tables, and each slot emits the longest prefix of proposals equal to the
+target's own draws plus the target's next draw.  Both models draw with the
+subkeys the vanilla loop would use (coupled sampling), so the emitted
+tokens and the carried keys are those of vanilla decoding, greedy and
+sampled; the draft changes only how many tokens a round emits.  Rejected
+suffixes roll back the page reservations (:meth:`PageAllocator.truncate`).
+
+Not ported yet: preemption and the host tier (with the key replay a
+resumed request needs), tensor/data parallelism, CUDA-graph capture of the
 decode window.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -50,7 +67,11 @@ from repro_torch.models.registry import ModelBundle
 from repro_torch.models.transformer import SENTINEL
 from repro_torch.serve.kvcache import (PageAllocator, PoolExhausted,
                                        PrefixIndex, page_hashes)
-from repro_torch.serve.sampling import select_greedy
+from repro_torch.serve import prng
+from repro_torch.serve.sampling import (GREEDY, SamplingParams, sample_tokens,
+                                        select_greedy, split_keys,
+                                        subkey_chain)
+from repro_torch.tune import plan_for
 from repro_torch.tune.plan import derive_paged_plan, next_pow2
 
 
@@ -80,10 +101,23 @@ class ServeStats:
     ring_pages_peak: int = 0         # peak ring-pool pages_in_use (windowed)
     ring_pages_reused: int = 0       # ring pages rotated and reused in place
     pool_stalls: int = 0             # admissions deferred by PoolExhausted
+    spec_steps: int = 0              # draft->verify rounds
+    draft_tokens: int = 0            # draft tokens proposed to the verifier
+    draft_accepted: int = 0          # proposals equal to the coupled draw
+
+    @property
+    def accept_rate(self) -> float:
+        """Fraction of proposed draft tokens the target accepted."""
+        return self.draft_accepted / max(1, self.draft_tokens)
+
+    @property
+    def accepted_per_step(self) -> float:
+        """Accepted draft tokens per verify round, summed over slots."""
+        return self.draft_accepted / max(1, self.spec_steps)
 
 
 class ServeEngine:
-    """Continuous-batching engine over a dense or paged KV cache, greedy.
+    """Continuous-batching engine over a dense or paged KV cache.
 
     ``window`` is the decode window: ``run_to_completion`` advances every
     active slot up to ``window`` tokens per host sync.  ``bucket_prompts``
@@ -101,7 +135,14 @@ class ServeEngine:
     windowed layers' ring pool at ``batch x (ceil(window/page)+1)`` pages
     plus the null page, the bound however long windowed sequences run.
     ``prefill_chunk`` caps prompt tokens per prefill step.  ``device`` is
-    ``cuda`` unless named; it must be the bundle's device."""
+    ``cuda`` unless named; it must be the bundle's device.
+
+    ``sampling`` (default greedy) picks tokens; ``seed`` roots the per-slot
+    keys.  ``draft_bundle``/``draft_params`` (a pure full-attention decoder
+    sharing the target's vocab, on the engine's device) switch the paged
+    backend's ``decode_many`` to draft->verify rounds of ``spec_k``
+    proposals each; the target must be a pure full-attention stack, since a
+    ring cannot roll back a rejected suffix."""
 
     def __init__(self, bundle: ModelBundle, params, batch_size: int,
                  max_len: int, *, window: int = 8,
@@ -111,11 +152,21 @@ class ServeEngine:
                  num_pages: Optional[int] = None,
                  num_ring_pages: Optional[int] = None,
                  prefill_chunk: int = 32,
+                 sampling: Optional[SamplingParams] = None,
+                 seed: int = 0,
+                 draft_bundle: Optional[ModelBundle] = None,
+                 draft_params=None,
+                 spec_k: int = 4,
                  device: Optional[str] = None):
         self.device = resolve_device(device)
         if bundle.device != self.device:
             raise ValueError(f"the bundle runs on {bundle.device}, the "
                              f"engine on {self.device}")
+        self.sampling = sampling or GREEDY
+        self._base_key = prng.prng_key(seed, self.device)
+        self.draft = draft_bundle
+        self.draft_params = draft_params
+        self.spec_k = max(1, spec_k)
         if cache_backend is None:
             cache_backend = "paged" if bundle.paged_supported() else "dense"
         elif cache_backend not in ("dense", "paged"):
@@ -159,15 +210,58 @@ class ServeEngine:
             # prefix pages are reusable only when every layer reads them:
             # a ring rotates prefix tokens away
             self.prefix_sharing = self.has_full and not windows
+        if draft_bundle is not None:
+            self._init_spec(draft_bundle)
         # prefill shapes met so far (dense prompt buckets, paged chunk
         # buckets); survives reset(), as the reference's compiled shapes do
         self._seen_prefill_shapes: set = set()
         self._init_state()
 
+    def _init_spec(self, draft: ModelBundle) -> None:
+        """Validate the speculative draft and pin the verify step's plan."""
+        cfg = self.bundle.cfg
+        if self.draft_params is None:
+            raise ValueError("draft_bundle needs draft_params")
+        if self.backend != "paged":
+            raise ValueError(
+                "speculative decoding rides the paged fast path; "
+                "cache_backend='paged' is required")
+        if not (self.has_full and self.attn_window is None):
+            raise ValueError(
+                f"{cfg.name}: speculative verify needs suffix rollback, "
+                "which only pure full-attention page tables support (ring "
+                "rotation overwrites history and recurrent state cannot "
+                "rewind)")
+        if draft.cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft.cfg.vocab_size} != target vocab "
+                f"{cfg.vocab_size}: proposals must share the token space")
+        if not self._bucketable(draft.cfg):
+            raise ValueError(
+                f"{draft.cfg.name}: the draft must be a pure full-attention "
+                "decoder: its rollback is a position rewind over a dense "
+                "cache, which windows cannot mask")
+        if draft.device != self.device:
+            raise ValueError(f"the draft runs on {draft.device}, the engine "
+                             f"on {self.device}")
+        vplan = plan_for("paged_verify",
+                         shape_sig=(self.spec_k + 1, self.max_len,
+                                    cfg.resolved_head_dim),
+                         dtype=self.kv_store_dtype)
+        # the verify step reads the pool the engine laid out: an explicit
+        # page_size must reach its plan too
+        self.vplan = (vplan if vplan.page_size == self.page
+                      else dataclasses.replace(vplan, bkv=self.page))
+
     def _init_state(self) -> None:
         dev = self.device
         self.pos = torch.zeros((self.bsz,), dtype=torch.int32, device=dev)
         self.tokens = torch.zeros((self.bsz, 1), dtype=torch.int64, device=dev)
+        # per-slot keys: set at admission from (seed, rid), split once per
+        # emitted token; a greedy engine leaves them zero
+        self.keys = torch.zeros((self.bsz, 2), dtype=torch.int64, device=dev)
+        if self.draft is not None:
+            self.draft_cache = self.draft.init_cache(self.bsz, self.max_len)
         self._hpos = np.zeros((self.bsz,), np.int64)       # host mirror
         self.slots: List[Optional[Request]] = [None] * self.bsz
         self.queue: List[Request] = []
@@ -195,10 +289,10 @@ class ServeEngine:
         self._hashes: Dict[int, List[str]] = {}  # rid -> full-page hashes
 
     def reset(self) -> None:
-        """Clear all serving state: cache, pool, prefix index, slots, queue
-        and stats (benchmarks drain once to warm up, reset, then time a
-        steady-state drain).  The prefill shapes already met stay met, so
-        a warm drain counts only new ones."""
+        """Clear all serving state: cache, pool, prefix index, slots, queue,
+        stats, keys and the draft's cache (benchmarks drain once to warm
+        up, reset, then time a steady-state drain).  The prefill shapes
+        already met stay met, so a warm drain counts only new ones."""
         self._init_state()
 
     def _sync_table(self) -> None:
@@ -290,6 +384,39 @@ class ServeEngine:
             self.stats.ring_pages_reused = self.ralloc.reused
 
     # ------------------------------------------------------------------
+    # sampling state
+    # ------------------------------------------------------------------
+    def _assign_key(self, slot: int, req: Request) -> None:
+        """Pin the slot's key to the request: ``fold_in(PRNGKey(seed),
+        rid)``, whatever slot it landed in or what ran there before."""
+        if self.sampling.greedy:
+            return                    # greedy never touches a key
+        self.keys[slot] = prng.fold_in(self._base_key, req.rid)
+
+    def _seed_token(self, slot: int, logits) -> int:
+        """The first decode token from the prefill's (1, V) logits, drawn
+        with the same one-split-per-token chain the decode loop
+        continues."""
+        if self.sampling.greedy:
+            return int(select_greedy(logits)[0])
+        nk, sub = split_keys(self.keys[slot:slot + 1])
+        tok = sample_tokens(sub, logits, self.sampling)
+        self.keys[slot] = nk[0]
+        return int(tok[0])
+
+    def _select_next(self, logits, act):
+        """One in-window token selection: greedy argmax (keys untouched)
+        or one split and draw per slot, where masked slots keep their key,
+        so a frozen slot replays identically however many masked ticks
+        pass over it."""
+        if self.sampling.greedy:
+            return select_greedy(logits)
+        nk, sub = split_keys(self.keys)
+        nxt = sample_tokens(sub, logits, self.sampling)
+        self.keys = torch.where(act[:, None], nk, self.keys)
+        return nxt
+
+    # ------------------------------------------------------------------
     # dense prefill (whole prompt, one step)
     # ------------------------------------------------------------------
     @staticmethod
@@ -336,7 +463,8 @@ class ServeEngine:
         self.slots[slot] = req
         self.pos[slot] = s
         self._hpos[slot] = s
-        tok0 = int(select_greedy(logits)[0])
+        self._assign_key(slot, req)
+        tok0 = self._seed_token(slot, logits)
         req.out_tokens.append(tok0)
         self.stats.prompt_tokens += s
         self.stats.tokens_out += 1
@@ -458,11 +586,31 @@ class ServeEngine:
         self._table_dirty = True
         self.pos[slot] = s
         self._hpos[slot] = s
-        tok0 = int(select_greedy(logits)[0])
+        self._assign_key(slot, req)
+        tok0 = self._seed_token(slot, logits)
         req.out_tokens.append(tok0)
         self.stats.tokens_out += 1
         self.tokens[slot, 0] = tok0
+        if self.draft is not None:
+            self._draft_prefill_slot(slot, req)
         self.stats.prefills += 1
+
+    def _draft_prefill_slot(self, slot: int, req: Request) -> None:
+        """Build the draft's dense cache rows for a freshly prefilled slot.
+        The draft is pure full attention, so the prompt pads to a power of
+        two (the padded tail is masked by ``valid_len``)."""
+        s = int(req.prompt.shape[0])
+        bucket = min(next_pow2(max(8, s)), self.max_len)
+        if ("draft", bucket) not in self._seen_prefill_shapes:
+            self._seen_prefill_shapes.add(("draft", bucket))
+            self.stats.prefill_retraces += 1
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :s] = req.prompt
+        dcache1, _ = self.draft.prefill(
+            self.draft_params, dict(tokens=torch.as_tensor(padded).to(
+                self.device), valid_len=s))
+        self.draft_cache = self._scatter_slot_cache(self.draft_cache,
+                                                    dcache1, slot)
 
     def _admit(self) -> None:
         """FIFO admission into free slots.  Dense: each admitted prompt is
@@ -557,7 +705,7 @@ class ServeEngine:
                 logits, self.cache = self.bundle.paged_decode_step(
                     self.params, self.cache, self.tokens, self.pos,
                     self._table)
-            nxt = select_greedy(logits)
+            nxt = self._select_next(logits, act)
             self.tokens = torch.where(act[:, None], nxt[:, None], self.tokens)
             self.pos = torch.where(act, self.pos + 1, self.pos)
             out[i] = torch.where(act, nxt, -1)
@@ -566,7 +714,11 @@ class ServeEngine:
     def decode_many(self, n: int) -> int:
         """Run up to ``n`` decode ticks as one window (per-slot budgets
         masked on the device), then read the token block back with a single
-        host sync.  Returns the number of tokens produced."""
+        host sync.  With a draft model the window is one speculative
+        draft->verify round instead, emitting up to ``spec_k + 1`` tokens a
+        slot.  Returns the number of tokens produced."""
+        if self.draft is not None:
+            n = min(n, self.spec_k + 1)
         budgets = self._budgets(n)
         blocked = (self._reserve_window_pages(budgets)
                    if self.backend == "paged"
@@ -597,6 +749,8 @@ class ServeEngine:
                     live_pages=sum(a.pages_in_use for a in pools),
                     free_pages=sum(len(a.free) for a in pools))
             return 0
+        if self.draft is not None:
+            return self._spec_dispatch(budgets)
         n_run = min(n, next_pow2(top))
         if self.backend == "paged" and self._table_dirty:
             self._sync_table()
@@ -619,6 +773,107 @@ class ServeEngine:
                 self._release_finished(i)
         self.stats.tokens_out += produced
         return produced
+
+    def _spec_dispatch(self, budgets: np.ndarray) -> int:
+        """One speculative round (:meth:`_spec_decode_many`), read back with
+        one host sync; each slot advances by its emitted count, and its
+        page reservation, which ran ahead to ``hpos + budget``, is
+        truncated to what it emitted (pages holding only rejected rows
+        return to the pool; shared prefix pages are only dereferenced)."""
+        if self._table_dirty:
+            self._sync_table()
+        steps = torch.as_tensor(budgets.astype(np.int32)).to(self.device)
+        out, meta = self._spec_decode_many(steps)
+        # a round advances every unblocked slot by at least one token, so a
+        # round counts as one tick for progress accounting
+        self.stats.decode_steps += 1
+        self.stats.decode_dispatches += 1
+        self.stats.spec_steps += 1
+
+        host = torch.cat([out, meta.T], dim=1).cpu().numpy()  # one sync
+        k1 = self.spec_k + 1
+        produced = 0
+        for i, req in enumerate(self.slots):
+            if req is None or i in self._pending or budgets[i] == 0:
+                continue
+            emitted, accepted, proposed = (int(x) for x in host[i, k1:])
+            req.out_tokens.extend(int(t) for t in host[i, :emitted])
+            self._hpos[i] += emitted
+            produced += emitted
+            self.stats.draft_tokens += proposed
+            self.stats.draft_accepted += accepted
+            self.alloc.truncate(req.rid, int(self._hpos[i]))
+            if req.done or self._hpos[i] >= self.max_len - 1:
+                self._release_finished(i)
+        self.stats.tokens_out += produced
+        return produced
+
+    def _spec_decode_many(self, steps: torch.Tensor):
+        """One speculative round on the device.
+
+        The draft proposes ``k`` tokens from its dense cache, plus one step
+        that only lands ``d_{k-1}``'s row; the target verifies ``[pending,
+        d_0 .. d_{k-1}]`` in one ``paged_verify`` pass (logits at every
+        position).  Both draw with the subkeys the vanilla loop would use
+        (one split per emitted token), a proposal is accepted while it
+        equals the target's draw, and the emitted tokens are always the
+        target's: the longest matching prefix, then the target's next
+        draw.  Keys advance to ``carried[:, m]`` after m tokens, as m
+        vanilla ticks would leave them.
+
+        steps (B,) budgets each slot's emission (0 = frozen).  Returns
+        (out (B, k+1) int64, emitted tokens left-packed and -1 past the
+        count; meta (3, B) int64: emitted, accepted drafts, proposed)."""
+        k, bsz, sp = self.spec_k, self.bsz, self.sampling
+        cv = torch.clamp(steps, 0, k + 1)          # verify width per slot
+        act = steps > 0
+        if not sp.greedy:
+            subs, carried = subkey_chain(self.keys, k + 1)
+
+        # the draft's positions stop at the last cache row: a step past it
+        # only proposes for positions no budget reaches, and its write lands
+        # on a row nothing reachable reads
+        tok, drafts = self.tokens, []
+        for i in range(k + 1):
+            dpos = torch.clamp(self.pos + i, max=self.max_len - 1)
+            dlogits, self.draft_cache = self.draft.decode_step(
+                self.draft_params, self.draft_cache, tok, dpos)
+            if i == k:
+                break
+            d = (select_greedy(dlogits) if sp.greedy
+                 else sample_tokens(subs[:, i], dlogits, sp))
+            drafts.append(d)
+            tok = d[:, None]
+        drafts = torch.stack(drafts, dim=1)         # (B, k)
+
+        verify = torch.cat([self.tokens, drafts], dim=1)     # (B, k+1)
+        self.cache, logits = self.bundle.paged_verify(
+            self.params, self.cache, verify, self.pos, self._table, cv,
+            self.vplan)                                      # (B, k+1, V)
+        if sp.greedy:
+            tsamp = select_greedy(logits)
+        else:
+            tsamp = sample_tokens(subs.reshape(-1, 2),
+                                  logits.reshape(bsz * (k + 1), -1),
+                                  sp).reshape(bsz, k + 1)
+
+        # the matching prefix's length: the first miss, or k
+        j = torch.cumprod((drafts == tsamp[:, :k]).to(torch.int64),
+                          dim=1).sum(dim=1)
+        m = torch.where(act, torch.minimum(j + 1, cv.to(torch.int64)), 0)
+        emit = (torch.arange(k + 1, device=self.device)[None, :]
+                < m[:, None])
+        out = torch.where(emit, tsamp, -1)
+        last = torch.gather(tsamp, 1, torch.clamp(m - 1, min=0)[:, None])
+        self.tokens = torch.where((m > 0)[:, None], last, self.tokens)
+        self.pos = self.pos + m.to(self.pos.dtype)
+        if not sp.greedy:
+            nk = torch.gather(carried, 1,
+                              m[:, None, None].expand(bsz, 1, 2))[:, 0]
+            self.keys = torch.where(act[:, None], nk, self.keys)
+        acc = torch.minimum(m, j)                  # the bonus isn't a draft
+        prop = torch.where(act, k, 0)
+        return out, torch.stack([m, acc, prop])
 
     def _release_finished(self, i: int) -> None:
         """Retire slot ``i``.  Paged: its pages go back to the pool at once

@@ -246,6 +246,31 @@ class PageAllocator:
         self.alloc(dst)
         self.attach(dst, list(self.tables[src]), self.lengths[src])
 
+    def truncate(self, rid: int, new_len: int) -> List[int]:
+        """Roll ``rid`` back to ``new_len`` tokens (speculative rejection):
+        trailing pages wholly past the new length are dereferenced, freed
+        only when this was their last reference (a shared page is detached,
+        never mutated: its stale tail rows are masked by the valid length).
+        A ring rotates in place, so only its length rewinds.  Returns the
+        page ids returned to the free list."""
+        old = self.lengths[rid]
+        if new_len > old:
+            raise ValueError(
+                f"truncate of rid {rid} to {new_len} exceeds its current "
+                f"length {old}")
+        freed: List[int] = []
+        if self.ring_slots is None:
+            table = self.tables[rid]
+            keep = -(-new_len // self.page_size)
+            while len(table) > keep:
+                pid = table.pop()
+                self.ref[pid] -= 1
+                if self.ref[pid] == 0:
+                    self._free_page(pid)
+                    freed.append(pid)
+        self.lengths[rid] = new_len
+        return freed
+
     def release(self, rid: int) -> None:
         """Drop the request's pages; a page returns to the sorted free list
         when its last reference goes.  Unknown or double release raises."""

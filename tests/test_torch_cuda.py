@@ -995,3 +995,131 @@ def test_flash_bf16_rows_without_a_key_are_exactly_zero(cuda, d):
 def test_flash_bf16_block_fits_an_sm(cuda, d):
     """The block's registers and shared memory let at least one reside."""
     assert fa.occupancy(d) >= 1
+
+
+# ---------------------------------------------------------------------------
+# sampling and speculative decoding on the card (plain torch ops there)
+# ---------------------------------------------------------------------------
+
+def _same_on_card(fn, cuda, *cpu_args):
+    got = fn(*(a.to(cuda) for a in cpu_args))
+    want = fn(*cpu_args)
+    return got.cpu(), want
+
+
+@pytest.mark.cuda
+def test_threefry_keys_and_bits_card_equal_cpu(cuda):
+    from repro_torch.serve import prng
+    from repro_torch.serve.sampling import subkey_chain
+
+    keys = prng.split(prng.prng_key(3), 8)
+    for fn in (lambda k: prng.random_bits(k, (256000,)),
+               lambda k: prng.split(k, 3),
+               lambda k: prng.fold_in(k, 12345),
+               lambda k: torch.cat(subkey_chain(k, 4), dim=1),
+               lambda k: prng.uniform(k, (256000,)).view(torch.int32)):
+        got, want = _same_on_card(fn, cuda, keys)
+        assert torch.equal(got, want)
+    got, want = _same_on_card(lambda k: prng.gumbel(k, (256000,)), cuda,
+                              keys)
+    unit = torch.clamp(want.abs(), min=1.0).double() * 2.0 ** -23
+    assert ((got.double() - want.double()).abs() / unit).max() <= 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [dict(temperature=0.9, top_p=0.95),
+                                    dict(temperature=0.8, top_k=50)])
+def test_vocab_wide_draws_card_equal_cpu(cuda, params):
+    from repro_torch.serve import prng
+    from repro_torch.serve.sampling import SamplingParams, sample_tokens
+
+    sp = SamplingParams(**params)
+    logits = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (8, 256000)) * 4).astype(np.float32))
+    for seed in range(4):
+        keys = prng.split(prng.prng_key(seed), 8)
+        got, want = _same_on_card(
+            lambda k, l: sample_tokens(k, l, sp), cuda, keys, logits)
+        assert torch.equal(got, want)
+
+
+def _smoke_serving(seed):
+    """Smoke gemma-2b bundles on the CPU and the card with the same
+    float32 weights, drawn on the CPU from a seeded generator."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import build
+
+    cfg = smoke_config(ARCHS["gemma-2b"])
+    cpu = build(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(seed))
+    card = build(cfg, device="cuda")
+    return cpu, params, card, _tree_to(params, "cuda")
+
+
+def _tree_to(tree, device):
+    return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in tree.items()}
+
+
+def _drain(eng, seed=4):
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, 256, size=n).astype(
+        np.int32), max_new_tokens=m)
+        for i, (n, m) in enumerate(zip([5, 19, 11, 27, 8], [9, 5, 12, 7, 1]))]
+    for r in reqs:
+        eng.add_request(r)
+    eng.run_to_completion()
+    return [r.out_tokens for r in reqs]
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["native", "int8"])
+def test_sampled_drain_card_equals_cpu(cuda, no_tf32, kv):
+    from repro_torch.models import RuntimeFlags, build
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    cpu, params, card, cparams = _smoke_serving(0)
+    flags = RuntimeFlags(kv_dtype=kv)
+    cpu, card = build(cpu.cfg, flags, "cpu"), build(card.cfg, flags, "cuda")
+    sp = SamplingParams(temperature=0.9, top_p=0.95)
+    outs, keys = [], []
+    for bundle, p, dev in ((cpu, params, "cpu"), (card, cparams, "cuda")):
+        eng = ServeEngine(bundle, p, 2, 64, prefill_chunk=8, sampling=sp,
+                          seed=3, device=dev)
+        outs.append(_drain(eng))
+        keys.append(eng.keys.cpu())
+    assert outs[0] == outs[1]
+    assert torch.equal(keys[0], keys[1]) and keys[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", [{}, dict(temperature=0.9, top_p=0.95)])
+def test_spec_drain_equals_vanilla_on_the_card(cuda, no_tf32, sampling):
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    _, _, card, params = _smoke_serving(0)
+    _, _, _, dparams = _smoke_serving(1)          # a draft from another seed
+    sp = SamplingParams(**sampling)
+    vanilla = ServeEngine(card, params, 2, 64, prefill_chunk=8, sampling=sp,
+                          seed=3)
+    spec = ServeEngine(card, params, 2, 64, prefill_chunk=8, sampling=sp,
+                       seed=3, draft_bundle=card, draft_params=dparams,
+                       spec_k=3)
+    assert _drain(spec) == _drain(vanilla)
+    st = spec.stats
+    assert st.spec_steps > 0 and 0 <= st.draft_accepted <= st.draft_tokens
+    a = spec.alloc
+    assert a.pages_in_use + len(a.free) == a.num_pages - a.reserved
+    assert all(r >= 1 for r in a.ref.values())

@@ -82,8 +82,23 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    must be the slowest random-access row, no row may read above 105% of
    3.35 TB/s, and each of K4-K7 must have launched;
 14. calibrate: the memory model's latency and bandwidth fitted to those
-   rows, beside the spec's;
-15. tune: the closed tune -> plan -> execute loop.  Plans for K3
+   rows at the knobs the card ran (each row's kernel geometry: loads in
+   flight on the whole card, 32-byte sectors, K5's stride of 1), beside
+   the spec's and beside the fit at the rows' own knobs (the earlier fit);
+   the fitted T_l must lie within 0.5-2x the median HBM ns/hop of the
+   latency rows and the fitted bandwidth within 0.5-1.05x 3.35 TB/s;
+15. paper tables: the ``database`` (Table 9), ``conv`` (Table 10) and
+   ``roofline`` sweeps at card scale (a 1 GiB table, attention over 256
+   MiB of K and of V, the paper's 1920x1080 image, the analytic roofline
+   of all ten architectures): no sweep may fail, every row with memory
+   traffic must read above 0 and at most 105% of 3.35 TB/s, and the fused
+   convolution must match numpy's on a 64x64 tile (float32, 1e-4); each
+   row's GB/s and working set against the 50 MiB L2 printed;
+16. advisor: ``render_report(advise_model(...))`` for gemma-2b decode_32k
+   and gemma2-27b train_4k under the H100's spec and under the fit: every
+   site predicts a bandwidth, and in measured mode carries a meas/pred
+   ratio;
+17. tune: the closed tune -> plan -> execute loop.  Plans for K3
    (``decode_attention``) at phi4-mini's and gemma-2b's dense-decode
    geometry (T 1024, D 128 and 256, bf16) and for K8 (``matmul``) at its
    two timed shapes, derived twice: under the H100's spec and under the
@@ -94,28 +109,28 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    output must match the plain version.  bf16 K8 maps every plan onto one
    of three fixed tiles (by M and the plan's bn), so its two caches check
    the plumbing, not a choice of tiles;
-16. K3: ``decode_attention`` against its plain version: phi4-mini's (24/8,
+18. K3: ``decode_attention`` against its plain version: phi4-mini's (24/8,
    D 128), gemma-2b's (8/1, D 256) and the reference test's (4/2, at D 64)
    geometry, T 100, 255 and 256, tiles of 32, 96 and 256 rows and the
    plan's, softcap 10, a valid length of 1, in float32 (1e-4) and bfloat16
    (3e-2, and within one bfloat16 rounding of the float32 plain version),
    each line naming the kernel configuration the plan's tiles map to
    (``kernel_config``); rows with a valid length of 0 must be exactly 0;
-17. K3 time at B 8, T 1024, bf16, the plan's tiles, at phi4-mini's 24/8
+19. K3 time at B 8, T 1024, bf16, the plan's tiles, at phi4-mini's 24/8
    heads (D 128) and gemma-2b's 8/1 (D 256), each beside its plain
    version, SDPA on the cache's transposed views with a boolean mask, and
    the roofline bound;
-18. K8: ``matmul`` against its plain version (TF32 off): the reference's
+20. K8: ``matmul`` against its plain version (TF32 off): the reference's
    (m, k, n) triples with blocks of 64 and 128, the plan's tiles at (96,
    100, 64), and the two timed shapes, in float32 (1e-4, the CUDA cores)
    and bfloat16 (2e-2, the tensor cores; at the timed shapes within one
    bfloat16 rounding of the float32 plain version plus the float32
    summation bound), each line naming the route and configuration it ran
    (tile, stages, staging by TMA or element by element);
-19. K8 time at 4096^3 and at (M, N, K) = (8, 8192, 3072), bf16, the plan's
+21. K8 time at 4096^3 and at (M, N, K) = (8, 8192, 3072), bf16, the plan's
    tiles and the kernel's configuration, beside its plain version,
    ``torch.matmul`` and the roofline bound;
-20. ring serve: full-width gemma2-27b (46 layers, 54.5 GB of bf16 weights
+22. ring serve: full-width gemma2-27b (46 layers, 54.5 GB of bf16 weights
    drawn on the card) through the paged engine, batch 4, max_len 8192,
    prefill chunks of 256: 8 requests (prompts of 4160 and 5120 tokens past
    the 4096 window, six of 64-512 with three sharing a 256-token prefix),
@@ -125,35 +140,36 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    within batch x ring_slots; prefix sharing stays off on a windowed
    stack, as in the reference.  A profiled decode window and prefill chunk
    follow;
-21. int8 serve: full-width gemma-2b with ``kv_dtype="int8"`` (pages of 16
+23. int8 serve: full-width gemma-2b with ``kv_dtype="int8"`` (pages of 16
    tokens, the bf16 page's bytes), the serve phase's 16 requests drained
    twice; every tick launches K1 once per layer on its tensor-core route
    with int8 pages;
-22. ring parity and int8 parity: gemma2-27b's (local, global) pair at its
+24. ring parity and int8 parity: gemma2-27b's (local, global) pair at its
    published widths (window narrowed to 32 so the ring turns in a short
    drain) and 2-layer gemma-2b with int8 KV, float32, drained on the card
    (K1) and on the CPU (plain path); the tokens must agree;
-23. prng: JAX's threefry keys and bits (``repro_torch.serve.prng``) at
+25. prng: JAX's threefry keys and bits (``repro_torch.serve.prng``) at
    (8, 256000) on the card exactly equal to the CPU's (bits, ``split``,
    ``fold_in``, ``subkey_chain``, ``uniform``), ``gumbel`` within 2 ulp;
    the sampler at gemma-2b's vocab for (temperature 0.9, top_p 0.95) and
    (temperature 0.8, top_k 50): masks, draws and times;
-24. sampled serve: full-width gemma-2b (bf16) through the paged engine
+26. sampled serve: full-width gemma-2b (bf16) through the paged engine
    with each sampling setting (keys seeded with 3), then the first on
-   int8 pages: the serve phase's 16 requests drained twice with identical
-   tokens, K1 once a layer on every tick, the warm tick beside the greedy
-   tick of phase 5;
-25. sampled parity: the parity phase's model and requests sampled with
+   int8 pages: the serve phase's 16 requests with the first setting, its
+   first 8 (one batch, the run's time) with the others, each drained twice
+   with identical tokens, K1 once a layer on every tick, the warm tick
+   beside the greedy tick of phase 5;
+27. sampled parity: the parity phase's model and requests sampled with
    (temperature 0.9, top_p 0.95) on the card and on the CPU: tokens and
    final keys must agree;
-26. spec serve: full-width gemma-2b in float32, the serve phase's first 8
+28. spec serve: full-width gemma-2b in float32, the serve phase's first 8
    requests through the vanilla engine and speculative engines (spec_k 3),
    greedy and sampled, drafting with the target itself and with weights
    from another seed (the draft's dense prefill through K2): tokens equal
    to vanilla, the self-draft's accept rate 1.0, the other draft's
    sampled proposals partly rejected, the pools conserve pages; rounds,
    accepted drafts per round and ms per round printed;
-27. bench serve: the ``serve``, ``kernel_plan``, ``paged_serve`` and
+29. bench serve: the ``serve``, ``kernel_plan``, ``paged_serve`` and
    ``spec_serve`` sweeps at card scale, twice, persisted under
    ``build/bench_serve``, then ``repro_torch.bench.compare`` between the
    two runs: every row and verdict printed, and ``--gate structural``
@@ -162,6 +178,8 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
+A ``[phase]`` line after each group of phases gives its seconds and the
+run's elapsed time.
 
 It ends with a ``[previous]`` line (K1's, K2's, K3's, K4's and K8's times
 before their redesign, and K1's int8 pages on the CUDA cores, as PERF.md
@@ -1292,9 +1310,11 @@ def prng_phase(torch, np, card):
 
 def sampled_serve_phase(torch, np, card, greedy):
     """Full-width gemma-2b (bf16) through the paged engine with sampling:
-    the serve phase's 16 requests for each setting, then the first setting
-    on int8 pages of 16 tokens; each drained twice with identical tokens,
-    K1 once a layer on every tick, the warm tick beside the greedy one."""
+    the serve phase's 16 requests with the first setting, its first 8 (one
+    batch, to keep the run inside its time) with the second and then with
+    the first setting on int8 pages of 16 tokens; each drained twice with
+    identical tokens, K1 once a layer on every tick, the warm tick beside
+    the greedy one."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import RuntimeFlags, build
@@ -1310,25 +1330,27 @@ def sampled_serve_phase(torch, np, card, greedy):
     runs = [(b, p, {}, "bf16") for b, p in ((bundle, SAMPLINGS[0]),
                                             (bundle, SAMPLINGS[1]))]
     runs.append((int8, SAMPLINGS[0], dict(page_size=16), "int8"))
-    for b, sp, kw, kv in runs:
+    for i, (b, sp, kw, kv) in enumerate(runs):
+        batch = reqs if i == 0 else reqs[:8]
         eng = timed_engine_class(torch, ServeEngine)(
             b, params, 8, 1024, sampling=SamplingParams(**sp), seed=3, **kw)
         toks = {}
 
-        def checks(run, eng=eng, toks=toks, sp=sp):
-            toks[run] = [list(r.out_tokens) for r in reqs]
+        def checks(run, eng=eng, toks=toks, sp=sp, batch=batch):
+            toks[run] = [list(r.out_tokens) for r in batch]
             check(bool(eng.keys.any()), "sampled serve: no key was set")
             return (f" sampling='{_desc(sp)}' seed=3 "
                     f"greedy_ms_per_decode_tick={greedy['tick_ms']:.3f} "
                     f"greedy_tok_s={greedy['tok_s']:.1f}")
 
-        n, warm = serve_runs(torch, eng, reqs, "sampled serve", card,
+        n, warm = serve_runs(torch, eng, batch, "sampled serve", card,
                              cfg.num_layers, pa, checks)
         check(toks["first"] == toks["warm"], f"sampled serve {_desc(sp)} "
               f"{kv}: two drains gave different tokens")
         launches[f"sampled serve {kv} {_desc(sp)}"] = n
         print(f"[sampled serve] kv={kv} sampling='{_desc(sp)}' "
-              f"first_equals_warm=True warm_ms_per_decode_tick="
+              f"requests={len(batch)} first_equals_warm=True "
+              f"warm_ms_per_decode_tick="
               f"{warm['tick_ms']:.3f} greedy_ms_per_decode_tick="
               f"{greedy['tick_ms']:.3f} ratio="
               f"{warm['tick_ms'] / greedy['tick_ms']:.3f} warm_tok_s="
@@ -1489,6 +1511,16 @@ def bench_serve_phase(torch, card):
 MEMORY_SWEEPS = ("latency", "outstanding", "unit_size", "stride", "burst",
                  "num_kernels", "random")
 PEAK_SHARE_LIMIT = 1.05            # no row may read above 105% of 3.35 TB/s
+# the calibration's gate: a fit whose knobs describe the card lands its T_l
+# near the chase's ns/hop and its bandwidth near the data sheet's
+FIT_LATENCY_RANGE = (0.5, 2.0)     # x the median HBM ns/hop
+FIT_BW_RANGE = (0.5, 1.05)         # x 3.35 TB/s
+# the fit's residual at the rows' own knobs before the rows carried the
+# kernels' geometry, as PERF.md records it (not measured in a run)
+PREVIOUS_RMS_LOG_ERROR = 2.449
+PAPER_SWEEPS = ("database", "conv", "roofline")
+CONV_TOL = 1e-4                    # float32, against numpy's window sum
+ADVISOR_CELLS = (("gemma-2b", "decode_32k"), ("gemma2-27b", "train_4k"))
 
 
 def exact(torch, tag, desc, got, want):
@@ -1802,20 +1834,130 @@ def memory_phase(torch, card, mods):
     return run, launches
 
 
-def calibrate_phase(run):
-    """Fits the memory model to the memory phase's rows; returns the fit."""
-    from repro_torch.bench import calibrate
+def calibrate_phase(run, card):
+    """Fits the memory model to the memory phase's rows at the knobs the
+    card ran (``bench.calibrate.card_knobs``) and gates the fit: T_l within
+    ``FIT_LATENCY_RANGE`` of the median HBM ns/hop the latency rows
+    measured, BW within ``FIT_BW_RANGE`` of 3.35 TB/s.  Beside it, the fit
+    of the same rows at their own knobs (the reference's, as the port
+    fitted them before).  Returns the fit."""
+    import dataclasses
+    from repro_torch.bench import BenchRun, calibrate
     from repro_torch.core.memmodel import H100
+    t0 = time.perf_counter()
     cal = calibrate(run=run)
-    print(f"[calibrate] samples={cal.n_samples} "
+    # without the kernels' geometry every row fits at its own knobs
+    own = calibrate(run=BenchRun(results=[
+        dataclasses.replace(r, extras={}) for r in run.results]))
+    seconds = time.perf_counter() - t0
+    hops = sorted(float(r.extras["ns_per_hop"]) for r in run.results
+                  if r.name.startswith("latency_region_"))
+    hop_ns = hops[len(hops) // 2]
+    lat_ratio = cal.spec.latency_s * 1e9 / hop_ns
+    bw_ratio = cal.spec.hbm_bw / HBM_BYTES_PER_S
+    print(f"[calibrate] card='{card}' samples={cal.n_samples} "
           f"fitted_latency_ns={cal.spec.latency_s * 1e9:.1f} "
-          f"spec_latency_ns={H100.latency_s * 1e9:.1f} "
+          f"hbm_ns_per_hop_median={hop_ns} latency_over_hop={lat_ratio:.3f} "
+          f"(gate {FIT_LATENCY_RANGE}) "
           f"fitted_hbm_GBps={cal.spec.hbm_bw / 1e9:.1f} "
+          f"bw_over_peak={bw_ratio:.3f} (gate {FIT_BW_RANGE}) "
+          f"spec_latency_ns={H100.latency_s * 1e9:.1f} "
           f"spec_hbm_GBps={H100.hbm_bw / 1e9:.1f} "
           f"rms_log_error={cal.rms_log_error:.3f} "
-          f"measured_over_model={ {k: round(v, 3) for k, v in cal.ratios.items()} }",
-          flush=True)
+          f"measured_over_model={ {k: round(v, 3) for k, v in cal.ratios.items()} } "
+          f"seconds={seconds:.2f}", flush=True)
+    print(f"[calibrate] own knobs (the rows' knobs, the earlier fit) on "
+          f"this run's rows: fitted_latency_ns={own.spec.latency_s * 1e9:.1f} "
+          f"fitted_hbm_GBps={own.spec.hbm_bw / 1e9:.1f} "
+          f"rms_log_error={own.rms_log_error:.3f}; the earlier fit's own "
+          f"run: rms_log_error={PREVIOUS_RMS_LOG_ERROR} (PERF.md, not "
+          f"measured in this run)", flush=True)
+    check(FIT_LATENCY_RANGE[0] <= lat_ratio <= FIT_LATENCY_RANGE[1],
+          f"fitted T_l {cal.spec.latency_s * 1e9:.1f} ns is {lat_ratio:.3f}x "
+          f"the measured {hop_ns} ns/hop: the fit's knobs are wrong")
+    check(FIT_BW_RANGE[0] <= bw_ratio <= FIT_BW_RANGE[1],
+          f"fitted BW {cal.spec.hbm_bw / 1e9:.1f} GB/s is {bw_ratio:.3f}x "
+          f"3.35 TB/s: the fit's knobs are wrong")
     return cal
+
+
+def paper_tables_phase(torch, np, card):
+    """Tables 9 and 10 and the roofline rows at card scale: no sweep may
+    fail, every row with memory traffic must read above 0 and at most
+    ``PEAK_SHARE_LIMIT`` x 3.35 TB/s, and the fused convolution must match
+    numpy's on a 64 x 64 tile."""
+    from repro_torch.bench import run_sweeps
+    from repro_torch.bench.sweeps import conv
+    t0 = time.perf_counter()
+    run = run_sweeps(names=PAPER_SWEEPS, device="cuda", out_dir=None,
+                     echo=False)
+    seconds = time.perf_counter() - t0
+    check(not run.failures, f"paper-table sweeps failed: {run.failures}")
+    check({r.sweep for r in run.results} == set(PAPER_SWEEPS),
+          f"a paper-table sweep emitted no row: "
+          f"{sorted({r.sweep for r in run.results})}")
+    limit = PEAK_SHARE_LIMIT * HBM_BYTES_PER_S / 1e9
+    for r in run.results:
+        if r.extras.get("bytes_moved"):
+            check(0 < r.gbps_measured <= limit,
+                  f"{r.name} reads {r.gbps_measured:.1f} GB/s, outside "
+                  f"(0, {limit:.0f}]")
+            ws = r.extras["working_set_bytes"]
+            print(f"[paper tables] row={r.name} sweep={r.sweep} "
+                  f"pattern={r.pattern} GBps={r.gbps_measured:.1f} "
+                  f"us={r.us_per_call:.2f} "
+                  f"bytes_moved={r.extras['bytes_moved']} "
+                  f"working_set_MiB={ws / 2**20:.1f} "
+                  f"working_set_over_l2={ws / L2_BYTES:.2f} "
+                  f"paper={ {k: v for k, v in r.extras.items() if k.startswith('paper_')} }",
+                  flush=True)
+        else:
+            print(f"[paper tables] row={r.name} sweep={r.sweep} modelled "
+                  + " ".join(f"{k}={r.extras.get(k)}" for k in (
+                      "status", "compute_ms", "memory_ms", "dominant",
+                      "frac", "reason") if r.extras.get(k) is not None),
+                  flush=True)
+    k = 11
+    rng = np.random.default_rng(21)
+    tile = rng.standard_normal((64 + k - 1, 64 + k - 1)).astype(np.float32)
+    ker = np.ones((k, k), np.float32) / (k * k)
+    got = conv.conv_valid(torch.from_numpy(tile).cuda()[None, None],
+                          torch.from_numpy(ker).cuda()[None, None])
+    got = got[0, 0].cpu().numpy()
+    want = conv.naive_conv(tile, ker)
+    err = float(np.abs(got - want).max())
+    check(np.allclose(got, want, rtol=CONV_TOL, atol=CONV_TOL),
+          f"conv_xla_fused leaves numpy's 64x64 tile by {err:.3e}")
+    print(f"[paper tables] card='{card}' sweeps={','.join(PAPER_SWEEPS)} "
+          f"rows={len(run.results)} conv_64x64_max_abs_err={err:.3e} "
+          f"(float32, tol {CONV_TOL}) l2_MiB={L2_BYTES / 2**20:.0f} "
+          f"seconds={seconds:.2f}", flush=True)
+
+
+def advisor_phase(cal, card):
+    """The advisor's reports for gemma-2b decode_32k and gemma2-27b
+    train_4k under the H100's spec and under the calibration: every site
+    predicts a bandwidth, and in measured mode carries a ratio."""
+    from repro_torch.configs import ARCHS, SHAPES_BY_NAME
+    from repro_torch.core.advisor import advise_model, render_report
+    from repro_torch.core.memmodel import H100
+    t0 = time.perf_counter()
+    for arch, shape in ADVISOR_CELLS:
+        for mode, kw in (("analytic", dict(spec=H100)),
+                         ("measured", dict(calibration=cal))):
+            reports = advise_model(ARCHS[arch], SHAPES_BY_NAME[shape], **kw)
+            check(all(r.predicted_gbps > 0 for r in reports),
+                  f"{arch} {shape} {mode}: a site predicts no bandwidth")
+            if mode == "measured":
+                check(all(r.measured_vs_predicted is not None
+                          for r in reports),
+                      f"{arch} {shape}: a site has no meas/pred ratio")
+            for line in render_report(reports).splitlines():
+                print(f"[advisor] {arch} {shape} {mode}: {line}", flush=True)
+    print(f"[advisor] card='{card}' cells={len(ADVISOR_CELLS)} "
+          f"fitted_latency_ns={cal.spec.latency_s * 1e9:.1f} "
+          f"fitted_hbm_GBps={cal.spec.hbm_bw / 1e9:.1f} "
+          f"seconds={time.perf_counter() - t0:.2f}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2259,6 +2401,14 @@ def main():
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f"[phase] {name} seconds={now - t_lap[0]:.1f} "
+              f"elapsed={now - t_start:.1f}", flush=True)
+        t_lap[0] = now
+
     try:
         card = card_line()
         print(f"[card] card='{card}' torch={torch.__version__} "
@@ -2273,6 +2423,7 @@ def main():
                 if "registers" in line or "spill" in line:
                     print(f"[ptxas] {name}: {line.strip()}", flush=True)
         sass_phase(kbuild)
+        lap("build")
         drain = drain_lens(np)
         err = k1_check(torch, pa, ref, drain)
         timing = k1_time(torch, pa, ref, card, [1024] * 8, "full")
@@ -2286,8 +2437,10 @@ def main():
                  GLOBAL_GEOMETRY),
                 ("gemma-2b-int8-drain", drain, INT8_GEOMETRY),
                 ("gemma-2b-int8-full", [1024] * 8, INT8_GEOMETRY))]
+        lap("K1")
         launches, greedy = serve_phase(torch, np, card)
         parity_phase(torch, np)
+        lap("serve, parity")
         gc.collect()                 # the gemma-2b engine and weights go
         torch.cuda.empty_cache()
         k2_err = k2_check(torch, fa, ref)
@@ -2296,6 +2449,7 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         dense_parity_phase(torch, np)
+        lap("K2, dense serve, dense parity")
         gc.collect()
         torch.cuda.empty_cache()
         mem_err = dict(stream_copy=k4_check(torch, ops, ref, sc),
@@ -2307,15 +2461,21 @@ def main():
             strided_copy=k5_time(torch, ops, ref, engines, card),
             random_gather=k6_time(torch, ops, ref, engines, card),
             pointer_chase=k7_time(torch, ops, ref, pc, engines, card))
+        lap("K4-K7")
         gc.collect()
         torch.cuda.empty_cache()
         run, mem_launches = memory_phase(torch, card, dict(
             stream_copy=sc, strided_copy=st, random_gather=rg,
             pointer_chase=pc))
-        cal = calibrate_phase(run)
+        cal = calibrate_phase(run, card)
         del run
         gc.collect()
         torch.cuda.empty_cache()
+        paper_tables_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        advisor_phase(cal, card)
+        lap("memory, calibrate, paper tables, advisor")
         tune_launches, _ = tune_phase(torch, cal, card)
         k3_err = k3_check(torch, ops, ref, da)
         k3_timing = k3_time(torch, ops, ref, da, card, K3_GEOMETRIES[0])
@@ -2324,31 +2484,38 @@ def main():
         torch.cuda.empty_cache()
         k8_err = k8_check(torch, ops, ref, mm)
         k8_timing = k8_time(torch, ops, ref, mm, card)
+        lap("tune, K3, K8")
         gc.collect()
         torch.cuda.empty_cache()
         ring_launches = ring_serve_phase(torch, np, card)
+        lap("ring serve")
         gc.collect()                 # the 54 GB of gemma2-27b go
         torch.cuda.empty_cache()
         int8_launches = int8_serve_phase(torch, np, card)
+        lap("int8 serve")
         gc.collect()
         torch.cuda.empty_cache()
         ring_parity_phase(torch, np)
         gc.collect()
         torch.cuda.empty_cache()
         int8_parity_phase(torch, np)
+        lap("ring parity, int8 parity")
         gc.collect()
         torch.cuda.empty_cache()
         prng_phase(torch, np, card)
         sampled_launches = sampled_serve_phase(torch, np, card, greedy)
+        lap("prng, sampled serve")
         gc.collect()
         torch.cuda.empty_cache()
         sampled_parity_phase(torch, np)
         gc.collect()
         torch.cuda.empty_cache()
         spec_serve_phase(torch, np, card)
+        lap("sampled parity, spec serve")
         gc.collect()
         torch.cuda.empty_cache()
         bench_serve_phase(torch, card)
+        lap("bench serve")
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1

@@ -7,8 +7,21 @@ constants — transaction latency ``T_l`` and peak HBM bandwidth.
 :class:`~repro_torch.bench.schema.BenchRun`), then least-squares-fits those
 two constants over the latency/unit-size/stride/random curves so that the
 same equations describe the device that ran them.  The result is a fitted
-:class:`HopperSpec` and a ``measured_vs_predicted`` ratio per pattern
-(threading it into an autotuner and an advisor waits for their port).
+:class:`HopperSpec` and a ``measured_vs_predicted`` ratio per pattern,
+which the autotuner, the plans and the advisor take in measured mode.
+
+Knobs that describe the card.  A row keeps the reference's knobs (the CPU
+tests compare them), but on the card they do not say what ran: the
+reference's random rows claim 8 loads in flight where the whole card keeps
+tens of thousands, and its stride rows claim a stride the kernel never
+pays (K5 reads every block-row whole).  A row that carries its kernel's
+geometry (``kernel_resident_blocks``, set only when the kernel ran on a
+card) is fitted with :func:`card_knobs` instead: outstanding = the loads
+in flight on the whole card (per-block requests x resident blocks), unit =
+bytes per touch rounded up to 32-byte sectors, stride and burst as the
+kernel ran them.  Rows without the geometry (the CPU's, the reference's,
+K4's element route) fit with their own knobs, as before; the equations
+are the reference's.
 
 The fit is an exhaustive log-space grid refine (no scipy dependency): the
 loss surface over (log T_l, log BW) is piecewise-smooth and unimodal for
@@ -126,6 +139,23 @@ def synthetic_samples(spec: HopperSpec, noise: float = 0.0,
     return samples
 
 
+SECTOR_BYTES = 32    # the card's memory moves whole 32-byte sectors
+
+
+def card_knobs(knobs: Knobs, extras: Dict) -> Knobs:
+    """The knobs a row ran with on the card, from its kernel's geometry
+    (``kernel_*`` extras), or the row's own knobs when it carries none."""
+    blocks = extras.get("kernel_resident_blocks")
+    if not blocks:
+        return knobs
+    per_block = int(extras.get("kernel_outstanding", 1))
+    unit = -(-knobs.unit_bytes // SECTOR_BYTES) * SECTOR_BYTES
+    return replace(
+        knobs, unit_bytes=unit, outstanding=per_block * int(blocks),
+        burst_bytes=int(extras.get("kernel_burst_bytes", knobs.burst_bytes)),
+        stride=int(extras.get("kernel_stride", knobs.stride)))
+
+
 # sweeps whose rows carry knobs that faithfully describe the measured access
 # (outstanding/num_kernels measure hops or dispatch effects, and burst rows
 #  carry the reference's nominal outstanding — none of those identify
@@ -135,7 +165,8 @@ CALIBRATION_SWEEPS = ("latency", "unit_size", "stride", "random")
 
 def samples_from_run(run, sweeps: Sequence[str] = CALIBRATION_SWEEPS
                      ) -> List[CalibSample]:
-    """Extract fit-worthy samples from a persisted :class:`BenchRun`."""
+    """Extract fit-worthy samples from a persisted :class:`BenchRun`, at
+    the knobs the card ran (:func:`card_knobs`)."""
     samples: List[CalibSample] = []
     for r in run.results:
         if r.sweep not in sweeps or not r.pattern or r.gbps_measured <= 0:
@@ -145,7 +176,8 @@ def samples_from_run(run, sweeps: Sequence[str] = CALIBRATION_SWEEPS
             pattern = Pattern(r.pattern)
         except (TypeError, ValueError):
             continue
-        samples.append(CalibSample(pattern, knobs, r.gbps_measured))
+        samples.append(CalibSample(pattern, card_knobs(knobs, r.extras),
+                                   r.gbps_measured))
     return samples
 
 
@@ -167,7 +199,8 @@ def measured_samples(fast: bool = True, device=None) -> List[CalibSample]:
         r = engines.bw_sequential(rows=rows, cols=cols, device=device)
         samples.append(CalibSample(
             Pattern.SEQUENTIAL,
-            Knobs(unit_bytes=128 * 4, burst_bytes=cols * 4 * 8, outstanding=2),
+            card_knobs(Knobs(unit_bytes=128 * 4, burst_bytes=cols * 4 * 8,
+                             outstanding=2), r.extras),
             r.gbps_measured))
     for unit in (64, 256, 1024):
         r = engines.bw_random(n_rows=1 << 13 if fast else
@@ -175,7 +208,8 @@ def measured_samples(fast: bool = True, device=None) -> List[CalibSample]:
                               cols=max(1, unit // 4),
                               n_idx=1 << (12 if fast else 20), device=device)
         samples.append(CalibSample(
-            Pattern.RANDOM, Knobs(unit_bytes=unit, outstanding=8),
+            Pattern.RANDOM,
+            card_knobs(Knobs(unit_bytes=unit, outstanding=8), r.extras),
             r.gbps_measured))
     return samples
 

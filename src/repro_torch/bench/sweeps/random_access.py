@@ -40,7 +40,9 @@ def run(ctx: SweepContext) -> None:
                  us=r.wall_s * 1e6, bytes_moved=r.bytes_moved,
                  gbps_measured=r.gbps_measured,
                  gbps_predicted=r.gbps_model,
-                 paper_u280_gbps=5.82)
+                 paper_u280_gbps=5.82,
+                 **{k: v for k, v in r.extras.items()
+                    if k.startswith("kernel_")})
     chase = engines.latency_chase(n_entries=1 << (20 if fast else 26),
                                   steps=1 << 13, spec=ctx.spec,
                                   device=ctx.device)

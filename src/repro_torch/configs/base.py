@@ -2,12 +2,14 @@
 
 Plain frozen dataclasses with the same fields and defaults as the
 reference, so a config prints, hashes and diffs the same way in both
-packages.  The port serves the ATTN + DENSE full-attention decoders; the
-other mixer and mlp kinds are named here so every field of the reference
-has its counterpart.
+packages.  The port serves the ATTN + DENSE decoders; the other mixer and
+mlp kinds are named here so every field of the reference has its
+counterpart, and the advisor's parameter accounting and shape cells
+(:meth:`ModelConfig.param_count`, :data:`LM_SHAPES`) cover every kind.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
@@ -113,6 +115,129 @@ class ModelConfig:
         rem = self.num_layers % self.pattern_len
         return tuple(self.layer_pattern[i] for i in range(rem))
 
+    # ------------------------------------------------------------------
+    # analytic parameter / FLOP accounting (the advisor and the roofline
+    # sweep read it)
+    # ------------------------------------------------------------------
+    def _mixer_params(self, spec: LayerSpec) -> int:
+        d, hd = self.d_model, self.resolved_head_dim
+        nq, nkv = self.num_heads, self.num_kv_heads
+        if spec.mixer == ATTN:
+            return d * hd * (nq + 2 * nkv) + nq * hd * d
+        if spec.mixer == SSD:
+            d_in = self.ssm_expand * d
+            nheads = d_in // self.ssm_head_dim
+            zxbcdt = d * (2 * d_in + 2 * self.ssm_state + nheads)
+            conv = (d_in + 2 * self.ssm_state) * self.ssm_conv_width
+            out = d_in * d
+            return zxbcdt + conv + out + 2 * nheads  # + A_log, D, dt_bias~nheads
+        if spec.mixer == RGLRU:
+            w = self.lru_width or self.d_model
+            # in-proj (2 branches), conv1d, gates (2 diag-blocks), out-proj
+            return d * 2 * w + w * 4 + 2 * w * (w // 8) * 8 // 8 + w * d + 2 * w
+        raise ValueError(spec.mixer)
+
+    def _mlp_params(self, spec: LayerSpec) -> Tuple[int, int]:
+        """returns (total, active) mlp params."""
+        d, f = self.d_model, self.d_ff
+        if spec.mlp == NONE or f == 0:
+            return 0, 0
+        gates = 3 if self.activation in ("swiglu", "geglu") else 2
+        dense = gates * d * f
+        if spec.mlp == MOE:
+            total = self.num_experts * dense + d * self.num_experts  # + router
+            active = self.num_experts_per_tok * dense + d * self.num_experts
+            return total, active
+        return dense, dense
+
+    def param_count(self) -> Tuple[int, int]:
+        """(total, active) parameter counts, embeddings included once if tied."""
+        per_total = per_active = 0
+        for spec in self.layer_pattern:
+            m = self._mixer_params(spec)
+            t, a = self._mlp_params(spec)
+            norms = 2 * self.d_model
+            per_total += m + t + norms
+            per_active += m + a + norms
+        total = per_total * self.num_pattern_blocks
+        active = per_active * self.num_pattern_blocks
+        for spec in self.remainder_specs:
+            m = self._mixer_params(spec)
+            t, a = self._mlp_params(spec)
+            total += m + t + 2 * self.d_model
+            active += m + a + 2 * self.d_model
+        if self.enc_dec:
+            # encoder stack: self-attn + dense mlp per layer; decoder adds cross-attn
+            enc = self.num_encoder_layers * (
+                self._mixer_params(LayerSpec()) + self._mlp_params(LayerSpec())[0]
+                + 2 * self.d_model)
+            cross = self.num_layers * (self._mixer_params(LayerSpec()) + self.d_model)
+            total += enc + cross
+            active += enc + cross
+        emb = self.vocab_size * self.d_model
+        total += emb if self.tie_embeddings else 2 * emb
+        active += emb if self.tie_embeddings else 2 * emb
+        total += self.d_model  # final norm
+        active += self.d_model
+        return total, active
+
+    def flops_per_token(self) -> int:
+        """MODEL_FLOPS/token = 6·N_active (forward+backward), matmul params only."""
+        _, active = self.param_count()
+        return 6 * active
+
+
+# ---------------------------------------------------------------------------
+# Shapes (the assigned LM shape set)
+# ---------------------------------------------------------------------------
+
+TRAIN = "train"
+PREFILL = "prefill"
+DECODE = "decode"
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int       # train/prefill: tokens processed; decode: KV cache length
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        """new tokens processed per step."""
+        if self.kind == DECODE:
+            return self.global_batch
+        return self.global_batch * self.seq_len
+
+
+LM_SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", TRAIN, 4_096, 256),
+    ShapeCell("prefill_32k", PREFILL, 32_768, 32),
+    ShapeCell("decode_32k", DECODE, 32_768, 128),
+    ShapeCell("long_500k", DECODE, 524_288, 1),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in LM_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, cell: ShapeCell) -> Tuple[bool, str]:
+    """The skip rules of the shape set.
+
+    ``long_500k`` needs sub-quadratic attention: run for SSM/hybrid archs whose
+    every attention layer is windowed; skip when any full-attention layer
+    exists (the 500k KV cache is the quadratic-family cost).
+    """
+    if cell.name == "long_500k":
+        has_full_attn = any(
+            s.mixer == ATTN and s.sliding_window is None for s in cfg.layer_pattern)
+        if cfg.enc_dec:
+            return False, "enc-dec full attention (quadratic family)"
+        if has_full_attn:
+            return False, "full-attention layers present (quadratic family)"
+        return True, ""
+    return True, ""
+
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests."""
@@ -145,3 +270,6 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
 def override(cfg: ModelConfig, **kw) -> ModelConfig:
     return replace(cfg, **kw)
 
+
+def asdict(cfg: ModelConfig) -> dict:
+    return dataclasses.asdict(cfg)

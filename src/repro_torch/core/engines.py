@@ -242,7 +242,7 @@ def bw_random(n_rows: int = 1 << 15, cols: int = 128, n_idx: int = 1 << 14,
         gbps_measured=achieved_bw(nbytes, wall) / 1e9,
         gbps_model=predict_bw(Pattern.RANDOM, knobs, spec) / 1e9,
         extras=dict(table_bytes=x.numel() * x.element_size(),
-                    **_rg.kernel_knobs(x)))
+                    **_rg.kernel_knobs(x, n_idx=n_idx)))
 
 
 def bw_unit_size_sweep(units=(4, 16, 64, 256, 1024, 4096),

@@ -3,13 +3,15 @@
 The paper's §5/§6 taxonomy (rs_tra / rr_tra / r_acc / nest, plus the
 micro-patterns the engines sweep), grounded in the Hopper memory hierarchy
 (HBM -> L2 -> shared memory / L1 -> registers).  The port of
-``repro.core.patterns``; the advisor's ``SiteReport`` is not ported yet.
+``repro.core.patterns``: ``core.advisor`` maps a model's memory sites onto
+these patterns (one :class:`SiteReport` each) with the guidance below;
+``core.autotune`` turns the guidance into kernel knobs.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 
 class Pattern(str, Enum):
@@ -140,3 +142,25 @@ ADVICE: Dict[Pattern, Advice] = {
         (0.3, 0.95),
     ),
 }
+
+
+@dataclass
+class SiteReport:
+    """One classified load/store site (advisor output)."""
+
+    op_name: str
+    pattern: Pattern
+    bytes_moved: int
+    shape: Tuple[int, ...] = ()
+    detail: str = ""
+    advice: Optional[Advice] = None
+    # model-predicted tuned bandwidth for this pattern (GB/s) under the spec
+    # the advisor ran with; 0.0 until the advisor fills it in
+    predicted_gbps: float = 0.0
+    # measured/predicted ratio for this pattern from a calibration pass
+    # (repro_torch.bench.calibrate); None when running purely analytic
+    measured_vs_predicted: Optional[float] = None
+
+    def __post_init__(self):
+        if self.advice is None:
+            self.advice = ADVICE[self.pattern]

@@ -117,3 +117,26 @@ extern "C" int random_gather_launch(const void* x, const void* idx, void* out,
           launch<uint8_t>(x, ix, out, n, nunits, unit_bytes, s));
   }
 }
+
+// Blocks of the kernel's body for `word_bytes` (16, 4, 2 or 1) that one SM
+// holds at once, from the CUDA occupancy calculator: the calibration counts
+// the loads a launch keeps in flight on the whole card from it.  Returns
+// the CUDA error (0 = success).
+extern "C" int random_gather_blocks_per_sm(int word_bytes, int* blocks) {
+  switch (word_bytes) {
+    case 16:
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, random_gather_kernel<uint4>, kThreads, 0));
+    case 4:
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, random_gather_kernel<uint32_t>, kThreads, 0));
+    case 2:
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, random_gather_kernel<uint16_t>, kThreads, 0));
+    case 1:
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, random_gather_kernel<uint8_t>, kThreads, 0));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -19,11 +19,12 @@ from typing import List, Optional, Union
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, decode_core
 
 LAUNCHES = 0
 
 DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+THREADS = 256        # kThreads in the source: lanes of one block
 
 # maximal-length Galois LFSR taps (the reference's)
 _TAPS = {16: 0xB400, 24: 0xE10000, 32: 0xA3000000}
@@ -124,16 +125,50 @@ def word_bytes(x: torch.Tensor, unit_bytes: int) -> int:
     return 1
 
 
-def kernel_knobs(x: torch.Tensor, block_rows: int = 1) -> dict:
-    """What the kernel does for this table: bytes per access, and lanes
-    (loads in flight) per gathered unit."""
+@functools.cache
+def _occupancy(kernel: str):
+    fn = getattr(build.load(kernel), f"{kernel}_blocks_per_sm")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def blocks_per_sm(kernel: str, device: torch.device, word: int) -> int:
+    """Blocks of ``kernel`` (``random_gather`` or ``strided_copy``, its
+    body for ``word``-byte accesses) that one SM of ``device`` holds at
+    once: the CUDA occupancy calculator, through the source's
+    ``<kernel>_blocks_per_sm``."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _occupancy(kernel)(word, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{kernel} occupancy query failed: CUDA error "
+                           f"{err}")
+    return blocks.value
+
+
+def kernel_knobs(x: torch.Tensor, block_rows: int = 1,
+                 n_idx: Optional[int] = None) -> dict:
+    """What the kernel does for this table: bytes per access, lanes per
+    gathered unit, and units in flight per block (``kernel_outstanding``:
+    each of a block's lanes holds a load of its unit).  On a CUDA table,
+    with the gather's index count ``n_idx``, also the blocks resident on
+    the whole card (``kernel_resident_blocks``: the launch's grid, at most
+    what the SMs hold at once)."""
     unit, _ = units(x, block_rows)
-    words = unit // word_bytes(x, unit)
+    word = word_bytes(x, unit)
     lanes = 1
-    while lanes < 32 and 2 * lanes <= words:
+    while lanes < 32 and 2 * lanes <= unit // word:
         lanes *= 2
-    return dict(kernel_unit_bytes=word_bytes(x, unit),
-                kernel_lanes_per_index=lanes)
+    out = dict(kernel_unit_bytes=word, kernel_lanes_per_index=lanes,
+               kernel_outstanding=THREADS // lanes)
+    if x.device.type == "cuda" and n_idx:
+        grid = -(-n_idx // (THREADS // lanes))
+        index = x.device.index or 0
+        out["kernel_resident_blocks"] = min(
+            grid, blocks_per_sm("random_gather", x.device, word)
+            * decode_core.sm_count(index))
+    return out
 
 
 def random_gather(x: torch.Tensor, idx: torch.Tensor, *,

@@ -195,17 +195,23 @@ def kernel_knobs(x: torch.Tensor, block_rows: int = 256,
     access and of one contiguous request (the burst), the requests in
     flight per block, and the shared memory of a block's ring (the paper's
     BRAM column).  On the element route a block's tile is its burst and
-    each thread keeps ``UNROLL`` loads in flight."""
+    each thread keeps ``UNROLL`` loads in flight.  On a CUDA tensor the
+    bulk route also names its blocks resident on the whole card
+    (``kernel_resident_blocks``: its grid, sized to the SMs so that every
+    block is resident at once)."""
     cfg = config(x, block_rows, block_cols)
     if cfg.route == "element":
         return dict(kernel_route="element",
                     kernel_unit_bytes=x.element_size(),
                     kernel_burst_bytes=(cfg.block_rows * cfg.tile_col_bytes),
                     kernel_outstanding=UNROLL, kernel_smem_bytes=0)
-    return dict(kernel_route="bulk", kernel_unit_bytes=BULK_UNIT,
-                kernel_burst_bytes=cfg.chunk_bytes,
-                kernel_outstanding=cfg.stages,
-                kernel_smem_bytes=cfg.ring_bytes)
+    out = dict(kernel_route="bulk", kernel_unit_bytes=BULK_UNIT,
+               kernel_burst_bytes=cfg.chunk_bytes,
+               kernel_outstanding=cfg.stages,
+               kernel_smem_bytes=cfg.ring_bytes)
+    if x.device.type == "cuda":
+        out["kernel_resident_blocks"] = cfg.grid
+    return out
 
 
 def stream_copy(x: torch.Tensor, *, block_rows: int = 256,

@@ -13,11 +13,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.random_gather import word_bytes
+from repro_torch.kernels import build, decode_core
+from repro_torch.kernels.random_gather import blocks_per_sm, word_bytes
 
 LAUNCHES = 0
 
@@ -49,6 +50,29 @@ def blocks(x: torch.Tensor, block_rows: int):
     if br < 1 or rows % br:
         raise ValueError(f"block_rows {br} does not divide {rows} rows")
     return br, rows // br
+
+
+def kernel_knobs(x: torch.Tensor, block_rows: int = 8,
+                 stride: int = 1) -> dict:
+    """What the kernel does for this call: bytes per access, the block-row
+    a block of threads moves (its burst, one request in flight a block),
+    and ``kernel_stride`` 1 when the stride is coprime with the block
+    count: every block-row is then read once, whole and contiguous, so no
+    byte the card fetches is skipped (otherwise the row's stride).  On a
+    CUDA tensor also the blocks resident on the whole card
+    (``kernel_resident_blocks``)."""
+    br, nblocks = blocks(x, block_rows)
+    block_bytes = br * x.shape[1] * x.element_size()
+    word = word_bytes(x, block_bytes)
+    out = dict(kernel_unit_bytes=word, kernel_burst_bytes=block_bytes,
+               kernel_outstanding=1,
+               kernel_stride=1 if math.gcd(stride, nblocks) == 1 else stride)
+    if x.device.type == "cuda":
+        index = x.device.index or 0
+        out["kernel_resident_blocks"] = min(
+            nblocks, blocks_per_sm("strided_copy", x.device, word)
+            * decode_core.sm_count(index))
+    return out
 
 
 def strided_copy(x: torch.Tensor, *, block_rows: int = 8,

@@ -1123,3 +1123,90 @@ def test_spec_drain_equals_vanilla_on_the_card(cuda, no_tf32, sampling):
     a = spec.alloc
     assert a.pages_in_use + len(a.free) == a.num_pages - a.reserved
     assert all(r >= 1 for r in a.ref.values())
+
+
+# ---------------------------------------------------------------------------
+# the paper's Tables 9 and 10, the roofline rows, the advisor, the fit
+# ---------------------------------------------------------------------------
+
+PAPER_SWEEPS = ("database", "conv", "roofline")
+# the structural columns of a row: what does not depend on timing
+PAPER_COLUMNS = ("paper_u280_gbps", "paper_cpu_s", "paper_fpga2ch_s",
+                 "paper_fpga32ch_s", "note", "advice", "bytes_moved",
+                 "status", "reason", "source", "compute_ms", "memory_ms",
+                 "collective_ms", "dominant", "useful_flops_ratio", "frac",
+                 "working_set_bytes")
+
+
+def _structural(run):
+    return [(r.sweep, r.name, r.pattern, r.knobs,
+             {k: r.extras.get(k) for k in PAPER_COLUMNS})
+            for r in run.results]
+
+
+@pytest.mark.cuda
+def test_paper_tables_card_rows_equal_cpu_rows(cuda):
+    from repro_torch.bench import run_sweeps
+    runs = [run_sweeps(names=list(PAPER_SWEEPS), fast=True, echo=False,
+                       device=dev) for dev in ("cpu", "cuda")]
+    for run in runs:
+        assert not run.failures, run.failures
+    assert _structural(runs[1]) == _structural(runs[0])
+    for r in runs[1].results:
+        if r.extras.get("bytes_moved"):
+            assert 0 < r.gbps_measured < 1.05 * 3350, r.name
+
+
+@pytest.mark.cuda
+def test_fused_conv_matches_numpy_on_the_card(cuda):
+    from repro_torch.bench.sweeps import conv
+    rng = np.random.default_rng(3)
+    tile = rng.standard_normal((74, 74)).astype(np.float32)
+    ker = np.ones((11, 11), np.float32) / 121
+    got = conv.conv_valid(torch.from_numpy(tile).to(cuda)[None, None],
+                          torch.from_numpy(ker).to(cuda)[None, None])
+    np.testing.assert_allclose(got[0, 0].cpu().numpy(),
+                               conv.naive_conv(tile, ker), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def card_fit():
+    """The fit of the memory rows that calibrate reads, at the card's own
+    sizes (1 GiB working sets), and the median HBM ns/hop they measured."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.bench import calibrate, run_sweeps
+    from repro_torch.bench.calibrate import CALIBRATION_SWEEPS
+    run = run_sweeps(names=list(CALIBRATION_SWEEPS), echo=False,
+                     device="cuda")
+    assert not run.failures, run.failures
+    hops = sorted(float(r.extras["ns_per_hop"]) for r in run.results
+                  if r.name.startswith("latency_region_"))
+    return calibrate(run=run), hops[len(hops) // 2]
+
+
+@pytest.mark.cuda
+def test_card_fit_is_physical(card_fit):
+    cal, hop_ns = card_fit
+    assert 0.5 <= cal.spec.latency_s * 1e9 / hop_ns <= 2.0, \
+        (cal.spec.latency_s, hop_ns)
+    assert 0.5 <= cal.spec.hbm_bw / 3.35e12 <= 1.05, cal.spec.hbm_bw
+
+
+@pytest.mark.cuda
+def test_advisor_on_the_card_equals_the_cpu(card_fit):
+    from repro_torch.bench import run_sweeps
+    from repro_torch.configs import ARCHS, SHAPES_BY_NAME
+    from repro_torch.core.advisor import advise_model, render_report
+    runs = [run_sweeps(names=["roofline"], echo=False, device=dev)
+            for dev in ("cpu", "cuda")]
+    assert _structural(runs[1]) == _structural(runs[0])
+    cal, _ = card_fit
+    for arch, shape in (("gemma-2b", "decode_32k"),
+                        ("gemma2-27b", "train_4k")):
+        reports = advise_model(ARCHS[arch], SHAPES_BY_NAME[shape],
+                               calibration=cal)
+        assert all(r.predicted_gbps > 0 and r.measured_vs_predicted
+                   for r in reports)
+        assert "meas/pred" in render_report(reports).splitlines()[0]

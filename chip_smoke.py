@@ -22,7 +22,9 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    slots), gemma-2b's int8 pages of 16 tokens, and int8 pages at D 64,
    128 and 256 (GQA 8/2, pages of 8 and 16, softcap, a ring window, rows
    with no token, a cluster merge of 4 splits, and one row over 4096 pages
-   whose 64 splits merge through the counter), each in
+   whose 64 splits merge through the counter), recurrentgemma-9b's local
+   layers (B 8, 16 query heads over one kv head, D 256, a ring of 257
+   pages, window 2048, two rows past the window), each in
    float32 (tolerance 1e-4) and bfloat16 (3e-2; and, held against the
    plain version run in float32 on the same inputs, within one bfloat16
    rounding of its output), each line naming its configuration, split
@@ -32,11 +34,13 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    and at the serve drain's ragged lengths (its first 8 prompts plus 16
    decoded tokens), then at gemma2-27b's ring and global geometry and at
    gemma-2b's int8 pages (the drain's lengths and full rows of 1024
-   tokens), each beside its plain version, one SDPA call on the gathered
+   tokens) and recurrentgemma-9b's ring (group 16, D 256, the hybrid
+   serve's lengths at its longest), each beside its plain version, one SDPA call on the gathered
    (dequantized) K/V, and its bound, with the configuration run;
 5. serve: full-width gemma-2b (bf16, random weights from a seeded
    generator) through the paged ``ServeEngine``: 16 requests, batch 8,
-   four sharing a 256-token prefix, 32 new tokens each, drained twice.
+   four sharing a 256-token prefix, 32 new tokens each, drained twice
+   with identical tokens.
    Every decode tick must launch K1 once per layer;
 6. parity: a full-width 2-layer float32 model drains the same requests on
    the card (K1) and on the CPU (plain path); the tokens must agree;
@@ -134,42 +138,64 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    drawn on the card) through the paged engine, batch 4, max_len 8192,
    prefill chunks of 256: 8 requests (prompts of 4160 and 5120 tokens past
    the 4096 window, six of 64-512 with three sharing a 256-token prefix),
-   32 new tokens each, drained twice.  Every decode tick must launch K1
-   once per layer (ring tables on the local layers, full tables on the
-   global ones), the ring must turn (a ring page reused) and its peak stay
-   within batch x ring_slots; prefix sharing stays off on a windowed
-   stack, as in the reference.  A profiled decode window and prefill chunk
+   32 new tokens each, drained twice with identical tokens.  Every decode
+   tick must launch K1 once per layer (ring tables on the local layers,
+   full tables on the global ones), the ring must turn (a ring page
+   reused) and its peak stay within batch x ring_slots; prefix sharing
+   stays off on a windowed stack, as in the reference.  A profiled decode window and prefill chunk
    follow;
 23. int8 serve: full-width gemma-2b with ``kv_dtype="int8"`` (pages of 16
    tokens, the bf16 page's bytes), the serve phase's 16 requests drained
-   twice; every tick launches K1 once per layer on its tensor-core route
+   twice with identical tokens; every tick launches K1 once per layer on its tensor-core route
    with int8 pages;
 24. ring parity and int8 parity: gemma2-27b's (local, global) pair at its
    published widths (window narrowed to 32 so the ring turns in a short
    drain) and 2-layer gemma-2b with int8 KV, float32, drained on the card
    (K1) and on the CPU (plain path); the tokens must agree;
-25. prng: JAX's threefry keys and bits (``repro_torch.serve.prng``) at
+25. hybrid serve: full-width recurrentgemma-9b (38 layers: 26 RG-LRU
+   layers on dense per-slot state and 12 local-attention layers, 16 query
+   heads over one kv head at D 256, window 2048; 17.3 GB of bf16 weights
+   drawn on the card) through the paged engine, batch 8, max_len 4096,
+   prefill chunks of 256: 8 requests (prompts of 2100 and 2600 tokens
+   past the window, six of 64-512), 16 new tokens each, drained twice with
+   identical tokens.  No full-attention pool; every decode tick must
+   launch K1 once per attention layer (12) on the ring tables, the ring
+   must turn and every ring page be back at the end; the warm tick, the ms
+   per 256-token chunk and a profiled decode window follow;
+26. ssm serve: full-width mamba2-130m (24 SSD layers, no attention)
+   through the paged engine with no pool at all: six prompts of 64-512
+   tokens and one of 600, 16 new tokens each, drained twice with identical
+   tokens and no K1 launch;
+27. hybrid parity: recurrentgemma-9b at published widths cut to 5 layers
+   (one triple and both remainder RG-LRU layers), float32, window
+   narrowed to 32, drained on the card and on the CPU through the paged
+   backend (K1) and through the dense backend with ``attn_impl="pallas"``
+   (K2 in every prefill's attention layer); the tokens must agree;
+28. ssm parity: float32 mamba2-130m at full width, prompts of 300 and 517
+   tokens in prefill chunks of 512 (whole and padded SSD chunks of 256),
+   drained on the card and on the CPU; the tokens must agree;
+29. prng: JAX's threefry keys and bits (``repro_torch.serve.prng``) at
    (8, 256000) on the card exactly equal to the CPU's (bits, ``split``,
    ``fold_in``, ``subkey_chain``, ``uniform``), ``gumbel`` within 2 ulp;
    the sampler at gemma-2b's vocab for (temperature 0.9, top_p 0.95) and
    (temperature 0.8, top_k 50): masks, draws and times;
-26. sampled serve: full-width gemma-2b (bf16) through the paged engine
+30. sampled serve: full-width gemma-2b (bf16) through the paged engine
    with each sampling setting (keys seeded with 3), then the first on
    int8 pages: the serve phase's 16 requests with the first setting, its
    first 8 (one batch, the run's time) with the others, each drained twice
    with identical tokens, K1 once a layer on every tick, the warm tick
    beside the greedy tick of phase 5;
-27. sampled parity: the parity phase's model and requests sampled with
+31. sampled parity: the parity phase's model and requests sampled with
    (temperature 0.9, top_p 0.95) on the card and on the CPU: tokens and
    final keys must agree;
-28. spec serve: full-width gemma-2b in float32, the serve phase's first 8
+32. spec serve: full-width gemma-2b in float32, the serve phase's first 8
    requests through the vanilla engine and speculative engines (spec_k 3),
    greedy and sampled, drafting with the target itself and with weights
    from another seed (the draft's dense prefill through K2): tokens equal
    to vanilla, the self-draft's accept rate 1.0, the other draft's
    sampled proposals partly rejected, the pools conserve pages; rounds,
    accepted drafts per round and ms per round printed;
-29. bench serve: the ``serve``, ``kernel_plan``, ``paged_serve`` and
+33. bench serve: the ``serve``, ``kernel_plan``, ``paged_serve`` and
    ``spec_serve`` sweeps at card scale, twice, persisted under
    ``build/bench_serve``, then ``repro_torch.bench.compare`` between the
    two runs: every row and verdict printed, and ``--gate structural``
@@ -185,8 +211,8 @@ It ends with a ``[previous]`` line (K1's, K2's, K3's, K4's and K8's times
 before their redesign, and K1's int8 pages on the CUDA cores, as PERF.md
 records them: not measured in this run),
 the kernels' JSON line (K1, K2, K3, K4 and K8 also carry their design, K7
-its latency bound; K1 its launches on each serving path, the sampled ones
-included, and its times at the new geometries), the card line and the
+its latency bound; K1 its launches on each serving path, the sampled and
+hybrid ones included, and its times at the new geometries), the card line and the
 result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
@@ -276,9 +302,23 @@ GLOBAL_GEOMETRY = dict(b=4, hq=32, hkv=16, d=128, page=8, n=1024,
                        kw=dict(softcap=50.0, scale=GEMMA2_SCALE))
 INT8_GEOMETRY = dict(b=8, hq=8, hkv=1, d=256, page=16, n=64, int8=True,
                      kw={})
+# recurrentgemma-9b's local-attention layers: 16 query heads over one kv
+# head (the mma's whole 16-row tile) at D 256, a ring of 2048/8 + 1 pages
+RECURRENTGEMMA_GEOMETRY = dict(b=8, hq=16, hkv=1, d=256, page=8, n=257,
+                               int8=False, kw=dict(window=2048))
 # the ring serve's decode lengths at its longest: the two prompts past the
 # window and two short ones, 16 tokens decoded
 RING_LENS = [4160 + 16, 5120 + 16, 300, 8000]
+# the hybrid serve's two prompts past the 2048-token window
+HYBRID_LONG = (2100, 2600)
+
+
+def hybrid_lens(np):
+    """The hybrid serve's decode lengths at their longest: its 8 prompts
+    plus 16 decoded tokens each."""
+    from repro_torch.serve import Request
+    return [r.prompt.shape[0] + 16
+            for r in long_requests(np, Request, 256000, HYBRID_LONG, 16)]
 
 
 def k1_inputs(torch, gen, b, hq, hkv, d, page, n, vlens, dtype, int8=False,
@@ -307,9 +347,10 @@ def k1_inputs(torch, gen, b, hq, hkv, d, page, n, vlens, dtype, int8=False,
     return q, pools, table, valid
 
 
-def k1_cases(drain):
+def k1_cases(drain, hybrid):
     """(name, B, Hq, Hkv, D, page, N, valid lengths, kwargs); ``drain``
-    holds the serve drain's ragged lengths (:func:`drain_lens`)."""
+    holds the serve drain's ragged lengths (:func:`drain_lens`),
+    ``hybrid`` the hybrid serve's (:func:`hybrid_lens`)."""
     return [
         # gemma-2b decode geometry: 1, 7, 9, a multiple of the page, full
         ("gemma-2b", 5, 8, 1, 256, 8, 16, [1, 7, 9, 64, 128], {}),
@@ -351,17 +392,21 @@ def k1_cases(drain):
          dict(int8=True)),
         ("int8-counter-64", 1, 8, 1, 256, 8, 4096, [30001],
          dict(int8=True)),
+        # recurrentgemma-9b's local layers: group 16 at D 256 over a ring
+        # of 257 pages, window 2048, two rows past the window
+        ("recurrentgemma-9b-ring", 8, 16, 1, 256, 8, 257, hybrid,
+         dict(window=2048)),
     ]
 
 
-def k1_check(torch, pa, ref, drain):
+def k1_check(torch, pa, ref, drain, hybrid):
     """Every case in both dtypes against the plain version; returns the
     largest absolute error seen."""
     from repro_torch.kernels import decode_core as core
     gen = torch.Generator().manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
-    for name, b, hq, hkv, d, page, n, vlens, kw in k1_cases(drain):
+    for name, b, hq, hkv, d, page, n, vlens, kw in k1_cases(drain, hybrid):
         kw = dict(kw)
         int8 = kw.pop("int8", False)
         for dname in ("float32", "bfloat16"):
@@ -961,14 +1006,14 @@ def dense_parity_phase(torch, np):
 # ring pages, softcaps and int8 pages on model paths
 # ---------------------------------------------------------------------------
 
-def ring_requests(np, Request, vocab):
-    """8 requests, 32 new tokens each: the first two prompts run past the
-    4096-token window (4160 and 5120 tokens), the other six hold 64-512
-    tokens, three of them sharing a 256-token prefix."""
+def long_requests(np, Request, vocab, longs, max_new):
+    """8 requests, ``max_new`` new tokens each: the first two prompts run
+    to ``longs`` tokens, the other six hold 64-512 tokens, three of them
+    sharing a 256-token prefix."""
     reqs = make_requests(np, Request, vocab, 0, 8, (64, 513), 256, (2, 5, 7),
-                         32)
+                         max_new)
     rng = np.random.default_rng(5)
-    for r, n in zip(reqs[:2], (4160, 5120)):
+    for r, n in zip(reqs[:2], longs):
         more = rng.integers(0, vocab, size=n - r.prompt.shape[0])
         r.prompt = np.concatenate([r.prompt, more.astype(np.int32)])
     return reqs
@@ -997,12 +1042,14 @@ def load_model(torch, cfg, flags=None, seed=0):
 def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks):
     """Drain ``reqs`` twice (first, warm) with K1's count set to 0 just
     before each drain and read just after; checks budgets, token range and
-    K1 launches = layers x decode ticks, then ``extra_checks(run)``.
+    K1 launches = attention layers x decode ticks (ticks > 0), then
+    ``extra_checks(run)``, and that both drains gave the same tokens.
     Prints one ``[tag]`` line a run; returns the warm run's launches and
-    its ms per decode tick and tokens per second."""
+    its ms per decode tick, ms per prefill chunk and tokens per second."""
     cfg = eng.bundle.cfg
     launches = 0
     warm = {}
+    tokens = []
     for run in ("first", "warm"):
         torch.cuda.reset_peak_memory_stats()
         pa.reset_launches()
@@ -1014,9 +1061,10 @@ def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks):
         check(all(0 <= t < cfg.vocab_size for r in reqs
                   for t in r.out_tokens), f"{tag} {run} drain: token out "
               "of range")
-        check(launches == n_attn * st.decode_steps > 0,
+        check(launches == n_attn * st.decode_steps and st.decode_steps > 0,
               f"{tag} {run} drain: K1 launches {launches} != {n_attn} x "
               f"{st.decode_steps} decode ticks")
+        tokens.append([list(r.out_tokens) for r in reqs])
         extra = extra_checks(run)
         print(f"[{tag}] run={run} card='{card}' arch={cfg.name} "
               f"requests={len(reqs)} batch={eng.bsz} max_len={eng.max_len} "
@@ -1039,7 +1087,10 @@ def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks):
               f"peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}"
               f"{extra}", flush=True)
         warm = dict(tick_ms=1e3 * eng.decode_s / st.decode_steps,
-                    tok_s=st.tokens_out / dt)
+                    tok_s=st.tokens_out / dt,
+                    chunk_ms=1e3 * eng.prefill_s / st.prefill_chunks)
+    check(tokens[0] == tokens[1], f"{tag}: the two drains' tokens differ")
+    print(f"[{tag}] drains_equal=True", flush=True)
     return launches, warm
 
 
@@ -1057,7 +1108,8 @@ def ring_serve_phase(torch, np, card):
     # 256-token prefill chunks keep the two long prompts at 37 chunks
     eng = timed_engine_class(torch, ServeEngine)(bundle, params, 4, 8192,
                                                  prefill_chunk=256)
-    reqs = ring_requests(np, Request, cfg.vocab_size)
+    # two prompts past the 4096-token window
+    reqs = long_requests(np, Request, cfg.vocab_size, (4160, 5120), 32)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     route = pa.route(torch.bfloat16, torch.bfloat16, cfg.resolved_head_dim)
     split_desc = []
@@ -1152,14 +1204,25 @@ def int8_serve_phase(torch, np, card):
     return launches
 
 
+def attention_layers(cfg):
+    from repro_torch.configs.base import ATTN
+    return (sum(s.mixer == ATTN for s in cfg.layer_pattern)
+            * cfg.num_pattern_blocks
+            + sum(s.mixer == ATTN for s in cfg.remainder_specs))
+
+
 def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc,
-                    sampling=None):
-    """The same float32 weights (drawn on the card, copied to the CPU)
-    drain the same requests on the card (K1) and on the CPU (the plain
-    path); tokens must agree (greedy, or drawn with ``sampling`` from keys
-    seeded with 3, whose final values must agree too), every card tick
-    must launch K1 once a layer, and a windowed stack's ring must turn on
-    both."""
+                    sampling=None, backend="paged", max_len=128,
+                    prefill_chunk=32, params=None):
+    """The same float32 weights (drawn on the card, or ``params`` there,
+    copied to the CPU) drain the same requests on the card and on the CPU
+    (the plain path); tokens must agree (greedy, or drawn with
+    ``sampling`` from keys seeded with 3, whose final values must agree
+    too).  Paged: every card tick must launch K1 once per attention layer,
+    and a windowed stack's ring must turn on both.  Dense with
+    ``attn_impl="pallas"``: every card prefill must launch K2 once per
+    attention layer."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import build
     from repro_torch.serve import ServeEngine
@@ -1167,36 +1230,49 @@ def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card_bundle = build(cfg, flags, device="cuda")
-    card_params = card_bundle.init(
+    card_params = params or card_bundle.init(
         torch.Generator(device="cuda").manual_seed(1))
+    n_attn = attention_layers(cfg)
     outs, reused, keys = {}, {}, {}
     for dev in ("cuda", "cpu"):
         bundle = card_bundle if dev == "cuda" else build(cfg, flags,
                                                          device="cpu")
         p = card_params if dev == "cuda" else _to(card_params, "cpu")
-        eng = ServeEngine(bundle, p, 4, 128, sampling=sampling, seed=3,
+        eng = ServeEngine(bundle, p, 4, max_len, sampling=sampling, seed=3,
+                          cache_backend=backend, prefill_chunk=prefill_chunk,
                           device=dev)
         reqs = reqs_of()
         pa.reset_launches()
+        fa.reset_launches()
         for r in reqs:
             eng.add_request(r)
         eng.run_to_completion()
         outs[dev] = [r.out_tokens for r in reqs]
         reused[dev] = eng.stats.ring_pages_reused
         keys[dev] = eng.keys.cpu()
-        if dev == "cuda":
-            check(pa.LAUNCHES == cfg.num_layers * eng.stats.decode_steps > 0,
-                  f"{tag}: the drain on the card did not run K1 every tick")
+        if dev == "cuda" and backend == "paged":
+            check(pa.LAUNCHES == n_attn * eng.stats.decode_steps
+                  and eng.stats.decode_steps > 0,
+                  f"{tag}: the drain on the card did not run K1 on every "
+                  f"attention layer of every tick ({pa.LAUNCHES} launches, "
+                  f"{n_attn} x {eng.stats.decode_steps})")
+        if dev == "cuda" and backend == "dense" and bundle.flags.attn_impl \
+                == "pallas":
+            check(fa.LAUNCHES == n_attn * eng.stats.prefills > 0,
+                  f"{tag}: the dense prefills on the card did not run K2 "
+                  f"on every attention layer ({fa.LAUNCHES} launches, "
+                  f"{n_attn} x {eng.stats.prefills})")
         check(all(len(t) == r.max_new_tokens for t, r in zip(outs[dev],
                                                                reqs)),
               f"{tag} {dev}: budget missed")
         del eng, p
-    if any(s.sliding_window for s in cfg.layer_pattern):
+    if backend == "paged" and any(s.sliding_window
+                                  for s in cfg.layer_pattern):
         check(reused["cuda"] > 0 and reused["cpu"] > 0,
               f"{tag}: the ring never turned")
     same = outs["cpu"] == outs["cuda"]
     same_keys = bool(torch.equal(keys["cpu"], keys["cuda"]))
-    print(f"[{tag}] {desc} requests={len(outs['cpu'])} "
+    print(f"[{tag}] {desc} backend={backend} requests={len(outs['cpu'])} "
           f"ring_pages_reused={reused['cuda']} cuda_equals_cpu={same} "
           f"keys_equal={same_keys}", flush=True)
     check(same, f"{tag}: tokens differ: cpu {outs['cpu']} cuda "
@@ -1206,6 +1282,7 @@ def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc,
     if sampling is not None and not sampling.greedy:
         check(bool(keys["cpu"].any()), f"{tag}: the sampled drain left "
               "every key zero")
+    return card_params
 
 
 def ring_parity_phase(torch, np):
@@ -1237,6 +1314,151 @@ def int8_parity_phase(torch, np):
         lambda: make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40), 17,
                               (0, 4), 8),
         "int8 parity", "arch=gemma-2b full width, 2 layers, float32, int8 KV")
+
+
+# ---------------------------------------------------------------------------
+# hybrid recurrent stacks: RG-LRU + local attention, and SSD alone
+# ---------------------------------------------------------------------------
+
+def hybrid_serve_phase(torch, np, card):
+    """Full-width recurrentgemma-9b on the paged engine: 26 RG-LRU layers
+    on dense per-slot state, K1 on the ring tables of the 12 local
+    attention layers (16 query heads over one kv head, D 256, window
+    2048) on every decode tick."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_core as core
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = ARCHS["recurrentgemma-9b"]
+    n_attn = attention_layers(cfg)
+    bundle, params = load_model(torch, cfg)
+    eng = timed_engine_class(torch, ServeEngine)(bundle, params, 8, 4096,
+                                                 prefill_chunk=256)
+    reqs = long_requests(np, Request, cfg.vocab_size, HYBRID_LONG, 16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    route = pa.route(torch.bfloat16, torch.bfloat16, cfg.resolved_head_dim)
+    splits = pa.split_count(route, eng.bsz, cfg.num_kv_heads, eng.page,
+                            eng.ring_slots, sms)
+    check(eng.pages_per_seq == 0 and eng.alloc is None,
+          "hybrid serve: a full-attention pool on a stack without a "
+          "full-attention layer")
+    print(f"[hybrid serve] attention_layers={n_attn} recurrent_layers="
+          f"{cfg.num_layers - n_attn} pools: ring {eng.num_ring_pages} "
+          f"pages (ring_slots={eng.ring_slots}, window={eng.attn_window}) "
+          f"of {eng.page} tokens, no full pool; kv_pool_GiB="
+          f"{(eng.kv_bytes() - eng._recurrent_state_bytes()) / 2**30:.3f} "
+          f"recurrent_state_MiB={eng._recurrent_state_bytes() / 2**20:.2f} beside "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; K1 "
+          f"route={route} group={cfg.num_heads // cfg.num_kv_heads} "
+          f"splits={splits} merge={core.merge_kind(route, splits)}",
+          flush=True)
+
+    def checks(run):
+        st = eng.stats
+        check(st.ring_pages_reused > 0, f"hybrid serve {run}: the ring "
+              "never turned (no ring page reused)")
+        check(st.ring_pages_peak <= eng.bsz * eng.ring_slots,
+              f"hybrid serve {run}: ring_pages_peak {st.ring_pages_peak} > "
+              f"batch x ring_slots {eng.bsz * eng.ring_slots}")
+        a = eng.ralloc
+        check(not a.tables and a.pages_in_use == 0
+              and len(a.free) == a.num_pages - a.reserved,
+              f"hybrid serve {run}: pages not all back at the end")
+        check(eng.prefix is None and st.prefix_hit_tokens == 0,
+              f"hybrid serve {run}: prefix sharing on a hybrid stack")
+        return (f" live_kv_MiB={eng.live_kv_bytes_peak() / 2**20:.2f} "
+                f"pages_back=True prefix_sharing=off")
+
+    launches, warm = serve_runs(torch, eng, reqs, "hybrid serve", card,
+                                n_attn, pa, checks)
+    print(f"[hybrid serve] warm ms_per_decode_tick={warm['tick_ms']:.3f} "
+          f"ms_per_256_token_chunk={warm['chunk_ms']:.3f} card='{card}'",
+          flush=True)
+    for line in profile_window(torch, eng, reqs, steps=(
+            ("decode window", _prepare_decode),)):
+        print(line.replace("[profile]", "[profile] arch=recurrentgemma-9b"),
+              flush=True)
+    return launches
+
+
+def ssm_serve_phase(torch, np, card):
+    """Full-width mamba2-130m on the paged engine: 24 SSD layers, no
+    attention layer, so no pool and no K1 launch."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = ARCHS["mamba2-130m"]
+    bundle, params = load_model(torch, cfg)
+    eng = timed_engine_class(torch, ServeEngine)(bundle, params, 8, 1024,
+                                                 prefill_chunk=256)
+    check(eng.backend == "paged" and eng.alloc is None
+          and eng.ralloc is None and eng.kv_bytes() == eng._recurrent_state_bytes(),
+          "ssm serve: a page pool on a stack without attention")
+    reqs = long_requests(np, Request, cfg.vocab_size, (600,), 16)[:7]
+    print(f"[ssm serve] attention_layers=0 ssd_layers={cfg.num_layers} "
+          f"ssm_chunk={cfg.ssm_chunk} recurrent_state_MiB="
+          f"{eng._recurrent_state_bytes() / 2**20:.2f} prompts="
+          f"{[r.prompt.shape[0] for r in reqs]}", flush=True)
+    _, warm = serve_runs(torch, eng, reqs, "ssm serve", card, 0, pa,
+                         lambda run: "")
+    print(f"[ssm serve] warm ms_per_decode_tick={warm['tick_ms']:.3f} "
+          f"ms_per_256_token_chunk={warm['chunk_ms']:.3f} card='{card}'",
+          flush=True)
+
+
+def hybrid_parity_phase(torch, np):
+    from repro_torch.configs import ARCHS, LayerSpec, override
+    from repro_torch.configs.base import ATTN, RGLRU
+    from repro_torch.models import RuntimeFlags
+    from repro_torch.serve import Request
+
+    # one (rglru, rglru, attn) triple and both remainder RG-LRU layers at
+    # published widths; the window is narrowed from 2048 to 32 so the ring
+    # turns within a short drain
+    cfg = override(ARCHS["recurrentgemma-9b"], num_layers=5,
+                   param_dtype="float32", compute_dtype="float32",
+                   layer_pattern=(LayerSpec(mixer=RGLRU),
+                                  LayerSpec(mixer=RGLRU),
+                                  LayerSpec(mixer=ATTN, sliding_window=32)))
+
+    def reqs():
+        return make_requests(np, Request, cfg.vocab_size, 2, 6, (20, 72),
+                             17, (0, 4), 8)
+
+    desc = ("arch=recurrentgemma-9b full width, 5 layers (a triple and two "
+            "remainder RG-LRU layers), float32, window narrowed 2048->32")
+    params = card_cpu_parity(torch, np, cfg, None, reqs, "hybrid parity",
+                             desc)
+    card_cpu_parity(torch, np, cfg, RuntimeFlags(attn_impl="pallas"), reqs,
+                    "hybrid parity", desc + ", attn_impl=pallas",
+                    backend="dense", params=params)
+
+
+def ssm_parity_phase(torch, np):
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.serve import Request
+
+    cfg = override(ARCHS["mamba2-130m"], param_dtype="float32",
+                   compute_dtype="float32")
+
+    def reqs():
+        # two prompts past an SSD chunk of 256 and four short ones: the
+        # 300-token prompt is one prefill chunk of a whole SSD chunk and a
+        # padded one, the 517-token one two whole SSD chunks, then 5 tokens
+        out = make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40), 17,
+                            (0, 4), 8)
+        rng = np.random.default_rng(6)
+        for r, n in zip(out[:2], (300, 517)):
+            more = rng.integers(0, cfg.vocab_size, size=n - r.prompt.shape[0])
+            r.prompt = np.concatenate([r.prompt, more.astype(np.int32)])
+        return out
+
+    card_cpu_parity(torch, np, cfg, None, reqs, "ssm parity",
+                    "arch=mamba2-130m full width, float32, prompts of 300 "
+                    "and 517 tokens in chunks of 512", max_len=1024,
+                    prefill_chunk=512)
 
 
 # ---------------------------------------------------------------------------
@@ -1334,10 +1556,8 @@ def sampled_serve_phase(torch, np, card, greedy):
         batch = reqs if i == 0 else reqs[:8]
         eng = timed_engine_class(torch, ServeEngine)(
             b, params, 8, 1024, sampling=SamplingParams(**sp), seed=3, **kw)
-        toks = {}
 
-        def checks(run, eng=eng, toks=toks, sp=sp, batch=batch):
-            toks[run] = [list(r.out_tokens) for r in batch]
+        def checks(run, eng=eng, sp=sp):
             check(bool(eng.keys.any()), "sampled serve: no key was set")
             return (f" sampling='{_desc(sp)}' seed=3 "
                     f"greedy_ms_per_decode_tick={greedy['tick_ms']:.3f} "
@@ -1345,8 +1565,6 @@ def sampled_serve_phase(torch, np, card, greedy):
 
         n, warm = serve_runs(torch, eng, batch, "sampled serve", card,
                              cfg.num_layers, pa, checks)
-        check(toks["first"] == toks["warm"], f"sampled serve {_desc(sp)} "
-              f"{kv}: two drains gave different tokens")
         launches[f"sampled serve {kv} {_desc(sp)}"] = n
         print(f"[sampled serve] kv={kv} sampling='{_desc(sp)}' "
               f"requests={len(batch)} first_equals_warm=True "
@@ -2425,7 +2643,8 @@ def main():
         sass_phase(kbuild)
         lap("build")
         drain = drain_lens(np)
-        err = k1_check(torch, pa, ref, drain)
+        hybrid = hybrid_lens(np)
+        err = k1_check(torch, pa, ref, drain, hybrid)
         timing = k1_time(torch, pa, ref, card, [1024] * 8, "full")
         k1_time(torch, pa, ref, card, drain, "drain")
         k1_timed = [
@@ -2436,7 +2655,9 @@ def main():
                 ("gemma2-27b-global", RING_LENS[:3] + [8192],
                  GLOBAL_GEOMETRY),
                 ("gemma-2b-int8-drain", drain, INT8_GEOMETRY),
-                ("gemma-2b-int8-full", [1024] * 8, INT8_GEOMETRY))]
+                ("gemma-2b-int8-full", [1024] * 8, INT8_GEOMETRY),
+                ("recurrentgemma-9b-ring", hybrid,
+                 RECURRENTGEMMA_GEOMETRY))]
         lap("K1")
         launches, greedy = serve_phase(torch, np, card)
         parity_phase(torch, np)
@@ -2502,6 +2723,19 @@ def main():
         lap("ring parity, int8 parity")
         gc.collect()
         torch.cuda.empty_cache()
+        hybrid_launches = hybrid_serve_phase(torch, np, card)
+        gc.collect()                 # the 17 GB of recurrentgemma-9b go
+        torch.cuda.empty_cache()
+        ssm_serve_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        hybrid_parity_phase(torch, np)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ssm_parity_phase(torch, np)
+        lap("hybrid serve, ssm serve, hybrid parity, ssm parity")
+        gc.collect()
+        torch.cuda.empty_cache()
         prng_phase(torch, np, card)
         sampled_launches = sampled_serve_phase(torch, np, card, greedy)
         lap("prng, sampled serve")
@@ -2526,6 +2760,7 @@ def main():
               launches_by_path={"serve": launches,
                                 "ring serve": ring_launches,
                                 "int8 serve": int8_launches,
+                                "hybrid serve": hybrid_launches,
                                 **sampled_launches},
               timed=k1_timed)
     k2 = dict(name="flash_attention", route="cuda",

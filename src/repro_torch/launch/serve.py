@@ -8,7 +8,8 @@ drawn from a seeded generator, on the card.
 ``--kv-int8`` stores the KV cache as int8 with a float32 scale per token;
 prefill attention is the reference launcher's, ``chunked`` with 64-token
 blocks.  ``--arch gemma2-27b`` serves its sliding-window layers from ring
-pages.  ``--smoke`` serves the same architecture at smoke width;
+pages; ``recurrentgemma-9b`` and ``mamba2-130m`` keep their recurrent
+state beside the pools (mamba2-130m, with no attention layer, has none).  ``--smoke`` serves the same architecture at smoke width;
 ``--device cpu`` runs the plain PyTorch path on the CPU (without it, a
 host with no card is an error).
 """

@@ -1,4 +1,5 @@
-"""Shared model components: norms, RoPE, softcap, init helpers.
+"""Shared model components: norms, RoPE, softcap, the depthwise causal
+convolution of the recurrent mixers, init helpers.
 
 Parameters are a nested dict of tensors built through :class:`ParamBuilder`
 under the reference's dotted paths (``embed.tok``, ``blocks.p0.attn.wq``,
@@ -62,6 +63,19 @@ class ParamBuilder:
         self._put(path, torch.zeros(tuple(shape), dtype=self.dtype,
                                     device=self.device))
 
+    def ones(self, path: str, shape: Sequence[int]) -> None:
+        self._put(path, torch.ones(tuple(shape), dtype=self.dtype,
+                                   device=self.device))
+
+    def const(self, path: str, value: torch.Tensor) -> None:
+        """``value`` in the param dtype; on the meta device only its
+        shape."""
+        if self.device.type == "meta":
+            self._put(path, torch.empty(tuple(value.shape), dtype=self.dtype,
+                                        device=self.device))
+            return
+        self._put(path, value.to(device=self.device, dtype=self.dtype))
+
 
 # ---------------------------------------------------------------------------
 # ops
@@ -96,3 +110,35 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None,
+                  state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal convolution.  x: (B, S, C); w: (K, C); ``state``
+    (B, K-1, C): the trailing inputs of the previous segment (decode,
+    chunked prefill), else zeros.  Taps are summed in the reference's
+    order, tap 0 first."""
+    k, s = w.shape[0], x.shape[1]
+    if state is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[-1]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                         # (B, S+K-1, C)
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * w[i]
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def conv_state_from(x: torch.Tensor, k: int,
+                    prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The trailing K-1 inputs to carry as the next segment's conv state
+    (fewer when ``x`` is shorter and there is no ``prev``, as in the
+    reference)."""
+    if prev is not None:
+        x = torch.cat([prev, x], dim=1)
+    return x[:, -(k - 1):]

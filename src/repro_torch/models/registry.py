@@ -45,25 +45,29 @@ class ModelBundle:
     def paged_supported(self) -> bool:
         """Every stack the port accepts serves from the shared page pools:
         full-attention layers grow a page table, windowed layers keep a
-        rotating ring of pages, int8 KV stores scale lanes."""
+        rotating ring of pages, recurrent layers keep dense per-slot state
+        beside the pools, int8 KV stores scale lanes."""
         return True
 
     def init_paged_cache(self, num_pages: int, page_size: int,
-                         ring_pages: int = 0) -> dict:
+                         ring_pages: int = 0, batch: int = 1) -> dict:
         return transformer.init_paged_cache(self.cfg, num_pages, page_size,
                                             self.device,
                                             ring_pages=ring_pages,
-                                            kv_dtype=self.flags.kv_dtype)
+                                            kv_dtype=self.flags.kv_dtype,
+                                            batch=batch)
 
-    def paged_decode_step(self, params, cache, tokens, pos, table):
+    def paged_decode_step(self, params, cache, tokens, pos, table,
+                          active=None):
         return transformer.paged_decode_step(params, self.cfg, self.flags,
-                                             cache, tokens, pos, table)
+                                             cache, tokens, pos, table,
+                                             active)
 
     def paged_prefill_chunk(self, params, cache, tokens, pos, table,
-                            chunk_valid):
+                            chunk_valid, slot=None):
         return transformer.paged_prefill_chunk(params, self.cfg, self.flags,
                                                cache, tokens, pos, table,
-                                               chunk_valid)
+                                               chunk_valid, slot)
 
     def paged_verify(self, params, cache, tokens, pos, table, chunk_valid,
                      plan=None):

@@ -1,5 +1,5 @@
-"""Decoder-only LM, ATTN + DENSE stacks (full attention and sliding
-windows), on a dense or a paged KV cache.
+"""Decoder-only LM: attention (full and sliding-window), RG-LRU and SSD
+mixers, with a dense MLP or none, on a dense or a paged KV cache.
 
 The port of ``repro.models.transformer`` for these stacks, four modes:
 
@@ -24,6 +24,14 @@ The port of ``repro.models.transformer`` for these stacks, four modes:
   softcap, the scale and, on windowed layers, the window over a ring
   table.
 
+Recurrent mixers (:mod:`~repro_torch.models.rglru`,
+:mod:`~repro_torch.models.ssm`) keep dense per-slot state (``h``/``state``
+float32, ``conv`` the trailing conv inputs) beside the page pools: prefill
+returns it, decode advances it (``paged_decode`` keeps the rows of
+inactive slots, so a pending prefill's partial state survives the masked
+ticks between its chunks), and a paged prefill chunk continues the
+``slot``'s row, restarting it from zeros at offset 0.
+
 ``kv_dtype="int8"`` stores k/v as int8 with a float32 scale per token
 (:func:`_kv_quant`): dense caches in ``k_scale``/``v_scale`` (B, T) lanes,
 page pools in (P, page) lanes that K1 dequantizes.  Attention over the
@@ -45,10 +53,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN, DENSE, LayerSpec, ModelConfig
+from repro_torch.configs.base import (ATTN, DENSE, NONE, RGLRU, SSD,
+                                      LayerSpec, ModelConfig)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnParams, paged_gather_attention
 from repro_torch.models.common import ParamBuilder, rms_norm, rope, softcap
 
@@ -70,13 +81,18 @@ class RuntimeFlags:
 
 
 KV_DTYPES = ("native", "int8")
+# the recurrent mixers: the reference's param name, module, state type
+RECURRENT = {SSD: ("ssd", ssm_mod, ssm_mod.SSDState),
+             RGLRU: ("rglru", rglru_mod, rglru_mod.LRUState)}
 
 
 def check_supported(cfg: ModelConfig,
                     flags: Optional[RuntimeFlags] = None) -> None:
-    """The port serves ATTN + DENSE decoders (full attention and sliding
-    windows) with a cache in the compute dtype or in int8; raise on
-    anything else rather than compute something else."""
+    """The port serves decoders of attention (full and sliding windows),
+    RG-LRU and SSD layers, each with a dense MLP or none, with a KV cache
+    in the compute dtype or in int8; raise on anything else (MoE,
+    encoder-decoder and frontend stacks) rather than compute something
+    else."""
     if flags is not None:
         if flags.kv_dtype not in KV_DTYPES:
             raise ValueError(f"unknown kv_dtype {flags.kv_dtype!r}; known: "
@@ -88,10 +104,11 @@ def check_supported(cfg: ModelConfig,
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and frontend stacks are not ported")
     for spec in tuple(cfg.layer_pattern) + tuple(cfg.remainder_specs):
-        if spec.mixer != ATTN or spec.mlp != DENSE:
+        if ((spec.mixer != ATTN and spec.mixer not in RECURRENT)
+                or spec.mlp not in (DENSE, NONE)):
             raise NotImplementedError(
-                f"{cfg.name}: layer {spec} is not ported (ATTN + DENSE "
-                "layers only)")
+                f"{cfg.name}: layer {spec} is not ported (attention, RG-LRU "
+                "and SSD mixers with a dense MLP or none)")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -125,16 +142,22 @@ def _kv_store_dtype(cfg: ModelConfig, kv_dtype: str) -> torch.dtype:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(b: ParamBuilder, path: str, cfg: ModelConfig, stacked: int):
+def _init_layer(b: ParamBuilder, path: str, spec: LayerSpec, cfg: ModelConfig,
+                stacked: int):
     lead = (stacked,) if stacked else ()
     d, hd = cfg.d_model, cfg.resolved_head_dim
     b.zeros(f"{path}.ln1", lead + (d,))
-    b.dense(f"{path}.attn.wq", lead + (d, cfg.num_heads * hd))
-    b.dense(f"{path}.attn.wk", lead + (d, cfg.num_kv_heads * hd))
-    b.dense(f"{path}.attn.wv", lead + (d, cfg.num_kv_heads * hd))
-    b.dense(f"{path}.attn.wo", lead + (cfg.num_heads * hd, d))
-    b.zeros(f"{path}.ln2", lead + (d,))
-    mlp_mod.init(b, f"{path}.mlp", d, cfg.d_ff, cfg.activation, stacked)
+    if spec.mixer == ATTN:
+        b.dense(f"{path}.attn.wq", lead + (d, cfg.num_heads * hd))
+        b.dense(f"{path}.attn.wk", lead + (d, cfg.num_kv_heads * hd))
+        b.dense(f"{path}.attn.wv", lead + (d, cfg.num_kv_heads * hd))
+        b.dense(f"{path}.attn.wo", lead + (cfg.num_heads * hd, d))
+    else:
+        name, mod, _ = RECURRENT[spec.mixer]
+        mod.init(b, f"{path}.{name}", cfg, stacked)
+    if spec.mlp == DENSE:
+        b.zeros(f"{path}.ln2", lead + (d,))
+        mlp_mod.init(b, f"{path}.mlp", d, cfg.d_ff, cfg.activation, stacked)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -146,10 +169,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     b.dense("embed.tok", (cfg.vocab_size, cfg.d_model),
             scale=cfg.d_model ** -0.5)
     nb = cfg.num_pattern_blocks
-    for j, _ in enumerate(cfg.layer_pattern):
-        _init_layer(b, f"blocks.p{j}", cfg, nb)
-    for j, _ in enumerate(cfg.remainder_specs):
-        _init_layer(b, f"rem.r{j}", cfg, 0)
+    for j, spec in enumerate(cfg.layer_pattern):
+        _init_layer(b, f"blocks.p{j}", spec, cfg, nb)
+    for j, spec in enumerate(cfg.remainder_specs):
+        _init_layer(b, f"rem.r{j}", spec, cfg, 0)
     b.zeros("final_norm", (cfg.d_model,))
     if not cfg.tie_embeddings:
         b.dense("lm_head", (cfg.d_model, cfg.vocab_size))
@@ -166,18 +189,29 @@ def _stacked(cfg: ModelConfig, make) -> dict:
                      for j, spec in enumerate(cfg.remainder_specs)})
 
 
+def _recurrent_state(cfg: ModelConfig, spec: LayerSpec, batch: int, device,
+                     lead) -> dict:
+    """A recurrent layer's dense per-slot state leaves, zeros."""
+    _, mod, _ = RECURRENT[spec.mixer]
+    return mod.init_state(cfg, batch, dtype_of(cfg.compute_dtype), device,
+                          lead)._asdict()
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                kv_dtype: str = "native") -> dict:
-    """Dense decode cache, stacked on LAYERS like the params: per layer
-    ``k``/``v`` of shape (batch, T, Hkv, D) with T = max_len, or
+    """Dense decode cache, stacked on LAYERS like the params: per attention
+    layer ``k``/``v`` of shape (batch, T, Hkv, D) with T = max_len, or
     ``min(window, max_len)`` ring rows and a ``kpos`` (batch, T) int32
     lane (``-10**9`` = empty) for a windowed layer; int8 adds float32
-    ``k_scale``/``v_scale`` (batch, T) lanes."""
+    ``k_scale``/``v_scale`` (batch, T) lanes.  A recurrent layer holds its
+    state leaves (batch, ...)."""
     check_supported(cfg)
     kvd = _kv_store_dtype(cfg, kv_dtype)
     hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
 
     def make(spec: LayerSpec, lead):
+        if spec.mixer != ATTN:
+            return _recurrent_state(cfg, spec, batch, device, lead)
         t = (min(spec.sliding_window, max_len)
              if spec.sliding_window is not None else max_len)
         c = {n: torch.zeros(lead + (batch, t, hkv, hd), dtype=kvd,
@@ -196,19 +230,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device, ring_pages: int = 0,
-                     kv_dtype: str = "native") -> dict:
+                     kv_dtype: str = "native", batch: int = 1) -> dict:
     """Per-layer page pools ``k_pages``/``v_pages`` of shape
     (P, page, Hkv, D), stacked on LAYERS like the params.  Full-attention
     layers share the ``num_pages`` pool's ids, windowed layers the
     ``ring_pages`` pool's (default: ``num_pages``): one host-side allocator
     and table for each kind.  int8 adds float32 ``k_scale``/``v_scale``
-    (P, page) lanes."""
+    (P, page) lanes.  Recurrent layers keep dense (batch, ...) state rows
+    beside the pools."""
     check_supported(cfg)
     kvd = _kv_store_dtype(cfg, kv_dtype)
     ring_pages = ring_pages or num_pages
     hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
 
     def make(spec: LayerSpec, lead):
+        if spec.mixer != ATTN:
+            return _recurrent_state(cfg, spec, batch, device, lead)
         p = ring_pages if spec.sliding_window is not None else num_pages
         c = {n: torch.zeros(lead + (p, page_size, hkv, hd), dtype=kvd,
                             device=device) for n in ("k_pages", "v_pages")}
@@ -440,16 +477,80 @@ def _apply_attn(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
     return o.reshape(bsz, s, cfg.num_heads * hd) @ p["wo"], cache
 
 
+def _recurrent_chunk(mod, state_type, p, h, cache: dict, cfg: ModelConfig,
+                     pos, slot: int):
+    """A paged prefill chunk through a recurrent mixer: the chunk (batch 1)
+    continues slot ``slot``'s state row, which is written back in place.
+    At offset 0 (a freshly admitted request) the row restarts from zeros:
+    the slot may hold its previous occupant's state, or what masked decode
+    ticks left.  The test is made on the device, so the chunk needs no
+    host sync."""
+    fresh = pos.reshape(-1)[:1] == 0
+    st = {}
+    for n, leaf in cache.items():
+        row = leaf[slot:slot + 1]
+        st[n] = torch.where(fresh.reshape((1,) * row.dim()),
+                            torch.zeros_like(row), row)
+    mix, st1 = mod.forward(p, h, cfg, return_state=True,
+                           state=state_type(**st))
+    for n, leaf in st1._asdict().items():
+        cache[n][slot:slot + 1] = leaf.to(cache[n].dtype)
+    return mix
+
+
+def _freeze_inactive(new: dict, old: dict, active) -> dict:
+    """Keep the state rows of inactive slots.  Attention pages are
+    write-idempotent under a frozen position (or steered to the null
+    page), a recurrent update is not: a pending prefill's partial state
+    must survive the masked decode ticks between its chunks."""
+    if active is None:
+        return new
+    return {n: torch.where(active.reshape((-1,) + (1,) * (v.dim() - 1)),
+                           v, old[n]) for n, v in new.items()}
+
+
+def _apply_recurrent(spec: LayerSpec, p, h, cfg: ModelConfig, mode, cache,
+                     pos, slot, active):
+    """A recurrent mixer in each mode: decode advances every row of the
+    state (``paged_decode`` only the active ones) in place; a paged chunk
+    continues ``slot``'s row; prefill returns the prompt's state."""
+    name, mod, state_type = RECURRENT[spec.mixer]
+    p = p[name]
+    if mode in ("decode", "paged_decode"):
+        mix, new = mod.decode_step(p, h, state_type(**cache), cfg)
+        new = new._asdict()
+        if mode == "paged_decode":
+            new = _freeze_inactive(new, cache, active)
+        for n, v in new.items():
+            cache[n].copy_(v)
+        return mix, cache
+    if mode == "paged_extend":
+        if slot is None:
+            raise ValueError(f"{cfg.name}: a paged prefill chunk through a "
+                             "recurrent layer needs the slot it continues")
+        return (_recurrent_chunk(mod, state_type, p, h, cache, cfg, pos,
+                                 slot), cache)
+    mix, st = mod.forward(p, h, cfg, return_state=True)
+    return mix, st._asdict()
+
+
 def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
-                 mode, cache, pos, table, chunk_valid):
+                 mode, cache, pos, table, chunk_valid, slot=None,
+                 active=None):
     """Returns (x, the layer's cache: the one given, written in place, or
-    the prompt's new k/v in prefill)."""
+    the prompt's new k/v or state in prefill)."""
     h = rms_norm(x, p["ln1"])
-    mix, cache = _apply_attn(p["attn"], h, cfg, spec, flags, mode, cache, pos,
-                             table, chunk_valid)
+    if spec.mixer == ATTN:
+        mix, cache = _apply_attn(p["attn"], h, cfg, spec, flags, mode, cache,
+                                 pos, table, chunk_valid)
+    else:
+        mix, cache = _apply_recurrent(spec, p, h, cfg, mode, cache, pos,
+                                      slot, active)
     x = x + mix
-    h = rms_norm(x, p["ln2"])
-    return x + mlp_mod.apply(p["mlp"], h, cfg.activation), cache
+    if spec.mlp == DENSE:
+        h = rms_norm(x, p["ln2"])
+        x = x + mlp_mod.apply(p["mlp"], h, cfg.activation)
+    return x, cache
 
 
 def _pick(tree, i):
@@ -487,13 +588,15 @@ MODES = ("prefill", "decode", "paged_decode", "paged_extend")
 
 
 def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
-            cache=None, pos=None, table=None, chunk_valid=None):
+            cache=None, pos=None, table=None, chunk_valid=None, slot=None,
+            active=None):
     """tokens: (B, S) -> (final-normed hidden states (B, S, d), cache).
     ``prefill`` builds a new dense cache from the prompt (stacked like the
     params); the other modes write ``cache`` in place and return it.
     ``table``/``chunk_valid`` only apply to the paged modes: ``table`` is
     ``{"full": (B, N), "ring": (B, R)}`` (a bare (B, N) table serves a
-    stack without windowed layers)."""
+    stack without windowed layers).  ``slot`` (``paged_extend``) and
+    ``active`` (``paged_decode``) apply to recurrent layers only."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the port runs {MODES}")
     if table is not None and not isinstance(table, dict):
@@ -505,14 +608,15 @@ def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
             c = (None if cache is None
                  else _pick(cache["blocks"][f"p{j}"], i))
             x, c = _apply_layer(_pick(params["blocks"][f"p{j}"], i), x, cfg,
-                                spec, flags, mode, c, pos, table, chunk_valid)
+                                spec, flags, mode, c, pos, table, chunk_valid,
+                                slot, active)
             blocks[f"p{j}"].append(c)
     rem = {}
     for j, spec in enumerate(cfg.remainder_specs):
         c = None if cache is None else cache["rem"][f"r{j}"]
         x, rem[f"r{j}"] = _apply_layer(params["rem"][f"r{j}"], x, cfg, spec,
                                        flags, mode, c, pos, table,
-                                       chunk_valid)
+                                       chunk_valid, slot, active)
     if mode == "prefill":
         cache = dict(blocks={name: {n: torch.stack([c[n] for c in cs])
                                     for n in cs[0]}
@@ -552,28 +656,33 @@ def decode_step(params, cfg: ModelConfig, flags: RuntimeFlags, cache: dict,
 
 @torch.no_grad()
 def paged_decode_step(params, cfg: ModelConfig, flags: RuntimeFlags,
-                      cache: dict, tokens, pos, table):
+                      cache: dict, tokens, pos, table, active=None):
     """One decode tick against the page pools.  tokens: (B, 1); pos: (B,)
     per-slot positions; table: ``{"full": (B, N), "ring": (B, R)}`` int32
     page tables (padded entries -> the null page; windowed layers read the
     ring table, full-attention layers the full one).  Every attention
     layer appends k/v through its table and runs the ``paged_attention``
-    kernel.  Returns (logits (B, V), cache)."""
+    kernel; recurrent layers advance their dense state rows, except where
+    ``active`` (B,) bool is False: those rows keep their state.  Returns
+    (logits (B, V), cache)."""
     x, cache = forward(params, cfg, flags, tokens, "paged_decode", cache, pos,
-                       table)
+                       table, active=active)
     return compute_logits(params, cfg, x)[:, 0], cache
 
 
 @torch.no_grad()
 def paged_prefill_chunk(params, cfg: ModelConfig, flags: RuntimeFlags,
-                        cache: dict, tokens, pos, table, chunk_valid):
+                        cache: dict, tokens, pos, table, chunk_valid,
+                        slot: Optional[int] = None):
     """One chunked-prefill step: ``tokens`` (B, C) is a prompt chunk
     (right-padded to a bucket; ``chunk_valid`` (B,) marks its true length)
     at absolute offset ``pos`` (B,).  Appends the chunk's k/v into the
     pages (full tables and rotating ring tables alike) and returns (cache,
-    logits at the chunk's last valid position)."""
+    logits at the chunk's last valid position).  On a stack with recurrent
+    layers the chunk (B = 1) continues the state row of engine slot
+    ``slot``; at offset 0 the row restarts from zeros."""
     x, cache = forward(params, cfg, flags, tokens, "paged_extend", cache, pos,
-                       table, chunk_valid)
+                       table, chunk_valid, slot)
     bsz = x.shape[0]
     idx = chunk_valid.reshape(-1).long().expand(bsz) - 1
     last = x[torch.arange(bsz, device=x.device), idx][:, None]

@@ -32,6 +32,15 @@ windowed layers, as in the reference.  ``kv_dtype="int8"`` stores int8
 pools with float32 scale lanes, and its derived page holds as many tokens
 as the int8 row width allows.
 
+Recurrent layers (RG-LRU, SSD) keep dense per-slot state beside the
+pools, so a hybrid stack pages only its attention layers and a stack with
+no attention layer (mamba2) runs the paged backend with no pool at all.
+A prefill chunk continues its slot's state row (restarting it at offset
+0); a decode tick advances only the active slots' rows, so a pending
+prefill's partial state survives the masked ticks between its chunks.
+Prefix sharing and speculative decoding stay off on such stacks, as in
+the reference: recurrent state is neither cached by page nor rewound.
+
 Token selection is greedy argmax by default, or temperature/top-k/top-p
 sampling (``sampling``) with per-slot threefry keys bit-exact with JAX's
 (:mod:`repro_torch.serve.prng`): a slot's key is ``fold_in(PRNGKey(seed),
@@ -123,9 +132,9 @@ class ServeEngine:
     active slot up to ``window`` tokens per host sync.  ``bucket_prompts``
     pads dense prompts / paged prefill chunks to the next power of two
     (default: on for full-attention stacks, where right padding is masked;
-    every stack the port accepts is one).  ``cache_backend`` is
-    ``"dense"``, ``"paged"``, or ``None`` (paged wherever
-    :meth:`ModelBundle.paged_supported` allows).
+    off where a window or a recurrent state would take the pad in).
+    ``cache_backend`` is ``"dense"``, ``"paged"``, or ``None`` (paged
+    wherever :meth:`ModelBundle.paged_supported` allows).
 
     Paged knobs: ``page_size=None`` derives the page from the pool's dtype
     and head width (:func:`repro_torch.tune.derive_paged_plan`);
@@ -141,8 +150,9 @@ class ServeEngine:
     keys.  ``draft_bundle``/``draft_params`` (a pure full-attention decoder
     sharing the target's vocab, on the engine's device) switch the paged
     backend's ``decode_many`` to draft->verify rounds of ``spec_k``
-    proposals each; the target must be a pure full-attention stack, since a
-    ring cannot roll back a rejected suffix."""
+    proposals each; the target must be a pure full-attention stack, since
+    neither a ring nor a recurrent state can roll back a rejected
+    suffix."""
 
     def __init__(self, bundle: ModelBundle, params, batch_size: int,
                  max_len: int, *, window: int = 8,
@@ -185,9 +195,11 @@ class ServeEngine:
                                else bucket_prompts)
         if self.backend == "paged":
             specs = tuple(cfg.layer_pattern) + tuple(cfg.remainder_specs)
-            self.has_full = any(s.sliding_window is None for s in specs)
-            windows = [s.sliding_window for s in specs
+            attn = [s for s in specs if s.mixer == ATTN]
+            self.has_full = any(s.sliding_window is None for s in attn)
+            windows = [s.sliding_window for s in attn
                        if s.sliding_window is not None]
+            self.has_recurrent = any(s.mixer != ATTN for s in specs)
             # the ring is sized by the largest window (smaller ones mask
             # more); a window past max_len holds everything
             self.attn_window = (min(max(windows), max_len) if windows
@@ -208,8 +220,10 @@ class ServeEngine:
                                       or 1 + batch_size * self.ring_slots)
             self.prefill_chunk = max(8, prefill_chunk)
             # prefix pages are reusable only when every layer reads them:
-            # a ring rotates prefix tokens away
-            self.prefix_sharing = self.has_full and not windows
+            # a ring rotates prefix tokens away, and recurrent state is
+            # not cached by page
+            self.prefix_sharing = (self.has_full and not windows
+                                   and not self.has_recurrent)
         if draft_bundle is not None:
             self._init_spec(draft_bundle)
         # prefill shapes met so far (dense prompt buckets, paged chunk
@@ -226,7 +240,8 @@ class ServeEngine:
             raise ValueError(
                 "speculative decoding rides the paged fast path; "
                 "cache_backend='paged' is required")
-        if not (self.has_full and self.attn_window is None):
+        if not (self.has_full and self.attn_window is None
+                and not self.has_recurrent):
             raise ValueError(
                 f"{cfg.name}: speculative verify needs suffix rollback, "
                 "which only pure full-attention page tables support (ring "
@@ -278,7 +293,7 @@ class ServeEngine:
         self.prefix = PrefixIndex() if self.prefix_sharing else None
         self.cache = self.bundle.init_paged_cache(
             self.num_pages if self.has_full else 1, self.page,
-            ring_pages=self.num_ring_pages)
+            ring_pages=self.num_ring_pages, batch=self.bsz)
         self._htable = np.zeros((self.bsz, max(1, self.pages_per_seq)),
                                 np.int32)
         # a ring table is exactly ring_slots wide: K1 maps logical page j
@@ -327,13 +342,15 @@ class ServeEngine:
                        for t in leaves(self.cache)))
 
     def _page_bytes_by_kind(self):
-        """(full, ring) device bytes of ONE page summed over every layer
-        of that kind (k + v, plus the int8 scale lanes)."""
+        """(full, ring) device bytes of ONE page summed over every attention
+        layer of that kind (k + v, plus the int8 scale lanes)."""
         cfg = self.bundle.cfg
         nb = cfg.num_pattern_blocks
         n_full = n_ring = 0
         for spec, mult in ([(s, nb) for s in cfg.layer_pattern]
                            + [(s, 1) for s in cfg.remainder_specs]):
+            if spec.mixer != ATTN:
+                continue
             if spec.sliding_window is None:
                 n_full += mult
             else:
@@ -353,15 +370,24 @@ class ServeEngine:
         full_pb, ring_pb = self._page_bytes_by_kind()
         return full_pb or ring_pb
 
+    def _recurrent_state_bytes(self) -> int:
+        """The dense per-slot recurrent state (hybrid stacks): always live,
+        so everything the cache holds beside the pools."""
+        full_pb, ring_pb = self._page_bytes_by_kind()
+        pools = ((self.num_pages * full_pb if self.has_full else 0)
+                 + (self.num_ring_pages * ring_pb if self.ralloc else 0))
+        return self.kv_bytes() - pools
+
     def live_kv_bytes_peak(self) -> int:
         """Peak *live-token* device bytes: what the pools actually held
-        (full-pool and ring-pool page peaks), against the ``batch x
-        max_len`` footprint the dense backend commits up front (its
-        :meth:`kv_bytes`)."""
+        (full-pool and ring-pool page peaks) plus the recurrent state,
+        against the ``batch x max_len`` footprint the dense backend commits
+        up front (its :meth:`kv_bytes`)."""
         if self.backend == "paged":
             full_pb, ring_pb = self._page_bytes_by_kind()
             return (self.stats.pages_peak * full_pb
-                    + self.stats.ring_pages_peak * ring_pb)
+                    + self.stats.ring_pages_peak * ring_pb
+                    + self._recurrent_state_bytes())
         return self.kv_bytes()
 
     # ------------------------------------------------------------------
@@ -422,20 +448,22 @@ class ServeEngine:
     @staticmethod
     def _scatter_slot_cache(cache, cache1, slot: int):
         """Write a single-request prefill cache into the batch cache at
-        ``slot``, in place.  Stacked leaves (under ``blocks``) carry batch
-        at axis 1, remainder leaves at axis 0; rows past the prompt's are
-        cleared: k/v and scales to 0 (masked by the decode step's valid
-        length), a ring's ``kpos`` to ``-10**9`` (empty).  Returns the
-        batch cache."""
-        for part, lead in (("blocks", (slice(None),)), ("rem", ())):
+        ``slot``, in place, by the reference's rule: stacked leaves (under
+        ``blocks``) carry batch at axis 1, remainder leaves at axis 0, and
+        every other axis the prompt's leaf is shorter on is padded at its
+        end: k/v and scales with 0 (masked by the decode step's valid
+        length), a ring's ``kpos`` with ``-10**9`` (empty).  A recurrent
+        state leaf is written whole (a prompt shorter than the conv's
+        context gives a shorter ``conv`` leaf, padded at its end as the
+        reference pads it).  Returns the batch cache."""
+        for part, bax in (("blocks", 1), ("rem", 0)):
             for name, layer in cache[part].items():
                 for n, tgt in layer.items():
-                    upd = cache1[part][name][n][lead + (0,)]
-                    row = tgt[lead + (slot,)]
-                    s = upd.shape[len(lead)]
-                    row[lead + (slice(0, s),)] = upd.to(tgt.dtype)
-                    row[lead + (slice(s, None),)] = (
-                        SENTINEL if tgt.dtype == torch.int32 else 0)
+                    upd = cache1[part][name][n].select(bax, 0)
+                    row = tgt.select(bax, slot)
+                    row.fill_(SENTINEL if tgt.dtype == torch.int32 else 0)
+                    row[tuple(slice(0, m) for m in upd.shape)] = \
+                        upd.to(tgt.dtype)
         return cache
 
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
@@ -565,7 +593,7 @@ class ServeEngine:
             torch.tensor([off], dtype=torch.int32).to(dev),
             dict(full=torch.as_tensor(trow).to(dev),
                  ring=torch.as_tensor(rrow).to(dev)),
-            torch.tensor([c], dtype=torch.int32).to(dev))
+            torch.tensor([c], dtype=torch.int32).to(dev), slot)
         self.stats.prefill_chunks += 1
         off += c
         if off < s:
@@ -692,8 +720,10 @@ class ServeEngine:
         """n decode ticks on the device.  ``steps`` (B,) caps each slot:
         past its budget a slot is masked — its token and position freeze,
         and its cache write re-stores the same k/v at the frozen position
-        (or, paged, lands on the null page for a retired row).  Returns the
-        (n, B) token block, -1 where masked."""
+        (or, paged, lands on the null page for a retired row); paged, its
+        recurrent state rows keep their values, while the dense backend
+        advances every row, as the reference does.  Returns the (n, B)
+        token block, -1 where masked."""
         out = torch.full((n, self.bsz), -1, dtype=torch.int64,
                          device=self.device)
         for i in range(n):
@@ -704,7 +734,7 @@ class ServeEngine:
             else:
                 logits, self.cache = self.bundle.paged_decode_step(
                     self.params, self.cache, self.tokens, self.pos,
-                    self._table)
+                    self._table, act)
             nxt = self._select_next(logits, act)
             self.tokens = torch.where(act[:, None], nxt[:, None], self.tokens)
             self.pos = torch.where(act, self.pos + 1, self.pos)

@@ -180,10 +180,15 @@ def test_kernel_bf16_within_one_rounding(cuda, case):
 
 # the decode geometries of the model paths: gemma2-27b's local layers (a
 # ring table of ring_slots = 4096/8 + 1 pages, window 4096) and global
-# layers at up to 8192 tokens, softcap 50 and scale 144^-0.5, batch 4; and
-# gemma-2b with int8 pages of 16 tokens at a serve drain's lengths
+# layers at up to 8192 tokens, softcap 50 and scale 144^-0.5, batch 4;
+# gemma-2b with int8 pages of 16 tokens at a serve drain's lengths; and
+# recurrentgemma-9b's local-attention layers: 16 query heads over one kv
+# head (the whole 16-row tile of the mma) at D 256, a ring of 2048/8 + 1
+# pages, window 2048, batch 8, two rows past the window
 GEMMA2_SCALE = 144.0 ** -0.5
 MODEL_CASES = [
+    ("recurrentgemma-9b-ring", 8, 16, 1, 256, 8, 257,
+     [2116, 2616, 80, 529, 273, 166, 401, 388], dict(window=2048)),
     ("gemma2-27b-ring", 4, 32, 16, 128, 8, 513, [4176, 5136, 300, 8000],
      dict(window=4096, softcap=50.0, scale=GEMMA2_SCALE)),
     ("gemma2-27b-global", 4, 32, 16, 128, 8, 1024, [4176, 5136, 300, 8192],
@@ -1123,6 +1128,41 @@ def test_spec_drain_equals_vanilla_on_the_card(cuda, no_tf32, sampling):
     a = spec.alloc
     assert a.pages_in_use + len(a.free) == a.num_pages - a.reserved
     assert all(r >= 1 for r in a.ref.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["paged", "dense"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
+def test_hybrid_drain_card_equals_cpu(cuda, no_tf32, arch, backend):
+    """Smoke hybrid stacks, float32 weights drawn on the CPU: the card's
+    greedy tokens equal the CPU's.  Paged recurrentgemma-9b runs K1 once
+    per attention layer a tick over its ring (window 16: the 27-token
+    prompt turns it); mamba2-130m has no attention layer and no pool, and
+    launches nothing."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.configs.base import ATTN
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+
+    cfg = smoke_config(ARCHS[arch])
+    cpu = build(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    outs = []
+    for bundle, p in ((cpu, params),
+                      (build(cfg, device="cuda"), _tree_to(params, "cuda"))):
+        eng = ServeEngine(bundle, p, 2, 64, cache_backend=backend,
+                          prefill_chunk=8, device=str(bundle.device))
+        before = pa.LAUNCHES
+        outs.append(_drain(eng))
+    n_attn = sum(s.mixer == ATTN for s in cfg.layer_pattern) * \
+        cfg.num_pattern_blocks
+    launches = pa.LAUNCHES - before
+    if backend == "paged":
+        assert launches == n_attn * eng.stats.decode_steps
+        assert (launches > 0) == (arch == "recurrentgemma-9b")
+        if arch == "recurrentgemma-9b":
+            assert eng.stats.ring_pages_reused > 0
+    assert outs[0] == outs[1]
 
 
 # ---------------------------------------------------------------------------

@@ -285,8 +285,9 @@ def test_dense_prefill_and_decode_match_reference(name, impl):
 
 
 def test_runtime_flags_refuse_what_is_not_ported():
-    """int8 KV and sliding windows are served; unknown flags and the
-    recurrent, MoE and encoder-decoder stacks are refused."""
+    """int8 KV, sliding windows and recurrent (SSD, RG-LRU) layers with a
+    dense MLP or none are served; unknown flags and the MoE and
+    encoder-decoder stacks are refused."""
     from repro_torch.configs import LayerSpec
     from repro_torch.configs.base import MOE, SSD
     cfg = t_smoke(T_ARCHS["phi4-mini-3.8b"])
@@ -296,7 +297,9 @@ def test_runtime_flags_refuse_what_is_not_ported():
         t_build(cfg, TRuntimeFlags(kv_dtype="fp8"), device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         t_build(cfg, TRuntimeFlags(attn_impl="unrolled"), device="cpu")
-    for spec in (LayerSpec(mixer=SSD), LayerSpec(mlp=MOE)):
+    t_build(t_override(cfg, layer_pattern=(LayerSpec(mixer=SSD),)),
+            device="cpu")
+    for spec in (LayerSpec(mlp=MOE), LayerSpec(mixer=SSD, mlp=MOE)):
         with pytest.raises(NotImplementedError, match="not ported"):
             t_build(t_override(cfg, layer_pattern=(spec,)), device="cpu")
     with pytest.raises(NotImplementedError, match="encoder-decoder"):

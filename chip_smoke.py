@@ -151,8 +151,32 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 24. ring parity and int8 parity: gemma2-27b's (local, global) pair at its
    published widths (window narrowed to 32 so the ring turns in a short
    drain) and 2-layer gemma-2b with int8 KV, float32, drained on the card
-   (K1) and on the CPU (plain path); the tokens must agree;
-25. hybrid serve: full-width recurrentgemma-9b (38 layers: 26 RG-LRU
+   (K1) and on the CPU (plain path); the tokens must agree; then the
+   pair preempted under chaos in recompute mode (``[preempt parity]``; a
+   ring holds no host tier): tokens, keys and every counter card == CPU;
+25. host link: device -> host and host -> device GB/s through pinned and
+   pageable memory, over one full-width gemma-2b swap (a 300-token
+   context, 38 pages of 147,456 B) and over 256 MiB;
+26. preempt serve: full-width gemma-2b (bf16) on the serve phase's engine
+   geometry and 16 requests, odd rids high priority: a pool-pressure drain
+   over about half the serve phase's page peak must preempt and swap;
+   its tokens equal the serve phase's when no victim was recomputed
+   (the requests that parted are printed either way); chaos drains (seed
+   13, preempt 0.25, exhaust 0.2) of the three shortest prompts of the
+   first 8 requests with a decode window of 2: forced swap (tokens equal the
+   serve phase's), forced recompute and the cost model with 30%
+   corruption (requests that part from the serve phase's tokens counted:
+   a recomputed bf16 row rounds as a prefill chunk does), forced swap on
+   int8 pages of 16 tokens (tokens equal the int8 serve phase's); each
+   drain completes, conserves pages and launches K1 once a layer a tick;
+   then the resume walls of a 300-token context by swap and by recompute;
+27. preempt parity: 2-layer full-width gemma-2b in float32 on the card
+   and on the CPU, greedy and sampled, undisturbed and under chaos in the
+   three modes (cost model with 30% corruption), and greedy through
+   evacuate -> adopt mid-stream and export -> import between two
+   engines: tokens, keys and every counter card == CPU, and every drive's
+   tokens the undisturbed drain's;
+28. hybrid serve: full-width recurrentgemma-9b (38 layers: 26 RG-LRU
    layers on dense per-slot state and 12 local-attention layers, 16 query
    heads over one kv head at D 256, window 2048; 17.3 GB of bf16 weights
    drawn on the card) through the paged engine, batch 8, max_len 4096,
@@ -162,45 +186,48 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    launch K1 once per attention layer (12) on the ring tables, the ring
    must turn and every ring page be back at the end; the warm tick, the ms
    per 256-token chunk and a profiled decode window follow;
-26. ssm serve: full-width mamba2-130m (24 SSD layers, no attention)
+29. ssm serve: full-width mamba2-130m (24 SSD layers, no attention)
    through the paged engine with no pool at all: six prompts of 64-512
    tokens and one of 600, 16 new tokens each, drained twice with identical
    tokens and no K1 launch;
-27. hybrid parity: recurrentgemma-9b at published widths cut to 5 layers
+30. hybrid parity: recurrentgemma-9b at published widths cut to 5 layers
    (one triple and both remainder RG-LRU layers), float32, window
    narrowed to 32, drained on the card and on the CPU through the paged
    backend (K1) and through the dense backend with ``attn_impl="pallas"``
-   (K2 in every prefill's attention layer); the tokens must agree;
-28. ssm parity: float32 mamba2-130m at full width, prompts of 300 and 517
+   (K2 in every prefill's attention layer); the tokens must agree; the
+   paged drain again under chaos in recompute mode (the resumed RG-LRU
+   state comes from the prefill scan), card == CPU;
+31. ssm parity: float32 mamba2-130m at full width, prompts of 300 and 517
    tokens in prefill chunks of 512 (whole and padded SSD chunks of 256),
    drained on the card and on the CPU; the tokens must agree;
-29. prng: JAX's threefry keys and bits (``repro_torch.serve.prng``) at
+32. prng: JAX's threefry keys and bits (``repro_torch.serve.prng``) at
    (8, 256000) on the card exactly equal to the CPU's (bits, ``split``,
    ``fold_in``, ``subkey_chain``, ``uniform``), ``gumbel`` within 2 ulp;
    the sampler at gemma-2b's vocab for (temperature 0.9, top_p 0.95) and
    (temperature 0.8, top_k 50): masks, draws and times;
-30. sampled serve: full-width gemma-2b (bf16) through the paged engine
+33. sampled serve: full-width gemma-2b (bf16) through the paged engine
    with each sampling setting (keys seeded with 3), then the first on
-   int8 pages: the serve phase's 16 requests with the first setting, its
-   first 8 (one batch, the run's time) with the others, each drained twice
-   with identical tokens, K1 once a layer on every tick, the warm tick
+   int8 pages: the serve phase's first 8 requests (one batch, the run's
+   time), each drained twice with identical tokens, K1 once a layer on every tick, the warm tick
    beside the greedy tick of phase 5;
-31. sampled parity: the parity phase's model and requests sampled with
+34. sampled parity: the parity phase's model and requests sampled with
    (temperature 0.9, top_p 0.95) on the card and on the CPU: tokens and
    final keys must agree;
-32. spec serve: full-width gemma-2b in float32, the serve phase's first 8
+35. spec serve: full-width gemma-2b in float32, the serve phase's first 8
    requests through the vanilla engine and speculative engines (spec_k 3),
    greedy and sampled, drafting with the target itself and with weights
    from another seed (the draft's dense prefill through K2): tokens equal
    to vanilla, the self-draft's accept rate 1.0, the other draft's
    sampled proposals partly rejected, the pools conserve pages; rounds,
    accepted drafts per round and ms per round printed;
-33. bench serve: the ``serve``, ``kernel_plan``, ``paged_serve`` and
+36. bench serve: the ``serve``, ``kernel_plan``, ``paged_serve`` and
    ``spec_serve`` sweeps at card scale, twice, persisted under
    ``build/bench_serve``, then ``repro_torch.bench.compare`` between the
    two runs: every row and verdict printed, and ``--gate structural``
    (deterministic rows equal, no vanished metric) must pass; wall-clock
-   verdicts are advisory.
+   verdicts are advisory; the ``preempt_serve`` sweep once at card scale
+   (full-width gemma-2b in float32, the reference's larger mix), its
+   gates in the sweep.
 
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
@@ -211,8 +238,8 @@ It ends with a ``[previous]`` line (K1's, K2's, K3's, K4's and K8's times
 before their redesign, and K1's int8 pages on the CUDA cores, as PERF.md
 records them: not measured in this run),
 the kernels' JSON line (K1, K2, K3, K4 and K8 also carry their design, K7
-its latency bound; K1 its launches on each serving path, the sampled and
-hybrid ones included, and its times at the new geometries), the card line and the
+its latency bound; K1 its launches on each serving path, the sampled,
+hybrid and preempted ones included, and its times at the new geometries), the card line and the
 result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
@@ -1045,7 +1072,8 @@ def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks):
     K1 launches = attention layers x decode ticks (ticks > 0), then
     ``extra_checks(run)``, and that both drains gave the same tokens.
     Prints one ``[tag]`` line a run; returns the warm run's launches and
-    its ms per decode tick, ms per prefill chunk and tokens per second."""
+    its ms per decode tick, ms per prefill chunk, tokens per second, page
+    peak and tokens."""
     cfg = eng.bundle.cfg
     launches = 0
     warm = {}
@@ -1088,7 +1116,8 @@ def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks):
               f"{extra}", flush=True)
         warm = dict(tick_ms=1e3 * eng.decode_s / st.decode_steps,
                     tok_s=st.tokens_out / dt,
-                    chunk_ms=1e3 * eng.prefill_s / st.prefill_chunks)
+                    chunk_ms=1e3 * eng.prefill_s / st.prefill_chunks,
+                    pages_peak=st.pages_peak, tokens=tokens[-1])
     check(tokens[0] == tokens[1], f"{tag}: the two drains' tokens differ")
     print(f"[{tag}] drains_equal=True", flush=True)
     return launches, warm
@@ -1195,13 +1224,13 @@ def int8_serve_phase(torch, np, card):
                 f"page_tokens={eng.page} "
                 f"bf16_page_tokens={bf16_page} derived_int8_page={int8_page}")
 
-    launches, _ = serve_runs(torch, eng, reqs, "int8 serve", card,
-                             cfg.num_layers, pa, checks)
+    launches, warm = serve_runs(torch, eng, reqs, "int8 serve", card,
+                                cfg.num_layers, pa, checks)
     for line in profile_window(torch, eng, reqs, steps=(
             ("decode window", _prepare_decode),)):
         print(line.replace("[profile]", "[profile] arch=gemma-2b kv=int8"),
               flush=True)
-    return launches
+    return launches, warm
 
 
 def attention_layers(cfg):
@@ -1213,7 +1242,8 @@ def attention_layers(cfg):
 
 def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc,
                     sampling=None, backend="paged", max_len=128,
-                    prefill_chunk=32, params=None):
+                    prefill_chunk=32, params=None, drives=None, record=None,
+                    window=8):
     """The same float32 weights (drawn on the card, or ``params`` there,
     copied to the CPU) drain the same requests on the card and on the CPU
     (the plain path); tokens must agree (greedy, or drawn with
@@ -1221,7 +1251,17 @@ def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc,
     too).  Paged: every card tick must launch K1 once per attention layer,
     and a windowed stack's ring must turn on both.  Dense with
     ``attn_impl="pallas"``: every card prefill must launch K2 once per
-    attention layer."""
+    attention layer.
+
+    ``drives`` maps a label to ``drive(eng, reqs, make_engine)``, which
+    drains ``reqs`` its own way (under chaos, or through a second engine
+    from ``make_engine()``) and returns the engines whose ticks ran; each
+    drive runs on both devices after a reset (None: the plain drain), and
+    its tokens, final keys and every ``ServeStats`` counter of those
+    engines must agree.  ``record`` (a dict) receives each drive's tokens
+    and counters.  ``window`` is the engines' decode window."""
+    import dataclasses
+
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import build
@@ -1233,55 +1273,83 @@ def card_cpu_parity(torch, np, cfg, flags, reqs_of, tag, desc,
     card_params = params or card_bundle.init(
         torch.Generator(device="cuda").manual_seed(1))
     n_attn = attention_layers(cfg)
-    outs, reused, keys = {}, {}, {}
+    drives = drives or {"drain": None}
+    outs, reused, keys, stats = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         bundle = card_bundle if dev == "cuda" else build(cfg, flags,
                                                          device="cpu")
         p = card_params if dev == "cuda" else _to(card_params, "cpu")
-        eng = ServeEngine(bundle, p, 4, max_len, sampling=sampling, seed=3,
-                          cache_backend=backend, prefill_chunk=prefill_chunk,
-                          device=dev)
-        reqs = reqs_of()
-        pa.reset_launches()
-        fa.reset_launches()
-        for r in reqs:
-            eng.add_request(r)
-        eng.run_to_completion()
-        outs[dev] = [r.out_tokens for r in reqs]
-        reused[dev] = eng.stats.ring_pages_reused
-        keys[dev] = eng.keys.cpu()
-        if dev == "cuda" and backend == "paged":
-            check(pa.LAUNCHES == n_attn * eng.stats.decode_steps
-                  and eng.stats.decode_steps > 0,
-                  f"{tag}: the drain on the card did not run K1 on every "
-                  f"attention layer of every tick ({pa.LAUNCHES} launches, "
-                  f"{n_attn} x {eng.stats.decode_steps})")
-        if dev == "cuda" and backend == "dense" and bundle.flags.attn_impl \
-                == "pallas":
-            check(fa.LAUNCHES == n_attn * eng.stats.prefills > 0,
-                  f"{tag}: the dense prefills on the card did not run K2 "
-                  f"on every attention layer ({fa.LAUNCHES} launches, "
-                  f"{n_attn} x {eng.stats.prefills})")
-        check(all(len(t) == r.max_new_tokens for t, r in zip(outs[dev],
-                                                               reqs)),
-              f"{tag} {dev}: budget missed")
+
+        def make(bundle=bundle, p=p, dev=dev):
+            return ServeEngine(bundle, p, 4, max_len, window=window,
+                               sampling=sampling, seed=3,
+                               cache_backend=backend,
+                               prefill_chunk=prefill_chunk, device=dev)
+
+        eng = make()
+        for label, drive in drives.items():
+            eng.reset()
+            reqs = reqs_of()
+            pa.reset_launches()
+            fa.reset_launches()
+            if drive is None:
+                for r in reqs:
+                    eng.add_request(r)
+                eng.run_to_completion()
+                used = [eng]
+            else:
+                used = drive(eng, reqs, make)
+            key = (dev, label)
+            outs[key] = [list(r.out_tokens) for r in reqs]
+            reused[key] = sum(e.stats.ring_pages_reused for e in used)
+            keys[key] = torch.cat([e.keys.cpu() for e in used])
+            stats[key] = [dataclasses.asdict(e.stats) for e in used]
+            ticks = sum(e.stats.decode_steps for e in used)
+            prefills = sum(e.stats.prefills for e in used)
+            if dev == "cuda" and backend == "paged":
+                check(pa.LAUNCHES == n_attn * ticks and ticks > 0,
+                      f"{tag} {label}: the drain on the card did not run K1 "
+                      f"on every attention layer of every tick "
+                      f"({pa.LAUNCHES} launches, {n_attn} x {ticks})")
+            if dev == "cuda" and backend == "dense" and bundle.flags.attn_impl \
+                    == "pallas":
+                check(fa.LAUNCHES == n_attn * prefills > 0,
+                      f"{tag} {label}: the dense prefills on the card did "
+                      f"not run K2 on every attention layer ({fa.LAUNCHES} "
+                      f"launches, {n_attn} x {prefills})")
+            check(all(len(t) == r.max_new_tokens
+                      for t, r in zip(outs[key], reqs)),
+                  f"{tag} {label} {dev}: budget missed")
+            del used
         del eng, p
-    if backend == "paged" and any(s.sliding_window
-                                  for s in cfg.layer_pattern):
-        check(reused["cuda"] > 0 and reused["cpu"] > 0,
-              f"{tag}: the ring never turned")
-    same = outs["cpu"] == outs["cuda"]
-    same_keys = bool(torch.equal(keys["cpu"], keys["cuda"]))
-    print(f"[{tag}] {desc} backend={backend} requests={len(outs['cpu'])} "
-          f"ring_pages_reused={reused['cuda']} cuda_equals_cpu={same} "
-          f"keys_equal={same_keys}", flush=True)
-    check(same, f"{tag}: tokens differ: cpu {outs['cpu']} cuda "
-          f"{outs['cuda']}")
-    check(same_keys, f"{tag}: final keys differ: cpu {keys['cpu']} cuda "
-          f"{keys['cuda']}")
-    if sampling is not None and not sampling.greedy:
-        check(bool(keys["cpu"].any()), f"{tag}: the sampled drain left "
-              "every key zero")
+    for label in drives:
+        c, g = ("cpu", label), ("cuda", label)
+        if backend == "paged" and any(s.sliding_window
+                                      for s in cfg.layer_pattern):
+            check(reused[g] > 0 and reused[c] > 0,
+                  f"{tag} {label}: the ring never turned")
+        same = outs[c] == outs[g]
+        same_keys = bool(torch.equal(keys[c], keys[g]))
+        same_stats = stats[c] == stats[g]
+        drive = "" if drives == {"drain": None} else f" drive='{label}'"
+        print(f"[{tag}] {desc} backend={backend}{drive} "
+              f"requests={len(outs[c])} ring_pages_reused={reused[g]} "
+              f"cuda_equals_cpu={same} keys_equal={same_keys}"
+              + ("" if drives == {"drain": None} else
+                 f" stats_equal={same_stats} " + " ".join(
+                     f"{k}={sum(st[k] for st in stats[g])}"
+                     for k in PREEMPT_COUNTERS)), flush=True)
+        check(same, f"{tag} {label}: tokens differ: cpu {outs[c]} cuda "
+              f"{outs[g]}")
+        check(same_keys, f"{tag} {label}: final keys differ: cpu {keys[c]} "
+              f"cuda {keys[g]}")
+        check(same_stats, f"{tag} {label}: counters differ: cpu {stats[c]} "
+              f"cuda {stats[g]}")
+        if sampling is not None and not sampling.greedy:
+            check(bool(keys[c].any()), f"{tag} {label}: the sampled drain "
+                  "left every key zero")
+        if record is not None:
+            record[label] = dict(tokens=outs[c], stats=stats[c])
     return card_params
 
 
@@ -1294,12 +1362,21 @@ def ring_parity_phase(torch, np):
     cfg = override(ARCHS["gemma2-27b"], num_layers=2, param_dtype="float32",
                    compute_dtype="float32",
                    layer_pattern=(LayerSpec(sliding_window=32), LayerSpec()))
-    card_cpu_parity(
-        torch, np, cfg, None,
-        lambda: make_requests(np, Request, cfg.vocab_size, 2, 6, (20, 72),
-                              17, (0, 4), 8),
-        "ring parity", "arch=gemma2-27b (local, global) pair, full width, "
-        "float32, window narrowed 4096->32, softcap 50, scale 144^-0.5")
+
+    def reqs():
+        return make_requests(np, Request, cfg.vocab_size, 2, 6, (20, 72),
+                             17, (0, 4), 8)
+
+    desc = ("arch=gemma2-27b (local, global) pair, full width, float32, "
+            "window narrowed 4096->32, softcap 50, scale 144^-0.5")
+    params = card_cpu_parity(torch, np, cfg, None, reqs, "ring parity", desc)
+    # preempted under chaos (the first 2 requests: each chunk of the pair
+    # takes seconds on the CPU): a ring stack holds no host tier, so its
+    # victims resume by recompute (prefill chunks over the ring)
+    card_cpu_parity(torch, np, cfg, None, lambda: reqs()[:2],
+                    "preempt parity", desc, params=params,
+                    window=PARITY_WINDOW,
+                    drives={"chaos recompute": _chaos_drive("recompute")})
 
 
 def int8_parity_phase(torch, np):
@@ -1314,6 +1391,409 @@ def int8_parity_phase(torch, np):
         lambda: make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40), 17,
                               (0, 4), 8),
         "int8 parity", "arch=gemma-2b full width, 2 layers, float32, int8 KV")
+
+
+# ---------------------------------------------------------------------------
+# preemption: the host link, the host swap tier and chaos
+# ---------------------------------------------------------------------------
+
+# the counters a preempted drain's line prints
+PREEMPT_COUNTERS = ("preemptions", "preempt_restarts", "swap_outs",
+                    "swap_ins", "swap_bytes", "recompute_resumes",
+                    "swap_fallbacks", "prefill_exports", "prefill_imports",
+                    "transfer_bytes", "pool_stalls")
+# gemma-2b's page across its 18 layers (k and v, one kv head, D 256, bf16,
+# 8 tokens) and a 300-token context's pages
+GEMMA_PAGE_BYTES = 18 * 2 * 8 * 256 * 2
+SWAP_PAGES = 38
+# the chaos of the preempt serve phase's drains, on the three shortest
+# prompts of the first 8 requests with a decode window of 2: a storm
+# restarts a mid-prefill slot, so an n-chunk prompt costs about
+# ((4/3)^n - 1) / 0.25 chunks (all of the first 8, up to 13 chunks each,
+# took 650-740 chunks a drain); a short window gives the storms more
+# rounds of decoding slots to swap
+PREEMPT_CHAOS = dict(seed=13, preempt_prob=0.25, exhaust_prob=0.2)
+CHAOS_REQUESTS, CHAOS_WINDOW = 3, 2
+# the parity drains' decode window: 8 new tokens take 4 rounds, so the
+# storms between rounds find slots mid-stream
+PARITY_WINDOW = 2
+
+
+def host_link_phase(torch, card):
+    """Device -> host and host -> device rates through pinned and pageable
+    host memory: one full-width gemma-2b swap (a 300-token context, 38
+    pages of 147,456 B) and 256 MiB; host clock around each copy, the
+    device synchronised, best and median of the trials; the bytes must
+    come back equal."""
+    out = {}
+    for label, n, trials in (("gemma-2b swap", SWAP_PAGES * GEMMA_PAGE_BYTES,
+                              20),
+                             ("256MiB", 256 * 2**20, 8)):
+        dev = torch.randint(0, 256, (n,), dtype=torch.uint8, device="cuda")
+        back = torch.empty_like(dev)
+        for kind in ("pinned", "pageable"):
+            host = torch.empty(n, dtype=torch.uint8,
+                               pin_memory=kind == "pinned")
+            rates = {}
+            for direction, dst, src in (("d2h", host, dev),
+                                        ("h2d", back, host)):
+                walls = []
+                for _ in range(trials + 1):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    dst.copy_(src, non_blocking=kind == "pinned")
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                walls = sorted(walls[1:])
+                rates[direction] = (n / walls[0] / 1e9,
+                                    n / walls[len(walls) // 2] / 1e9)
+            check(torch.equal(back, dev), f"[host link] {label} {kind}: "
+                  "the bytes did not come back equal")
+            out[label, kind] = rates
+            print(f"[host link] card='{card}' bytes={n} ({label}) "
+                  f"host={kind} d2h_GBps={rates['d2h'][0]:.2f} "
+                  f"(median {rates['d2h'][1]:.2f}) "
+                  f"h2d_GBps={rates['h2d'][0]:.2f} "
+                  f"(median {rates['h2d'][1]:.2f}) trials={trials}",
+                  flush=True)
+            del host
+        del dev, back
+    return out
+
+
+def swap_timed_engine_class(torch, ServeEngine):
+    """The timed engine, also timing its page gathers (device -> pinned
+    host) and scatters (host -> device), each closed by a synchronise."""
+    base = timed_engine_class(torch, ServeEngine)
+
+    class SwapTimedEngine(base):
+        def _init_state(self):
+            super()._init_state()
+            self.gather_s, self.gathers = 0.0, 0
+            self.scatter_s, self.scatters = 0.0, 0
+
+        def _gather_to_host(self, pids):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._gather_to_host(pids)
+            self.gather_s += time.perf_counter() - t0
+            self.gathers += 1
+            return out
+
+        def _scatter_from_host(self, pids, data):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._scatter_from_host(pids, data)
+            torch.cuda.synchronize()
+            self.scatter_s += time.perf_counter() - t0
+            self.scatters += 1
+    return SwapTimedEngine
+
+
+class CrcClock:
+    """Times the host tier's checksums (every put and every get) while
+    installed: ``hosttier.checksum_pages`` is looked up at call time."""
+
+    def __init__(self, hosttier):
+        self.mod, self.orig = hosttier, hosttier.checksum_pages
+        self.s, self.n, self.bytes = 0.0, 0, 0
+
+    def __enter__(self):
+        def timed(data, n_pages):
+            t0 = time.perf_counter()
+            crc = self.orig(data, n_pages)
+            self.s += time.perf_counter() - t0
+            self.n += 1
+            return crc
+        self.mod.checksum_pages = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.checksum_pages = self.orig
+
+
+def pages_conserved(eng):
+    a = eng.alloc
+    return (not a.tables and a.pages_in_use + len(a.free)
+            == a.num_pages - a.reserved and set(a.ref) == a.pinned
+            and all(r == 1 for r in a.ref.values()))
+
+
+def preempt_serve_phase(torch, np, card, greedy, int8_warm):
+    """Full-width gemma-2b (bf16) on ``[serve]``'s engine geometry (batch
+    8, max_len 1024, pages of 8, chunks of 32) and 16 requests, odd rids
+    high priority.  A pool-pressure drain over about half ``[serve]``'s
+    page peak (at least twice the largest request's pages) must preempt
+    and swap; chaos drains of the ``CHAOS_REQUESTS`` shortest prompts of
+    the first 8 requests (``PREEMPT_CHAOS``, a window of
+    ``CHAOS_WINDOW``) force swap (no
+    corruption), force recompute, leave it to the cost model with 30%
+    corruption, and force swap on int8 pages of 16 tokens.
+    Every drain completes with its pages conserved and K1 launched once a
+    layer on every tick; the swap drains give ``[serve]``'s and
+    ``[int8 serve]``'s tokens for the same rids (swap moves rows bit for
+    bit), the recompute and cost-model drains print how many requests
+    parted (a recomputed bf16 row comes from a prefill chunk, not a
+    decode step).  Then the resume walls of a 300-token context, by swap
+    and by recompute (no prefix cache)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import RuntimeFlags, build
+    from repro_torch.serve import (ChaosConfig, ChaosEngine, Request,
+                                   ServeEngine, hosttier)
+
+    cfg = ARCHS["gemma-2b"]
+    bundle, params = load_model(torch, cfg)
+    int8 = build(cfg, RuntimeFlags(kv_dtype="int8"))
+    reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
+                         (0, 9, 12, 15), 32)
+    for r in reqs:
+        r.priority = r.rid % 2
+    most = max(-(-(r.prompt.shape[0] + r.max_new_tokens) // 8) for r in reqs)
+    num_pages = 1 + max(greedy["pages_peak"] // 2, 2 * most)
+    Timed = swap_timed_engine_class(torch, ServeEngine)
+    launches = {}
+
+    def run(eng, batch, label, chaos=None, want=None, counter=None):
+        eng.reset()
+        for r in batch:
+            r.out_tokens.clear()
+        pa.reset_launches()
+        with CrcClock(hosttier) as crc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if chaos is None:
+                for r in batch:
+                    eng.add_request(r)
+                eng.run_to_completion()
+            else:
+                ch = ChaosEngine(eng, ChaosConfig(**PREEMPT_CHAOS, **chaos))
+                for r in batch:
+                    ch.add_request(r)
+                ch.run_to_completion()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        st = eng.stats
+        check(all(len(r.out_tokens) == r.max_new_tokens for r in batch),
+              f"preempt serve {label}: a request missed its budget")
+        check(pages_conserved(eng), f"preempt serve {label}: pages not "
+              "conserved")
+        check(pa.LAUNCHES == cfg.num_layers * st.decode_steps
+              and st.decode_steps > 0, f"preempt serve {label}: K1 launches "
+              f"{pa.LAUNCHES} != {cfg.num_layers} x {st.decode_steps} ticks")
+        check(st.preemptions > 0, f"preempt serve {label}: nothing was "
+              "preempted")
+        if counter is not None:
+            check(getattr(st, counter) > 0, f"preempt serve {label}: "
+                  f"{counter} = 0")
+        got = [list(r.out_tokens) for r in batch]
+        parted = (None if want is None
+                  else sum(g != w for g, w in zip(got, want)))
+        launches[f"preempt serve {label}"] = pa.LAUNCHES
+        per = lambda s, n: f"{1e3 * s / n:.3f}" if n else "n/a"  # noqa: E731
+        print(f"[preempt serve] card='{card}' drain='{label}' "
+              f"kv_dtype={eng.kv_store_dtype} page={eng.page} "
+              f"pool_pages={eng.num_pages} requests={len(batch)} "
+              f"seconds={dt:.3f} tokens_out={st.tokens_out} "
+              f"decode_steps={st.decode_steps} "
+              f"ms_per_decode_tick={per(eng.decode_s, st.decode_steps)} "
+              f"prefill_chunks={st.prefill_chunks} "
+              f"ms_per_prefill_chunk={per(eng.prefill_s, st.prefill_chunks)} "
+              + " ".join(f"{k}={getattr(st, k)}" for k in PREEMPT_COUNTERS)
+              + f" swap_out_ms_per_request={per(eng.gather_s, eng.gathers)}"
+              f" swap_in_ms_per_request={per(eng.scatter_s, eng.scatters)}"
+              f" crc_ms={per(crc.s, crc.n)} crcs={crc.n} "
+              f"pages_peak={st.pages_peak} k1_launches={pa.LAUNCHES} "
+              f"requests_parted="
+              f"{'not compared' if parted is None else parted}",
+              flush=True)
+        return got, st, parted
+
+    eng = Timed(bundle, params, 8, 1024, num_pages=num_pages)
+    print(f"[preempt serve] pool-pressure pool={num_pages} pages of 8 "
+          f"([serve] peak {greedy['pages_peak']}, largest request {most} "
+          f"pages) priorities=rid%2", flush=True)
+    got, st, parted = run(eng, reqs, "pool-pressure", want=greedy["tokens"],
+                          counter="swap_ins")
+    check(st.preemptions == st.preempt_restarts + st.swap_ins
+          + st.recompute_resumes, "preempt serve pool-pressure: a victim "
+          "was never resumed")
+    if st.recompute_resumes == 0:
+        # every resume was a swap or a restart: the rows came back bit for
+        # bit, or were decoded again from the prompt
+        check(parted == 0, "preempt serve pool-pressure: tokens differ from "
+              "[serve]'s")
+    else:
+        print(f"[preempt serve] pool-pressure: token comparison skipped, "
+              f"{st.recompute_resumes} recompute resumes (a recomputed bf16 "
+              f"row rounds as a prefill chunk); {parted} of {len(reqs)} "
+              f"requests parted from [serve]'s", flush=True)
+    del eng
+    gc.collect()
+    first = sorted(sorted(reqs[:8], key=lambda r: r.prompt.shape[0])
+                   [:CHAOS_REQUESTS], key=lambda r: r.rid)
+    rids = [r.rid for r in first]
+    print(f"[preempt serve] chaos rids={rids} prompts="
+          f"{[r.prompt.shape[0] for r in first]} window={CHAOS_WINDOW} "
+          f"chaos={PREEMPT_CHAOS}", flush=True)
+    bf16_want = [greedy["tokens"][i] for i in rids]
+    eng = Timed(bundle, params, 8, 1024, window=CHAOS_WINDOW)
+    got, _, _ = run(eng, first, "chaos swap", dict(mode="swap"),
+                    counter="swap_ins")
+    check(got == bf16_want, "preempt serve chaos swap: tokens differ from "
+          "[serve]'s")
+    run(eng, first, "chaos recompute", dict(mode="recompute"),
+        want=bf16_want, counter="recompute_resumes")
+    run(eng, first, "chaos cost model", dict(corrupt_prob=0.3),
+        want=bf16_want, counter="swap_fallbacks")
+    del eng
+    eng = Timed(int8, params, 8, 1024, page_size=16, window=CHAOS_WINDOW)
+    got, _, _ = run(eng, first, "chaos swap int8", dict(mode="swap"),
+                    counter="swap_ins")
+    check(got == [int8_warm["tokens"][i] for i in rids], "preempt serve "
+          "chaos swap int8: tokens differ from [int8 serve]'s")
+    scales = eng.cache["blocks"]["p0"]["k_scale"]
+    check(scales.dtype == torch.float32, "int8 swap without scale lanes")
+    del eng
+    gc.collect()
+
+    # resume walls: one request with a 300-token context (292 prompt tokens
+    # and 9 emitted), preempted by swap and by recompute, no prefix cache
+    eng = Timed(bundle, params, 8, 1024, prefix_cache=False)
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=292).astype(np.int32)
+    walls, outs = {}, {}
+    for mode in ("swap", "recompute"):
+        eng.reset()
+        req = Request(rid=0, prompt=prompt, max_new_tokens=24)
+        eng.add_request(req)
+        while len(req.out_tokens) < 9:
+            eng._admit()
+            if not eng._pending:
+                eng.decode_many(8)
+        ctx = int(eng._hpos[0])
+        with CrcClock(hosttier) as crc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(eng.preempt(0, mode=mode) == mode, f"resume {mode}: "
+                  "preempted another way")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            chunks = eng.stats.prefill_chunks
+            eng._admit()
+            while eng._pending:
+                eng._admit()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        eng.run_to_completion()
+        outs[mode] = list(req.out_tokens)
+        walls[mode] = (1e3 * (t1 - t0), 1e3 * (t2 - t1),
+                       eng.stats.prefill_chunks - chunks, crc.s * 1e3)
+    sw, rc = walls["swap"], walls["recompute"]
+    print(f"[preempt serve] resume card='{card}' ctx_tokens={ctx} "
+          f"pages={-(-ctx // 8)} page_bytes={eng.bytes_per_page} "
+          f"swap_out_ms={sw[0]:.3f} swap_in_ms={sw[1]:.3f} "
+          f"swap_crc_ms={sw[3]:.3f} recompute_out_ms={rc[0]:.3f} "
+          f"recompute_in_ms={rc[1]:.3f} recompute_chunks={rc[2]} "
+          f"recompute_over_swap={rc[1] / sw[1]:.1f} "
+          f"swap_equals_recompute_tokens={outs['swap'] == outs['recompute']}",
+          flush=True)
+    check(sw[2] == 0 and rc[2] >= -(-ctx // 32), "resume walls: the swap "
+          "prefilled, or the recompute did not prefill its context")
+    return launches
+
+
+def _chaos_drive(mode, corrupt=0.0, seed=13):
+    """A drive that drains under chaos (storms of 0.5 a slot a round,
+    phantom grabs of 0.3 a round) in ``mode``; something must be
+    preempted."""
+    def drive(eng, reqs, make):
+        from repro_torch.serve import ChaosConfig, ChaosEngine
+        ch = ChaosEngine(eng, ChaosConfig(seed=seed, preempt_prob=0.5,
+                                          exhaust_prob=0.3,
+                                          corrupt_prob=corrupt, mode=mode))
+        for r in reqs:
+            ch.add_request(r)
+        ch.run_to_completion()
+        check(eng.stats.preemptions > 0, f"chaos {mode}: nothing was "
+              "preempted")
+        return [eng]
+    return drive
+
+
+def _evacuate_drive(eng, reqs, make):
+    """Three rounds on one engine, then every unfinished request evacuated
+    and adopted by a second engine mid-stream."""
+    for r in reqs:
+        eng.add_request(r)
+    for _ in range(3):
+        eng.step()
+    check(any(r.out_tokens for r in reqs), "evacuate: no token out yet")
+    other = make()
+    for r in eng.evacuate():
+        other.adopt(r)
+    other.run_to_completion()
+    check(other.stats.recompute_resumes > 0, "adopt: nothing resumed "
+          "mid-stream")
+    return [eng, other]
+
+
+def _export_drive(eng, reqs, make):
+    """One engine prefills, a second decodes: each finished prefill is
+    exported (its pages in a checksummed transfer entry) and imported."""
+    other = make()
+    for r in reqs:
+        eng.add_request(r)
+    while eng.queue or any(s is not None for s in eng.slots):
+        eng._admit()
+        for i, r in enumerate(eng.slots):
+            if r is not None and i not in eng._pending:
+                other.import_prefill(*eng.export_finished_prefill(i))
+    other.run_to_completion()
+    check(other.stats.prefill_imports == len(reqs), "import: not every "
+          "prefill landed")
+    return [eng, other]
+
+
+def preempt_parity_phase(torch, np):
+    """2-layer full-width gemma-2b in float32, card == CPU through
+    ``card_cpu_parity`` with chaos drives in all three modes, greedy and
+    sampled (top-p, keys seeded 3), then evacuate -> adopt mid-stream and
+    export -> import: tokens, final keys and every counter agree, and the
+    tokens equal the undisturbed drain's."""
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.serve import Request
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg = override(ARCHS["gemma-2b"], num_layers=2, param_dtype="float32",
+                   compute_dtype="float32")
+
+    def reqs():
+        # the parity phases' requests, the first 4 (the run's time)
+        return make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40), 17,
+                             (0, 4), 8)[:4]
+
+    params = None
+    for label, sp, extra in (
+            ("greedy", None, {"evacuate -> adopt": _evacuate_drive,
+                              "export -> import": _export_drive}),
+            ("sampled", SamplingParams(**SAMPLINGS[0]), {})):
+        drives = {"undisturbed": None,
+                  "chaos cost model": _chaos_drive(None, corrupt=0.3),
+                  "chaos swap": _chaos_drive("swap"),
+                  "chaos recompute": _chaos_drive("recompute"), **extra}
+        record = {}
+        params = card_cpu_parity(
+            torch, np, cfg, None, reqs, "preempt parity",
+            f"arch=gemma-2b full width, 2 layers, float32, {label}",
+            sampling=sp, params=params, drives=drives, record=record,
+            window=PARITY_WINDOW)
+        want = record["undisturbed"]["tokens"]
+        for drive in drives:
+            check(record[drive]["tokens"] == want, f"preempt parity {label} "
+                  f"{drive}: tokens differ from the undisturbed drain's")
+        print(f"[preempt parity] {label}: every drive equals the "
+              f"undisturbed drain ({len(drives) - 1} drives)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1431,6 +1911,13 @@ def hybrid_parity_phase(torch, np):
             "remainder RG-LRU layers), float32, window narrowed 2048->32")
     params = card_cpu_parity(torch, np, cfg, None, reqs, "hybrid parity",
                              desc)
+    # preempted under chaos (as the ring pair's): the resumed RG-LRU
+    # state comes from the prefill scan over the context, so card == CPU
+    # is the check here
+    card_cpu_parity(torch, np, cfg, None, lambda: reqs()[:2],
+                    "preempt parity", desc, params=params,
+                    window=PARITY_WINDOW,
+                    drives={"chaos recompute": _chaos_drive("recompute")})
     card_cpu_parity(torch, np, cfg, RuntimeFlags(attn_impl="pallas"), reqs,
                     "hybrid parity", desc + ", attn_impl=pallas",
                     backend="dense", params=params)
@@ -1683,22 +2170,25 @@ def spec_serve_phase(torch, np, card):
 
 
 BENCH_SWEEPS = ("serve", "kernel_plan", "paged_serve", "spec_serve")
+# run once, after the comparison (the run's time): its gates are in-sweep
+BENCH_ONCE = ("preempt_serve",)
 
 
 def bench_serve_phase(torch, card):
     """The serving sweeps at card scale twice in one call, then the
     comparator between the two runs: every row and verdict printed; the
     structural gate (deterministic rows identical, no vanished metric)
-    must pass; wall-clock verdicts are advisory."""
+    must pass; wall-clock verdicts are advisory.  ``BENCH_ONCE`` runs
+    once, its sweeps raising on a failed gate."""
     from repro_torch.bench import compare, run_sweeps
 
     out = os.path.join(ROOT, "build", "bench_serve")
     paths = []
-    for i in (1, 2):
+    for i, names in ((1, BENCH_SWEEPS), (2, BENCH_SWEEPS), (3, BENCH_ONCE)):
         print(f"[bench serve] run={i} card='{card}' sweeps="
-              f"{','.join(BENCH_SWEEPS)} scale=card", flush=True)
+              f"{','.join(names)} scale=card", flush=True)
         t0 = time.perf_counter()
-        run = run_sweeps(names=BENCH_SWEEPS, fast=False, out_dir=out,
+        run = run_sweeps(names=names, fast=False, out_dir=out,
                          device="cuda")
         check(not run.failures, f"bench serve run {i}: sweeps failed "
               f"{sorted(run.failures)}: {run.failures}")
@@ -1711,6 +2201,7 @@ def bench_serve_phase(torch, card):
         del run
         gc.collect()
         torch.cuda.empty_cache()
+    paths = paths[:2]
     print("[bench serve] compare gate=all (wall-clock verdicts advisory):",
           flush=True)
     rc_all = compare.main(paths)
@@ -2712,7 +3203,7 @@ def main():
         lap("ring serve")
         gc.collect()                 # the 54 GB of gemma2-27b go
         torch.cuda.empty_cache()
-        int8_launches = int8_serve_phase(torch, np, card)
+        int8_launches, int8_warm = int8_serve_phase(torch, np, card)
         lap("int8 serve")
         gc.collect()
         torch.cuda.empty_cache()
@@ -2721,6 +3212,16 @@ def main():
         torch.cuda.empty_cache()
         int8_parity_phase(torch, np)
         lap("ring parity, int8 parity")
+        gc.collect()
+        torch.cuda.empty_cache()
+        host_link_phase(torch, card)
+        preempt_launches = preempt_serve_phase(torch, np, card, greedy,
+                                               int8_warm)
+        lap("host link, preempt serve")
+        gc.collect()
+        torch.cuda.empty_cache()
+        preempt_parity_phase(torch, np)
+        lap("preempt parity")
         gc.collect()
         torch.cuda.empty_cache()
         hybrid_launches = hybrid_serve_phase(torch, np, card)
@@ -2761,7 +3262,7 @@ def main():
                                 "ring serve": ring_launches,
                                 "int8 serve": int8_launches,
                                 "hybrid serve": hybrid_launches,
-                                **sampled_launches},
+                                **sampled_launches, **preempt_launches},
               timed=k1_timed)
     k2 = dict(name="flash_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -11,7 +11,9 @@ blocks.  ``--arch gemma2-27b`` serves its sliding-window layers from ring
 pages; ``recurrentgemma-9b`` and ``mamba2-130m`` keep their recurrent
 state beside the pools (mamba2-130m, with no attention layer, has none).  ``--smoke`` serves the same architecture at smoke width;
 ``--device cpu`` runs the plain PyTorch path on the CPU (without it, a
-host with no card is an error).
+host with no card is an error).  ``--priority`` gives the requests
+scheduler classes (``mixed``: odd rids high), which admit high first and
+let a high request preempt a low one when slots or pages run out.
 """
 from __future__ import annotations
 
@@ -25,6 +27,11 @@ import torch
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.models import RuntimeFlags, build
 from repro_torch.serve import Request, ServeEngine
+
+# request i's scheduler class under each --priority mix (the reference
+# launcher's)
+_PRIORITY_MIX = {"off": lambda i: 0, "low": lambda i: 0,
+                 "high": lambda i: 1, "mixed": lambda i: i % 2}
 
 
 def main(argv=None) -> int:
@@ -41,6 +48,9 @@ def main(argv=None) -> int:
                     help="int8 KV cache with per-token float32 scales")
     ap.add_argument("--seed", type=int, default=0,
                     help="weights + traffic seed")
+    ap.add_argument("--priority", default="off",
+                    choices=sorted(_PRIORITY_MIX),
+                    help="scheduler priority classes for the request mix")
     ap.add_argument("--cache", default="auto",
                     choices=("auto", "dense", "paged"),
                     help="KV backend; auto lets the engine pick")
@@ -59,11 +69,13 @@ def main(argv=None) -> int:
                       cache_backend=None if args.cache == "auto" else args.cache,
                       device=args.device)
     rng = np.random.default_rng(args.seed)
+    mix = _PRIORITY_MIX[args.priority]
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size,
                               size=int(rng.integers(4, 24))).astype(np.int32)
         eng.add_request(Request(rid=i, prompt=prompt,
-                                max_new_tokens=args.max_new))
+                                max_new_tokens=args.max_new,
+                                priority=mix(i)))
     t0 = time.perf_counter()
     stats = eng.run_to_completion()
     dt = time.perf_counter() - t0
@@ -79,7 +91,8 @@ def main(argv=None) -> int:
           f"decode_dispatches={stats.decode_dispatches}, "
           f"prefix_hit_tokens={stats.prefix_hit_tokens}, "
           f"pages_peak={stats.pages_peak}, "
-          f"ring_pages_peak={stats.ring_pages_peak}")
+          f"ring_pages_peak={stats.ring_pages_peak}, "
+          f"priority={args.priority}, preemptions={stats.preemptions}")
     return 0
 
 

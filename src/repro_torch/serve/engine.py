@@ -57,9 +57,27 @@ tokens and the carried keys are those of vanilla decoding, greedy and
 sampled; the draft changes only how many tokens a round emits.  Rejected
 suffixes roll back the page reservations (:meth:`PageAllocator.truncate`).
 
-Not ported yet: preemption and the host tier (with the key replay a
-resumed request needs), tensor/data parallelism, CUDA-graph capture of the
-decode window.
+Under pool pressure the engine preempts (:mod:`repro_torch.serve.
+scheduler`): admission orders the queue by priority, then arrival, and a
+request that finds no slot or no pages evicts a victim of a strictly
+lower class; a decode window whose every slot the pool blocks sheds one
+victim of any class before it gives up.  A victim resumes by
+``recompute`` (its context ``prompt ++ emitted[:-1]`` is prefilled again
+in chunks, the prefix cache serving the prompt's surviving pages) or by
+``swap`` (its pages were copied to the host tier,
+:class:`~repro_torch.serve.hosttier.HostKVTier`, and come back through
+fresh page ids), as the cost model prices them; a mid-prefill victim
+restarts.  Either way the resumed slot re-feeds its pending token and
+replays its key chain (``fold_in(PRNGKey(seed), rid)`` split once per
+emitted token), so a preempted drain gives the undisturbed drain's
+tokens, greedy or sampled.  Swap needs a paged, pure full-attention
+stack; a ring or a recurrent state is not in the full pool's pages.
+``evacuate``/``adopt`` move unfinished requests between engines, and
+``export_finished_prefill``/``import_prefill`` ship a finished prefill's
+pages from one engine to another through a checksummed transfer entry.
+
+Not ported yet: the cluster front end and disaggregated pools above these
+hooks, tensor/data parallelism, CUDA-graph capture of the decode window.
 """
 from __future__ import annotations
 
@@ -74,12 +92,16 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN
 from repro_torch.models.registry import ModelBundle
 from repro_torch.models.transformer import SENTINEL
+from repro_torch.serve.hosttier import (HostKVEntry, HostKVTier,
+                                        make_transfer_entry, page_axis,
+                                        tree_leaves, tree_map)
 from repro_torch.serve.kvcache import (PageAllocator, PoolExhausted,
                                        PrefixIndex, page_hashes)
 from repro_torch.serve import prng
 from repro_torch.serve.sampling import (GREEDY, SamplingParams, sample_tokens,
                                         select_greedy, split_keys,
                                         subkey_chain)
+from repro_torch.serve.scheduler import Scheduler, SwapCostModel, VictimInfo
 from repro_torch.tune import plan_for
 from repro_torch.tune.plan import derive_paged_plan, next_pow2
 
@@ -89,11 +111,28 @@ class Request:
     rid: int
     prompt: np.ndarray               # (S,) int32
     max_new_tokens: int = 16
+    priority: int = 0                # scheduler class: higher admits first
+    deadline: Optional[int] = None   # a cluster round to finish by; None =
+                                     # no SLO (never shed)
     out_tokens: List[int] = field(default_factory=list)
 
     @property
     def done(self) -> bool:
         return len(self.out_tokens) >= self.max_new_tokens
+
+
+@dataclass
+class _Resume:
+    """What a preempted request needs to pick up where it left off.
+    ``ctx`` is the KV context (``prompt ++ out_tokens[:-1]``) whose rows
+    the resume restores, by prefilling it again (``recompute``) or by
+    copying the swapped pages back (``swap``; the pages wait in the host
+    tier).  ``pending`` is ``out_tokens[-1]``, already emitted: the next
+    decode tick feeds it, so a resume never draws it again."""
+
+    kind: str                        # "swap" | "recompute"
+    ctx: np.ndarray                  # (hpos,) int32
+    pending: int
 
 
 @dataclass
@@ -113,6 +152,20 @@ class ServeStats:
     spec_steps: int = 0              # draft->verify rounds
     draft_tokens: int = 0            # draft tokens proposed to the verifier
     draft_accepted: int = 0          # proposals equal to the coupled draw
+    # -- scheduler and preemption
+    preemptions: int = 0             # mid-flight evictions (all modes)
+    preempt_restarts: int = 0        # mid-prefill victims requeued afresh
+    swap_outs: int = 0               # victims whose pages went to the host
+    swap_ins: int = 0                # resumes copied back through the table
+    swap_bytes: int = 0              # bytes through the host tier, both ways
+    recompute_resumes: int = 0       # resumes that prefilled their context
+    swap_fallbacks: int = 0          # checksum-failed swaps, recomputed
+    prefill_burst_max: int = 0       # most prefill chunks between windows
+    # -- prefill hand-off between engines
+    prefill_exports: int = 0         # finished prefills shipped away
+    prefill_imports: int = 0         # shipped prefills landed in a slot
+    transfer_bytes: int = 0          # bytes of shipped prefills
+    transfer_fallbacks: int = 0      # corrupted transfers, recomputed
 
     @property
     def accept_rate(self) -> float:
@@ -152,7 +205,13 @@ class ServeEngine:
     backend's ``decode_many`` to draft->verify rounds of ``spec_k``
     proposals each; the target must be a pure full-attention stack, since
     neither a ring nor a recurrent state can roll back a rejected
-    suffix."""
+    suffix.
+
+    ``scheduler`` (default :class:`~repro_torch.serve.scheduler.Scheduler`:
+    FIFO on uniform priorities, preemption only of a lower class) orders
+    admission and picks victims; ``host_tier`` is the swap target (made
+    when the stack can swap and the scheduler allows it);
+    ``prefix_cache=False`` turns prefix sharing off."""
 
     def __init__(self, bundle: ModelBundle, params, batch_size: int,
                  max_len: int, *, window: int = 8,
@@ -162,11 +221,14 @@ class ServeEngine:
                  num_pages: Optional[int] = None,
                  num_ring_pages: Optional[int] = None,
                  prefill_chunk: int = 32,
+                 prefix_cache: bool = True,
                  sampling: Optional[SamplingParams] = None,
                  seed: int = 0,
                  draft_bundle: Optional[ModelBundle] = None,
                  draft_params=None,
                  spec_k: int = 4,
+                 scheduler: Optional[Scheduler] = None,
+                 host_tier: Optional[HostKVTier] = None,
                  device: Optional[str] = None):
         self.device = resolve_device(device)
         if bundle.device != self.device:
@@ -222,10 +284,19 @@ class ServeEngine:
             # prefix pages are reusable only when every layer reads them:
             # a ring rotates prefix tokens away, and recurrent state is
             # not cached by page
-            self.prefix_sharing = (self.has_full and not windows
-                                   and not self.has_recurrent)
+            self.prefix_sharing = (prefix_cache and self.has_full
+                                   and not windows and not self.has_recurrent)
         if draft_bundle is not None:
             self._init_spec(draft_bundle)
+        # swap resumes capture whole pages, which only a paged, pure
+        # full-attention stack offers (a ring rotates, recurrent state is
+        # not in the pool); every other stack resumes by recompute
+        self.sched = scheduler or Scheduler()
+        swappable = (self.backend == "paged" and self.has_full
+                     and self.attn_window is None and not self.has_recurrent)
+        self.host_tier: Optional[HostKVTier] = None
+        if swappable and self.sched.config.swap:
+            self.host_tier = host_tier or HostKVTier()
         # prefill shapes met so far (dense prompt buckets, paged chunk
         # buckets); survives reset(), as the reference's compiled shapes do
         self._seen_prefill_shapes: set = set()
@@ -282,6 +353,16 @@ class ServeEngine:
         self.queue: List[Request] = []
         self.stats = ServeStats()
         self._pending: Dict[int, int] = {}   # slot -> next prefill offset
+        # scheduler state: preempted requests' resume records, arrival
+        # seats (priority ties admit FIFO), chunks since the last decode
+        # window, and the rids whose swap resume is an imported prefill
+        self._resume: Dict[int, _Resume] = {}
+        self._arrival: Dict[int, int] = {}
+        self._arrival_seq = 0
+        self._chunks_since_decode = 0
+        self._transfer_rids: set = set()
+        if self.host_tier is not None:
+            self.host_tier.clear()
         if self.backend == "dense":
             self.cache = self.bundle.init_cache(self.bsz, self.max_len)
             return
@@ -305,9 +386,10 @@ class ServeEngine:
 
     def reset(self) -> None:
         """Clear all serving state: cache, pool, prefix index, slots, queue,
-        stats, keys and the draft's cache (benchmarks drain once to warm
-        up, reset, then time a steady-state drain).  The prefill shapes
-        already met stay met, so a warm drain counts only new ones."""
+        stats, keys, the draft's cache, resume records and the host tier
+        (benchmarks drain once to warm up, reset, then time a steady-state
+        drain).  The prefill shapes already met stay met, so a warm drain
+        counts only new ones."""
         self._init_state()
 
     def _sync_table(self) -> None:
@@ -335,11 +417,8 @@ class ServeEngine:
 
     def kv_bytes(self) -> int:
         """Allocated device bytes of the KV cache (both backends)."""
-        def leaves(tree):
-            for v in tree.values():
-                yield from (leaves(v) if isinstance(v, dict) else (v,))
         return int(sum(t.numel() * t.element_size()
-                       for t in leaves(self.cache)))
+                       for _, t in tree_leaves(self.cache)))
 
     def _page_bytes_by_kind(self):
         """(full, ring) device bytes of ONE page summed over every attention
@@ -392,7 +471,127 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def add_request(self, req: Request) -> None:
+        if req.rid not in self._arrival:
+            self._arrival[req.rid] = self._arrival_seq
+            self._arrival_seq += 1
         self.queue.append(req)
+
+    def adopt(self, req: Request) -> None:
+        """Admit a request that may be mid-stream: the failover path.  A
+        request evacuated from another engine carries its emitted tokens;
+        adoption leaves the recompute resume record a preemption here
+        would have left (prefill ``prompt ++ emitted[:-1]`` again, feed
+        the pending last token, replay the ``(seed, rid)`` key chain past
+        the emitted tokens).  That chain depends only on the request and
+        the engine's seed, so a drain finished here is the one the first
+        engine would have given.  A fresh request is simply queued."""
+        if req.done:
+            # at its budget already: nothing is left to run, and the
+            # caller keeps the finished request
+            return
+        if req.out_tokens:
+            ctx = np.concatenate([np.asarray(req.prompt, np.int32),
+                                  np.asarray(req.out_tokens[:-1], np.int32)])
+            self._resume[req.rid] = _Resume("recompute", ctx,
+                                            int(req.out_tokens[-1]))
+        self.add_request(req)
+
+    def evacuate(self) -> List[Request]:
+        """Take every unfinished request off this engine, queued and in
+        flight, for :meth:`adopt` on another one (failover after a crash).
+        In-flight slots preempt by recompute; the resume records and host
+        entries held here are dropped, since no device or host state
+        follows a request to another engine (:meth:`adopt` derives its
+        resume from the request alone).  Finished slots retire.  The
+        engine is left idle with every request's pages released (pages
+        the prefix cache pins stay)."""
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if req.done:
+                self._release_finished(i)
+            else:
+                self.preempt(i, mode="recompute")
+        moved = list(self.queue)
+        self.queue.clear()
+        for r in moved:
+            res = self._resume.pop(r.rid, None)
+            if (res is not None and res.kind == "swap"
+                    and self.host_tier is not None
+                    and r.rid in self.host_tier):
+                self.host_tier.pop(r.rid)
+            self._transfer_rids.discard(r.rid)
+            self._arrival.pop(r.rid, None)
+        return moved
+
+    # ------------------------------------------------------------------
+    # prefill hand-off between engines
+    # ------------------------------------------------------------------
+    def export_finished_prefill(self, slot: int):
+        """Ship a freshly prefilled request off this engine: gather its
+        pages (k/v and the int8 scale lanes) into a checksummed transfer
+        entry, release everything it held here, and return ``(request,
+        entry)`` for another engine's :meth:`import_prefill`.
+
+        This is the swap-out of a request that has emitted only its first
+        token.  The pending token rides on ``request.out_tokens``; the key
+        chain needs no shipping, being a function of ``(seed, rid)`` and
+        the emitted count.  Needs the host tier (paged, pure full
+        attention) and a finished prefill."""
+        req = self.slots[slot]
+        if req is None:
+            raise ValueError(f"export of empty slot {slot}")
+        if self.host_tier is None:
+            raise ValueError(
+                "export requires the host swap tier (paged backend, pure "
+                "full-attention stack, scheduler swap enabled)")
+        if slot in self._pending:
+            raise ValueError(
+                f"slot {slot} is mid-prefill: only a completed prefill "
+                "(seed token emitted) can be exported")
+        if len(req.out_tokens) != 1:
+            raise ValueError(
+                f"rid {req.rid} has emitted {len(req.out_tokens)} tokens; "
+                "export is a prefill hand-off — decode must not have begun")
+        hpos = int(self._hpos[slot])
+        # drop any reservation past the live rows, then gather the table
+        # (shared prefix pages are only read)
+        self.alloc.truncate(req.rid, hpos)
+        pids = list(self.alloc.tables[req.rid])
+        entry = make_transfer_entry(req.rid, self._gather_to_host(pids),
+                                    len(pids), length=hpos)
+        self.stats.prefill_exports += 1
+        self.stats.transfer_bytes += entry.nbytes
+        self._release_finished(slot)
+        self._arrival.pop(req.rid, None)
+        return req, entry
+
+    def import_prefill(self, req: Request, entry: HostKVEntry) -> None:
+        """Land a shipped prefill here: install the transfer entry in the
+        host tier as it is (its original checksum included) and queue the
+        request behind a swap resume record.  Admission then takes the
+        swap-in path: reserve pages, copy the entry through the page
+        table, restore position and pending token, replay the key chain.
+        A checksum mismatch (damage anywhere in transit) resumes by
+        recompute instead: the prompt is prefilled here, in chunks, which
+        gives the same tokens."""
+        if self.host_tier is None:
+            raise ValueError(
+                "import requires the host swap tier on the decode engine "
+                "(paged backend, pure full-attention stack, swap enabled)")
+        if len(req.out_tokens) != 1:
+            raise ValueError(
+                f"rid {req.rid} has emitted {len(req.out_tokens)} tokens; "
+                "import expects a prefill hand-off (exactly the seed token)")
+        ctx = np.asarray(req.prompt, np.int32)
+        if int(entry.length) != len(ctx):
+            raise ValueError(
+                f"transfer entry covers {entry.length} rows but rid "
+                f"{req.rid}'s prompt holds {len(ctx)} tokens")
+        self.host_tier.put_entry(entry)
+        self._transfer_rids.add(req.rid)
+        self._resume[req.rid] = _Resume("swap", ctx, int(req.out_tokens[-1]))
+        self.add_request(req)
 
     def _free_slot(self) -> Optional[int]:
         for i, s in enumerate(self.slots):
@@ -430,6 +629,19 @@ class ServeEngine:
         self.keys[slot] = nk[0]
         return int(tok[0])
 
+    def _replay_key(self, slot: int, req: Request) -> None:
+        """Restore a resumed slot's key: the admission key ``fold_in(
+        PRNGKey(seed), rid)`` split once per token the request has already
+        emitted, which is the key an undisturbed run would hold now."""
+        if self.sampling.greedy:
+            return                    # greedy holds no key
+        n = len(req.out_tokens)
+        key = prng.fold_in(self._base_key, req.rid)
+        if n:
+            _, carried = subkey_chain(key[None], n)
+            key = carried[0, n]
+        self.keys[slot] = key
+
     def _select_next(self, logits, act):
         """One in-window token selection: greedy argmax (keys untouched)
         or one split and draw per slot, where masked slots keep their key,
@@ -441,6 +653,203 @@ class ServeEngine:
         nxt = sample_tokens(sub, logits, self.sampling)
         self.keys = torch.where(act[:, None], nk, self.keys)
         return nxt
+
+    # ------------------------------------------------------------------
+    # preemption: victim choice, page swap, resume
+    # ------------------------------------------------------------------
+    def _cost_model(self) -> SwapCostModel:
+        """The scheduler's swap-or-recompute pricer, derived from this
+        engine's geometry when the caller gave none: the weight bytes
+        (each prefill chunk streams them) and the KV bytes a token holds
+        (what a swap moves per context row), on the H100's spec."""
+        if self.sched.cost_model is None:
+            wb = sum(t.numel() * t.element_size()
+                     for _, t in tree_leaves(self.params))
+            if self.backend == "paged":
+                kv_tok = self.bytes_per_page / self.page
+                chunk = self.prefill_chunk
+            else:
+                kv_tok = self.kv_bytes() / (self.bsz * self.max_len)
+                chunk = self.max_len        # a dense prefill is one step
+            self.sched.cost_model = SwapCostModel(
+                weight_bytes=wb, kv_bytes_per_token=kv_tok,
+                prefill_chunk=chunk,
+                host_link_bw=self.sched.config.host_link_bw)
+        return self.sched.cost_model
+
+    def _victims(self) -> List[VictimInfo]:
+        """Every active slot's candidacy as the policy sees it.  A
+        mid-prefill slot counts the tokens already chunked in as its
+        resume cost (a restart redoes them) and can only restart."""
+        cands = []
+        for i, req in enumerate(self.slots):
+            if req is None or req.done:
+                continue
+            pages = 0
+            if self.backend == "paged":
+                for a in (self.alloc, self.ralloc):
+                    if a is not None:
+                        pages += len(a.tables.get(req.rid, ()))
+            ctx = self._pending.get(i, int(self._hpos[i]))
+            cands.append(VictimInfo(
+                slot=i, rid=req.rid, priority=req.priority, ctx_tokens=ctx,
+                pages=pages, swappable=(self.host_tier is not None
+                                        and i not in self._pending)))
+        return cands
+
+    def _pick_victim(self, below: Optional[int] = None) -> Optional[int]:
+        v = self.sched.pick_victim(self._victims(), below=below)
+        if v is None:
+            return None
+        self._cost_model()   # in place before preempt() prices the resume
+        return v.slot
+
+    def preempt(self, slot: int, mode: Optional[str] = None) -> str:
+        """Evict the request in ``slot`` mid-flight and queue it again.
+
+        Returns the mode used: ``"restart"`` (mid-prefill: the partial
+        pages go and the prompt is admitted afresh, less what the prefix
+        cache kept), ``"recompute"`` (the resume prefills ``prompt ++
+        emitted[:-1]`` again) or ``"swap"`` (the pages go to the host tier
+        and come back on resume).  ``mode`` forces the choice; None asks
+        the cost model; ``"swap"`` without a host tier recomputes.  The
+        resumed request drains as an undisturbed one would: its KV rows
+        come back exactly (swap) or row for row (chunked prefill works by
+        position), its pending token is fed again, not drawn, and its key
+        chain is replayed."""
+        req = self.slots[slot]
+        if req is None:
+            raise ValueError(f"preempt of empty slot {slot}")
+        self.stats.preemptions += 1
+        if slot in self._pending:
+            # the prompt is still building: nothing emitted, no resume
+            # state; drop the partial pages and let admission redo it
+            del self._pending[slot]
+            self._release_finished(slot)
+            self.stats.preempt_restarts += 1
+            self.queue.append(req)
+            return "restart"
+        hpos = int(self._hpos[slot])
+        ctx = np.concatenate([np.asarray(req.prompt, np.int32),
+                              np.asarray(req.out_tokens[:-1], np.int32)])
+        assert len(ctx) == hpos, "context/KV length drift"
+        if mode is None:
+            mode = self._cost_model().choose(hpos, self.host_tier is not None)
+        elif mode == "swap" and self.host_tier is None:
+            mode = "recompute"
+        if mode == "swap":
+            # exactly the live rows: drop reservation pages past hpos, then
+            # gather the table (shared prefix pages are only read, and the
+            # resume owns private copies)
+            self.alloc.truncate(req.rid, hpos)
+            pids = list(self.alloc.tables[req.rid])
+            entry = self.host_tier.put(req.rid, self._gather_to_host(pids),
+                                       len(pids), length=hpos)
+            self.stats.swap_outs += 1
+            self.stats.swap_bytes += entry.nbytes
+        self._resume[req.rid] = _Resume(mode, ctx, int(req.out_tokens[-1]))
+        self._release_finished(slot)
+        self.queue.append(req)
+        return mode
+
+    def _page_ids(self, pids: List[int]) -> torch.Tensor:
+        """``pids`` padded to a power of two with the null page's id, as a
+        device index: the gather and scatter see few distinct lengths, and
+        the padding lanes only touch the null page."""
+        m = next_pow2(max(1, len(pids)))
+        return torch.tensor(list(pids) + [0] * (m - len(pids)),
+                            dtype=torch.int64, device=self.device)
+
+    def _gather_to_host(self, pids: List[int]):
+        """Device -> host page gather: ``index_select`` of the padded page
+        list along every pool leaf's page axis (k/v pages and int8 scale
+        lanes), copied into pinned host memory when the pools are on the
+        card.  The null page's padding lanes fall outside the checksum."""
+        idx = self._page_ids(pids)
+
+        def take(path, leaf):
+            got = leaf.index_select(page_axis(path, leaf), idx)
+            if got.device.type == "cpu":
+                return got
+            host = torch.empty(got.shape, dtype=got.dtype, pin_memory=True)
+            return host.copy_(got, non_blocking=True)
+
+        data = tree_map(take, self.cache)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return data
+
+    def _scatter_from_host(self, pids: List[int], data) -> None:
+        """Host -> device page scatter, the gather's inverse: each leaf of
+        ``data`` (padded to the power of two of ``pids``) is copied to the
+        card and ``index_copy_``-ed along the pool's page axis.  Padding
+        lanes all land on the null page, a duplicate index whose final
+        value nothing reads."""
+        idx = self._page_ids(pids)
+        for (path, leaf), (hpath, host) in zip(tree_leaves(self.cache),
+                                               tree_leaves(data)):
+            assert path == hpath, (path, hpath)
+            leaf.index_copy_(page_axis(path, leaf), idx,
+                             host.to(self.device, non_blocking=True))
+
+    def _swap_in_slot(self, slot: int, req: Request, res: _Resume) -> bool:
+        """Copy a swapped-out request's pages back through the page table:
+        reserve fresh pages (their ids may differ: the table's
+        indirection makes that free), ``index_copy_`` the host bytes into
+        every pool leaf, publish the row, and restore position, pending
+        token and key.  False when the checksum no longer matches: the
+        entry is dropped and the caller resumes by recompute (chaos
+        corruption lands here)."""
+        entry, ok = self.host_tier.get(req.rid)
+        if not ok:
+            self.host_tier.pop(req.rid)
+            if req.rid in self._transfer_rids:
+                self._transfer_rids.discard(req.rid)
+                self.stats.transfer_fallbacks += 1
+            else:
+                self.stats.swap_fallbacks += 1
+            res.kind = "recompute"
+            return False
+        s = len(res.ctx)
+        self.alloc.alloc(req.rid)
+        try:
+            try:
+                self.alloc.reserve(req.rid, s)
+            except PoolExhausted:
+                if (self.prefix is None
+                        or not self.prefix.evict_unused(self.alloc)):
+                    raise
+                self.alloc.reserve(req.rid, s)
+        except PoolExhausted:
+            self.alloc.release(req.rid)
+            raise
+        pids = self.alloc.tables[req.rid]
+        assert len(pids) == entry.n_pages, "swap-in page count drift"
+        self._scatter_from_host(pids, entry.data)
+        self.host_tier.pop(req.rid)
+        self._resume.pop(req.rid)
+        self.slots[slot] = req
+        self._htable[slot, :] = 0
+        self._htable[slot, :len(pids)] = pids
+        self._table_dirty = True
+        self.pos[slot] = s
+        self._hpos[slot] = s
+        self._replay_key(slot, req)
+        self.tokens[slot, 0] = res.pending
+        if self.draft is not None:
+            # the draft's dense cache is derived state: a prefill over the
+            # context rebuilds it (and coupled sampling means the draft
+            # changes only how many tokens a round emits)
+            self._draft_prefill_slot(slot, req, tokens=res.ctx)
+        if req.rid in self._transfer_rids:
+            self._transfer_rids.discard(req.rid)
+            self.stats.prefill_imports += 1
+            self.stats.transfer_bytes += entry.nbytes
+        else:
+            self.stats.swap_ins += 1
+            self.stats.swap_bytes += entry.nbytes
+        self._track_peaks()
+        return True
 
     # ------------------------------------------------------------------
     # dense prefill (whole prompt, one step)
@@ -471,8 +880,11 @@ class ServeEngine:
         power-of-two bucket of at least 8, at most ``max_len``), write its
         cache into the slot's rows and seed decoding from its last logits.
         A windowed layer's rows hold the prompt's last ``window`` tokens
-        from row 0, as in the reference."""
-        prompt = req.prompt
+        from row 0, as in the reference.  A preempted request resumes here
+        by prefilling its recorded context and feeding its pending token
+        again (never drawing it anew)."""
+        res = self._resume.get(req.rid)
+        prompt = req.prompt if res is None else res.ctx
         s = int(prompt.shape[0])
         if s > self.max_len:
             raise ValueError(f"prompt ({s}) exceeds max_len ({self.max_len})")
@@ -491,11 +903,17 @@ class ServeEngine:
         self.slots[slot] = req
         self.pos[slot] = s
         self._hpos[slot] = s
-        self._assign_key(slot, req)
-        tok0 = self._seed_token(slot, logits)
-        req.out_tokens.append(tok0)
-        self.stats.prompt_tokens += s
-        self.stats.tokens_out += 1
+        if res is None:
+            self._assign_key(slot, req)
+            tok0 = self._seed_token(slot, logits)
+            req.out_tokens.append(tok0)
+            self.stats.prompt_tokens += s
+            self.stats.tokens_out += 1
+        else:
+            self._resume.pop(req.rid)
+            self._replay_key(slot, req)
+            tok0 = int(res.pending)
+            self.stats.recompute_resumes += 1
         self.tokens[slot, 0] = tok0
         self.stats.prefills += 1
 
@@ -505,8 +923,18 @@ class ServeEngine:
     def _paged_admit_slot(self, slot: int, req: Request) -> None:
         """Attach the cached prompt prefix (shared read-only pages), then
         reserve pages for the whole prompt — all or nothing, so admission
-        either sticks or backs off cleanly (:class:`PoolExhausted`)."""
-        prompt = req.prompt
+        either sticks or backs off cleanly (:class:`PoolExhausted`).
+
+        A preempted request comes back here: a swap resume copies its
+        pages back (or, when the host copy fails its checksum, recomputes),
+        a recompute resume takes the chunked-prefill path over its
+        recorded context, whose prompt pages the prefix cache usually
+        still holds."""
+        res = self._resume.get(req.rid)
+        if res is not None and res.kind == "swap" \
+                and self._swap_in_slot(slot, req, res):
+            return
+        prompt = req.prompt if res is None else res.ctx
         s = int(prompt.shape[0])
         if s > self.max_len:
             raise ValueError(f"prompt ({s}) exceeds max_len ({self.max_len})")
@@ -560,8 +988,9 @@ class ServeEngine:
         self.slots[slot] = req
         self._pending[slot] = hit_len
         self._hpos[slot] = 0
-        self.stats.prompt_tokens += s
-        self.stats.prefix_hit_tokens += hit_len
+        if res is None:      # a resume's context was counted at admission
+            self.stats.prompt_tokens += s
+            self.stats.prefix_hit_tokens += hit_len
         self._track_peaks()
         # the batch table row stays null until prefill completes: masked
         # decode ticks must not write through a half-built row
@@ -569,7 +998,8 @@ class ServeEngine:
     def _prefill_tick(self, slot: int) -> None:
         """Advance one pending slot by ONE chunk (<= prefill_chunk tokens)."""
         req = self.slots[slot]
-        prompt = req.prompt
+        res = self._resume.get(req.rid)
+        prompt = req.prompt if res is None else res.ctx
         s = int(prompt.shape[0])
         off = self._pending[slot]
         c = min(self.prefill_chunk, s - off)
@@ -595,6 +1025,7 @@ class ServeEngine:
                  ring=torch.as_tensor(rrow).to(dev)),
             torch.tensor([c], dtype=torch.int32).to(dev), slot)
         self.stats.prefill_chunks += 1
+        self._chunks_since_decode += 1
         off += c
         if off < s:
             self._pending[slot] = off
@@ -614,26 +1045,38 @@ class ServeEngine:
         self._table_dirty = True
         self.pos[slot] = s
         self._hpos[slot] = s
-        self._assign_key(slot, req)
-        tok0 = self._seed_token(slot, logits)
-        req.out_tokens.append(tok0)
-        self.stats.tokens_out += 1
+        if res is None:
+            self._assign_key(slot, req)
+            tok0 = self._seed_token(slot, logits)
+            req.out_tokens.append(tok0)
+            self.stats.tokens_out += 1
+        else:
+            # a recompute resume: the context's last logits give a token
+            # already emitted; feed it again and replay the key chain
+            self._resume.pop(req.rid)
+            self._replay_key(slot, req)
+            tok0 = int(res.pending)
+            self.stats.recompute_resumes += 1
         self.tokens[slot, 0] = tok0
         if self.draft is not None:
-            self._draft_prefill_slot(slot, req)
+            self._draft_prefill_slot(slot, req,
+                                     tokens=None if res is None else res.ctx)
         self.stats.prefills += 1
 
-    def _draft_prefill_slot(self, slot: int, req: Request) -> None:
-        """Build the draft's dense cache rows for a freshly prefilled slot.
-        The draft is pure full attention, so the prompt pads to a power of
-        two (the padded tail is masked by ``valid_len``)."""
-        s = int(req.prompt.shape[0])
+    def _draft_prefill_slot(self, slot: int, req: Request,
+                            tokens: Optional[np.ndarray] = None) -> None:
+        """Build the draft's dense cache rows for a freshly prefilled slot
+        (or, with ``tokens``, over a resumed request's context).  The
+        draft is pure full attention, so the prompt pads to a power of two
+        (the padded tail is masked by ``valid_len``)."""
+        toks = req.prompt if tokens is None else tokens
+        s = int(toks.shape[0])
         bucket = min(next_pow2(max(8, s)), self.max_len)
         if ("draft", bucket) not in self._seen_prefill_shapes:
             self._seen_prefill_shapes.add(("draft", bucket))
             self.stats.prefill_retraces += 1
         padded = np.zeros((1, bucket), np.int64)
-        padded[0, :s] = req.prompt
+        padded[0, :s] = toks
         dcache1, _ = self.draft.prefill(
             self.draft_params, dict(tokens=torch.as_tensor(padded).to(
                 self.device), valid_len=s))
@@ -641,25 +1084,40 @@ class ServeEngine:
                                                     dcache1, slot)
 
     def _admit(self) -> None:
-        """FIFO admission into free slots.  Dense: each admitted prompt is
-        prefilled at once.  Paged: backpressure on a full pool, then one
-        prefill chunk for every pending slot, lowest slot first."""
+        """Admission in the scheduler's order (priority, then arrival).
+        With no free slot, or (paged) no pages, the head of the queue
+        preempts a victim of a strictly lower class, or waits
+        (backpressure: on uniform priorities nothing is preempted).
+        Dense: each admitted prompt is prefilled at once.  Paged: then one
+        prefill chunk for each pending slot the scheduler picks."""
         while self.queue:
+            if len(self.queue) > 1:
+                self.sched.order_queue(self.queue, self._arrival)
+            req = self.queue[0]
             slot = self._free_slot()
             if slot is None:
-                break
+                victim = self._pick_victim(below=req.priority)
+                if victim is None:
+                    break
+                self.preempt(victim)
+                continue
             if self.backend == "dense":
                 self._prefill_into_slot(slot, self.queue.pop(0))
                 continue
             try:
-                self._paged_admit_slot(slot, self.queue[0])
+                self._paged_admit_slot(slot, req)
             except PoolExhausted:
-                # backpressure: the request stays queued; pages free as
-                # in-flight requests finish
-                self.stats.pool_stalls += 1
-                break
+                victim = self._pick_victim(below=req.priority)
+                if victim is None:
+                    # backpressure: the request stays queued; pages free
+                    # as in-flight requests finish
+                    self.stats.pool_stalls += 1
+                    break
+                self.preempt(victim)
+                continue
             self.queue.pop(0)
-        for slot in sorted(self._pending):
+        for slot in self.sched.prefill_order(
+                list(self._pending), lambda i: self.slots[i].priority):
             self._prefill_tick(slot)
 
     # ------------------------------------------------------------------
@@ -767,6 +1225,17 @@ class ServeEngine:
             budgets = self._budgets(n)
             blocked = self._reserve_window_pages(budgets)
         top = int(budgets.max(initial=0))
+        if top == 0 and blocked.any() and not self._pending:
+            # shed one victim (of any class: every slot is blocked) before
+            # the hard stop, so the others inherit its pages; a lone
+            # blocked slot has nobody to yield to
+            active = [i for i, r in enumerate(self.slots) if r is not None]
+            victim = self._pick_victim() if len(active) > 1 else None
+            if victim is not None:
+                self.preempt(victim)
+                budgets = self._budgets(n)
+                blocked = self._reserve_window_pages(budgets)
+                top = int(budgets.max(initial=0))
         if top == 0:
             if blocked.any() and not self._pending:
                 pools = [a for a in (self.alloc, self.ralloc)
@@ -779,6 +1248,9 @@ class ServeEngine:
                     live_pages=sum(a.pages_in_use for a in pools),
                     free_pages=sum(len(a.free) for a in pools))
             return 0
+        self.stats.prefill_burst_max = max(self.stats.prefill_burst_max,
+                                           self._chunks_since_decode)
+        self._chunks_since_decode = 0
         if self.draft is not None:
             return self._spec_dispatch(budgets)
         n_run = min(n, next_pow2(top))

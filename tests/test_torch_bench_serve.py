@@ -6,13 +6,17 @@
   runs and read by both comparators: every verdict, every structural flag
   and every exit code of both CLI gates must be equal, and equal to what
   the reference's own test expects;
-- the ``serve``, ``kernel_plan``, ``paged_serve`` and ``spec_serve``
-  sweeps at ``fast``:
+- the ``serve``, ``kernel_plan``, ``paged_serve``, ``spec_serve`` and
+  ``preempt_serve`` sweeps at ``fast``:
   the port's rows (on the CPU) against the reference's, in names, order,
   patterns, knobs and deterministic columns (the counters, pages and
-  live-bytes ratios, the speculative counters, and the plan's tiles and
-  predicted GB/s, derived by both under the H100's constants).  Wall-clock columns are never
-  compared.
+  live-bytes ratios, the speculative counters, the preemption, swap and
+  fault counters, and the plan's tiles and predicted GB/s, derived by
+  both under the H100's constants).  Wall-clock columns are never
+  compared.  The one deterministic value that differs on purpose is
+  ``preempt_serve_swap_advantage``: the port prices the swap on the
+  card's host link (64 GB/s), the reference on its 32 GB/s guess; the
+  port's value is held to its own cost model instead.
 """
 import dataclasses
 import math
@@ -35,8 +39,10 @@ from repro_torch.bench.compare import main as t_compare_main
 from repro_torch.bench.registry import ORDER as T_ORDER
 from repro_torch.bench.schema import BenchRun as TRun
 from repro_torch.core.memmodel import H100
+from repro_torch.serve import SwapCostModel
 
-SWEEPS = ("serve", "kernel_plan", "paged_serve", "spec_serve")
+SWEEPS = ("serve", "kernel_plan", "paged_serve", "spec_serve",
+          "preempt_serve")
 
 # the H100's constants in the reference's spec type (as test_torch_tune)
 H100_AS_TPU = jmm.TPUSpec(
@@ -188,7 +194,13 @@ DETERMINISTIC_EXTRAS = (
     "plan_source", "plan_predicted_gbps", "pages_peak", "page_size",
     "pool_pages", "hit_tokens", "prompt_tokens", "ring_slots",
     "ring_pages_peak", "native_page_size", "spec_steps", "draft_accepted",
-    "draft_tokens", "deterministic")
+    "draft_tokens", "preemptions", "swap_outs", "swap_ins",
+    "swap_fallbacks", "recompute_resumes", "swap_bytes", "choice",
+    "prefill_chunks", "pool_stalls", "recompute_ms", "deterministic")
+
+# rows whose value (and these extras) the port prices on the card's host
+# link: held to the port's own cost model, not to the reference's
+CARD_PRICED = {"preempt_serve_swap_advantage": ("swap_ms",)}
 
 J_ROWS = [
     "serve_default", "serve_fastpath", "serve_ticks_per_dispatch",
@@ -201,7 +213,13 @@ J_ROWS = [
     "paged_serve_int8_page_tokens_ratio", "spec_serve_vanilla",
     "spec_serve_spec", "spec_serve_accept_per_step",
     "spec_serve_accept_rate", "spec_serve_verify_tokens_per_dispatch",
-    "spec_serve_ticks_per_dispatch", "spec_serve_tokens_match"]
+    "spec_serve_ticks_per_dispatch", "spec_serve_tokens_match",
+    "preempt_serve_undisturbed", "preempt_serve_chaos_costmodel",
+    "preempt_serve_chaos_swap", "preempt_serve_chaos_recompute",
+    "preempt_serve_tokens_match", "preempt_serve_fault_coverage",
+    "preempt_serve_swap_advantage", "preempt_serve_resume_walls",
+    "preempt_serve_burst_bound", "preempt_serve_p99_tick",
+    "preempt_serve_priority_first"]
 
 
 @pytest.mark.parametrize("name", J_ROWS)
@@ -217,13 +235,23 @@ def test_serving_row_matches_reference(both_runs, name):
     assert ("metric" in t.extras) == ("metric" in j.extras)
     if j.extras.get("deterministic"):
         assert t.timing is None and j.timing is None
-        assert math.isclose(t.gbps_measured, j.gbps_measured,
-                            rel_tol=1e-12), (t.gbps_measured,
-                                             j.gbps_measured)
+        if name in CARD_PRICED:
+            cm = SwapCostModel(weight_bytes=5e9, kv_bytes_per_token=18_432,
+                               prefill_chunk=256)
+            assert t.gbps_measured == cm.recompute_s(8192) / cm.swap_s(8192)
+            assert t.extras["swap_ms"] == cm.swap_s(8192) * 1e3
+            assert t.gbps_measured > j.gbps_measured > 1.0
+        else:
+            assert math.isclose(t.gbps_measured, j.gbps_measured,
+                                rel_tol=1e-12), (t.gbps_measured,
+                                                 j.gbps_measured)
         assert math.isclose(t.gbps_predicted, j.gbps_predicted,
                             rel_tol=1e-12)
         if j.us_per_call or t.us_per_call:
             assert t.us_per_call == j.us_per_call
+    elif j.timing is None:
+        # advisory rows (a p99 round, resume walls): a wall in microseconds
+        assert t.timing is None and t.us_per_call > 0 and j.us_per_call > 0
     else:
         assert t.timing.trials == j.timing.trials
         # a timed row carries a bandwidth where the reference's does

@@ -1250,3 +1250,84 @@ def test_advisor_on_the_card_equals_the_cpu(card_fit):
         assert all(r.predicted_gbps > 0 and r.measured_vs_predicted
                    for r in reports)
         assert "meas/pred" in render_report(reports).splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# preemption: the host tier's page copies and chaos drains
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_page_swap_round_trip_is_bitwise(cuda, kv):
+    """The engine's gather (``index_select`` into pinned host memory) and
+    scatter (``index_copy_`` at other page ids) move a bf16 pool's and an
+    int8 pool's pages and scale lanes bit for bit, on the card as on the
+    CPU, and the checksum reads the same bytes on both."""
+    from repro_torch.configs import ARCHS, override, smoke_config
+    from repro_torch.models import RuntimeFlags, build
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.hosttier import checksum_pages, tree_leaves
+
+    cfg = override(smoke_config(ARCHS["gemma-2b"]), param_dtype="bfloat16",
+                   compute_dtype="bfloat16")
+    flags = RuntimeFlags(kv_dtype="int8" if kv == "int8" else "native")
+    src, dst = [3, 5, 7, 1, 12], [9, 2, 11, 4, 6]
+    g = torch.Generator().manual_seed(0)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        bundle = build(cfg, flags, device=dev)
+        eng = ServeEngine(bundle, bundle.init(torch.Generator(
+            device=dev).manual_seed(0)), 2, 64, page_size=8, device=dev)
+        g.manual_seed(0)
+        for _, leaf in tree_leaves(eng.cache):
+            fill = (torch.randint(-127, 128, leaf.shape, generator=g)
+                    if leaf.dtype == torch.int8
+                    else torch.randn(leaf.shape, generator=g))
+            leaf.copy_(fill.to(leaf.dtype))
+        data = eng._gather_to_host(src)
+        for _, t in tree_leaves(data):
+            assert t.device.type == "cpu"
+            assert t.is_pinned() == (dev == "cuda")
+        eng._scatter_from_host(dst, data)
+        moved = {p: leaf.index_select(1 if p[0] == "blocks" else 0,
+                                      torch.tensor(dst, device=dev)).cpu()
+                 for p, leaf in tree_leaves(eng.cache)}
+        origin = {p: t.narrow(1 if p[0] == "blocks" else 0, 0, len(src))
+                  for p, t in tree_leaves(data)}
+        for p in moved:
+            assert torch.equal(moved[p].view(torch.uint8),
+                               origin[p].contiguous().view(torch.uint8)), p
+        got[dev] = (moved, checksum_pages(data, len(src)))
+    assert got["cpu"][1] == got["cuda"][1]
+    for p in got["cpu"][0]:
+        assert torch.equal(got["cpu"][0][p].view(torch.uint8),
+                           got["cuda"][0][p].view(torch.uint8)), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [None, "swap", "recompute"])
+@pytest.mark.parametrize("sampling", [{}, dict(temperature=0.9, top_p=0.95)])
+def test_chaos_drain_card_equals_cpu(cuda, no_tf32, mode, sampling):
+    """A smoke gemma-2b drain under chaos (storms, phantom exhaustion,
+    corrupted swaps) gives the same tokens, keys and counters on the card
+    as on the CPU, and the undisturbed drain's tokens."""
+    import dataclasses
+
+    from repro_torch.serve import ChaosConfig, ChaosEngine, ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    cpu, params, card, cparams = _smoke_serving(0)
+    sp = SamplingParams(**sampling)
+    runs = []
+    for bundle, p, dev in ((cpu, params, "cpu"), (card, cparams, "cuda")):
+        eng = ServeEngine(bundle, p, 2, 64, prefill_chunk=8, sampling=sp,
+                          seed=3, device=dev)
+        want = _drain(eng)
+        eng.reset()
+        got = _drain(ChaosEngine(eng, ChaosConfig(
+            seed=5, preempt_prob=0.5, exhaust_prob=0.3, corrupt_prob=0.3,
+            mode=mode)))
+        assert got == want and eng.stats.preemptions > 0
+        runs.append((got, dataclasses.asdict(eng.stats), eng.keys.cpu()))
+    assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
+    assert torch.equal(runs[0][2], runs[1][2])

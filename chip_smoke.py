@@ -138,15 +138,16 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    drawn on the card) through the paged engine, batch 4, max_len 8192,
    prefill chunks of 256: 8 requests (prompts of 4160 and 5120 tokens past
    the 4096 window, six of 64-512 with three sharing a 256-token prefix),
-   32 new tokens each, drained twice with identical tokens.  Every decode
+   16 new tokens each, drained twice with identical tokens.  Every decode
    tick must launch K1 once per layer (ring tables on the local layers,
    full tables on the global ones), the ring must turn (a ring page
    reused) and its peak stay within batch x ring_slots; prefix sharing
    stays off on a windowed stack, as in the reference.  A profiled decode window and prefill chunk
    follow;
 23. int8 serve: full-width gemma-2b with ``kv_dtype="int8"`` (pages of 16
-   tokens, the bf16 page's bytes), the serve phase's 16 requests drained
-   twice with identical tokens; every tick launches K1 once per layer on its tensor-core route
+   tokens, the bf16 page's bytes), the serve phase's first 10 requests
+   (the tenth hits the first's prefix pages) drained twice with identical
+   tokens; every tick launches K1 once per layer on its tensor-core route
    with int8 pages;
 24. ring parity and int8 parity: gemma2-27b's (local, global) pair at its
    published widths (window narrowed to 32 so the ring turns in a short
@@ -176,7 +177,33 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    evacuate -> adopt mid-stream and export -> import between two
    engines: tokens, keys and every counter card == CPU, and every drive's
    tokens the undisturbed drain's;
-28. hybrid serve: full-width recurrentgemma-9b (38 layers: 26 RG-LRU
+28. cluster serve: two full-width gemma-2b (bf16) replicas behind a
+   ``ClusterFrontEnd``, sharing one weight tree (the second engine adds
+   only its KV pool), batch 8, max_len 1024, window 8 each, draining 16
+   open-loop requests (Poisson and bursty arrivals over three Zipf-shared
+   256-token prefixes, 16-32 new tokens): undisturbed in chunks of 256
+   (every request completes, both replicas serve, prefix pages hit), then
+   under cluster_serve's pinned kill schedule (admission refusals, a
+   crash, a brownout) in chunks of 64 (failovers, quarantines and retries;
+   the requests that part from the undisturbed drain printed); K1 = 18 x
+   the ticks of both replicas; TTFT/TPOT p50/p99 in rounds, routed counts,
+   tok/s and the host's ms per round printed;
+29. disagg serve: a ``DisaggPool`` of 1 prefill and 1 decode engine of the
+   same weights, every request shipped, on the cluster's first 8 requests:
+   bf16 pages and int8 pages of 16 tokens (scale lanes shipped), tokens
+   equal to a colocated engine's, the transfer ledger equal to the page
+   geometry, K1 = 18 x the decode engine's ticks; a hand-off's export,
+   CRC and import ms beside the cost model's swap time; then every buffer
+   corrupted in transit (fallbacks, no corrupted import, requests parted
+   printed);
+30. cluster parity: 2-layer full-width gemma-2b in float32 on the card and
+   on the CPU, greedy and sampled: two replicas undisturbed, under the
+   kill schedule and under random crash, brownout and admission faults
+   (4 requests), and a ``DisaggPool`` with every transfer corrupted (2
+   requests): tokens, keys, every router and engine counter and the
+   percentiles card == CPU, and every chaos drain's tokens the
+   undisturbed drain's;
+31. hybrid serve: full-width recurrentgemma-9b (38 layers: 26 RG-LRU
    layers on dense per-slot state and 12 local-attention layers, 16 query
    heads over one kv head at D 256, window 2048; 17.3 GB of bf16 weights
    drawn on the card) through the paged engine, batch 8, max_len 4096,
@@ -186,48 +213,49 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    launch K1 once per attention layer (12) on the ring tables, the ring
    must turn and every ring page be back at the end; the warm tick, the ms
    per 256-token chunk and a profiled decode window follow;
-29. ssm serve: full-width mamba2-130m (24 SSD layers, no attention)
+32. ssm serve: full-width mamba2-130m (24 SSD layers, no attention)
    through the paged engine with no pool at all: six prompts of 64-512
    tokens and one of 600, 16 new tokens each, drained twice with identical
    tokens and no K1 launch;
-30. hybrid parity: recurrentgemma-9b at published widths cut to 5 layers
+33. hybrid parity: recurrentgemma-9b at published widths cut to 5 layers
    (one triple and both remainder RG-LRU layers), float32, window
    narrowed to 32, drained on the card and on the CPU through the paged
    backend (K1) and through the dense backend with ``attn_impl="pallas"``
    (K2 in every prefill's attention layer); the tokens must agree; the
    paged drain again under chaos in recompute mode (the resumed RG-LRU
    state comes from the prefill scan), card == CPU;
-31. ssm parity: float32 mamba2-130m at full width, prompts of 300 and 517
+34. ssm parity: float32 mamba2-130m at full width, prompts of 300 and 517
    tokens in prefill chunks of 512 (whole and padded SSD chunks of 256),
    drained on the card and on the CPU; the tokens must agree;
-32. prng: JAX's threefry keys and bits (``repro_torch.serve.prng``) at
+35. prng: JAX's threefry keys and bits (``repro_torch.serve.prng``) at
    (8, 256000) on the card exactly equal to the CPU's (bits, ``split``,
    ``fold_in``, ``subkey_chain``, ``uniform``), ``gumbel`` within 2 ulp;
    the sampler at gemma-2b's vocab for (temperature 0.9, top_p 0.95) and
    (temperature 0.8, top_k 50): masks, draws and times;
-33. sampled serve: full-width gemma-2b (bf16) through the paged engine
+36. sampled serve: full-width gemma-2b (bf16) through the paged engine
    with each sampling setting (keys seeded with 3), then the first on
    int8 pages: the serve phase's first 8 requests (one batch, the run's
    time), each drained twice with identical tokens, K1 once a layer on every tick, the warm tick
    beside the greedy tick of phase 5;
-34. sampled parity: the parity phase's model and requests sampled with
+37. sampled parity: the parity phase's model and requests sampled with
    (temperature 0.9, top_p 0.95) on the card and on the CPU: tokens and
    final keys must agree;
-35. spec serve: full-width gemma-2b in float32, the serve phase's first 8
+38. spec serve: full-width gemma-2b in float32, the serve phase's first 8
    requests through the vanilla engine and speculative engines (spec_k 3),
    greedy and sampled, drafting with the target itself and with weights
    from another seed (the draft's dense prefill through K2): tokens equal
    to vanilla, the self-draft's accept rate 1.0, the other draft's
    sampled proposals partly rejected, the pools conserve pages; rounds,
    accepted drafts per round and ms per round printed;
-36. bench serve: the ``serve``, ``kernel_plan``, ``paged_serve`` and
-   ``spec_serve`` sweeps at card scale, twice, persisted under
-   ``build/bench_serve``, then ``repro_torch.bench.compare`` between the
-   two runs: every row and verdict printed, and ``--gate structural``
-   (deterministic rows equal, no vanished metric) must pass; wall-clock
-   verdicts are advisory; the ``preempt_serve`` sweep once at card scale
-   (full-width gemma-2b in float32, the reference's larger mix), its
-   gates in the sweep.
+39. bench serve: the ``serve``, ``kernel_plan`` and ``paged_serve`` sweeps
+   at card scale (2 trials), twice, persisted under ``build/bench_serve``,
+   then ``repro_torch.bench.compare`` between the two runs: every row and
+   verdict printed, and ``--gate structural`` (deterministic rows equal,
+   no vanished metric) must pass; wall-clock verdicts are advisory; the
+   ``spec_serve``, ``preempt_serve``, ``cluster_serve`` and
+   ``disagg_serve`` sweeps once at card scale (full-width gemma-2b in
+   float32, the reference's larger mixes), their gates in the sweeps and
+   every row printed.
 
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
@@ -239,7 +267,7 @@ before their redesign, and K1's int8 pages on the CUDA cores, as PERF.md
 records them: not measured in this run),
 the kernels' JSON line (K1, K2, K3, K4 and K8 also carry their design, K7
 its latency bound; K1 its launches on each serving path, the sampled,
-hybrid and preempted ones included, and its times at the new geometries), the card line and the
+hybrid, preempted, cluster and disagg ones included, and its times at the new geometries), the card line and the
 result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
@@ -1137,8 +1165,9 @@ def ring_serve_phase(torch, np, card):
     # 256-token prefill chunks keep the two long prompts at 37 chunks
     eng = timed_engine_class(torch, ServeEngine)(bundle, params, 4, 8192,
                                                  prefill_chunk=256)
-    # two prompts past the 4096-token window
-    reqs = long_requests(np, Request, cfg.vocab_size, (4160, 5120), 32)
+    # two prompts past the 4096-token window; 16 new tokens (32 before the
+    # cluster phases joined the run: its time)
+    reqs = long_requests(np, Request, cfg.vocab_size, (4160, 5120), 16)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     route = pa.route(torch.bfloat16, torch.bfloat16, cfg.resolved_head_dim)
     split_desc = []
@@ -1179,7 +1208,7 @@ def ring_serve_phase(torch, np, card):
 
 def int8_serve_phase(torch, np, card):
     """Full-width gemma-2b with int8 KV pages: K1's int8 route on every
-    decode tick, the serve phase's 16 requests."""
+    decode tick, the serve phase's first ``INT8_REQUESTS`` requests."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import RuntimeFlags
@@ -1200,7 +1229,7 @@ def int8_serve_phase(torch, np, card):
     eng = timed_engine_class(torch, ServeEngine)(bundle, params, 8, 1024,
                                                  page_size=page)
     reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
-                         (0, 9, 12, 15), 32)
+                         (0, 9, 12, 15), 32)[:INT8_REQUESTS]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     route = pa.route(torch.bfloat16, torch.int8, cfg.resolved_head_dim)
     splits = pa.split_count(route, eng.bsz, cfg.num_kv_heads, page,
@@ -1231,6 +1260,13 @@ def int8_serve_phase(torch, np, card):
         print(line.replace("[profile]", "[profile] arch=gemma-2b kv=int8"),
               flush=True)
     return launches, warm
+
+
+# [int8 serve]'s requests: the serve phase's first 10 (16 before the
+# cluster phases joined the run: its time).  Rid 9 waits for a slot and
+# hits rid 0's prefix pages; the preempt phase's chaos rids (0, 2, 5) are
+# among them
+INT8_REQUESTS = 10
 
 
 def attention_layers(cfg):
@@ -1797,6 +1833,394 @@ def preempt_parity_phase(torch, np):
 
 
 # ---------------------------------------------------------------------------
+# the cluster front end and the disaggregated pools
+# ---------------------------------------------------------------------------
+
+# [cluster serve]'s open-loop traffic: cluster_serve's shape (Poisson and
+# bursty arrivals, three Zipf-shared prefixes) with [serve]'s 256-token
+# shared prefix and output lengths
+CLUSTER_TRAFFIC = dict(seed=23, n_requests=16, rate=1.2, burst_rate_mult=3.0,
+                       phase_rounds=4.0, n_prefixes=3, prefix_len=256,
+                       tail_lo=3, tail_hi=9, out_lo=16, out_hi=32)
+# cluster_serve's pinned kill schedule: an admission refusal on each replica
+# at round 0, replica 1 crashes at round 2, replica 0 browns out at round 12
+KILL_SCHEDULE = dict(seed=5, crash_rounds=4, brownout_rounds=4,
+                     brownout_latency_s=1.0,
+                     kill_at=((0, 0, "admit"), (0, 1, "admit"),
+                              (2, 1, "crash"), (12, 0, "brownout")))
+# the undisturbed cluster drain's and the disagg phase's prefill chunk: a
+# prompt (the 256-token prefix and its tail) prefills in 2 rounds, so a
+# prefix's pages are registered while later arrivals of its burst still
+# come (all 16 arrive in rounds 1-4) and those hit them.  The kill schedule
+# drains in chunks of 64 (5 rounds a prompt): there replica 0 still holds a
+# request when its brownout quarantines it at round 14 (in chunks of 256
+# the drain ends in round 11, and replica 1, which refuses its first
+# admission and crashes at round 2, has held no request: nothing would
+# fail over)
+CLUSTER_CHUNK = 256
+KILL_CHUNK = 64
+# the reference's random cluster chaos (tests/test_serve_cluster.py)
+RANDOM_CLUSTER_CHAOS = dict(seed=12, crash_prob=0.05, crash_rounds=3,
+                            brownout_prob=0.05, brownout_rounds=3,
+                            brownout_latency_s=1.0, admit_prob=0.1)
+# [cluster parity]'s traffic: cluster_serve's at fast, cut to 4 requests of
+# 3-6 new tokens (the CPU drains are most of the phase's time; the kill
+# schedule still fails one over); the disagg drive takes the first 2
+PARITY_TRAFFIC = dict(seed=23, n_requests=4, rate=1.2, burst_rate_mult=3.0,
+                      phase_rounds=4.0, n_prefixes=3, prefix_len=16,
+                      tail_lo=3, tail_hi=9, out_lo=3, out_hi=6)
+PARITY_DISAGG = 2
+# the router's counters a cluster drain's line prints
+CLUSTER_COUNTERS = ("routed", "completed", "shed", "failovers",
+                    "quarantines", "recoveries", "probe_failures",
+                    "slow_probes", "retries", "rounds")
+
+
+def _pct(front):
+    return " ".join(f"{k}={v:.2f}" for k, v in front.percentiles().items())
+
+
+def cluster_serve_phase(torch, np, card):
+    """Two full-width gemma-2b (bf16) replicas behind a ``ClusterFrontEnd``,
+    one weight tree on the card (the second engine adds its KV pool, not
+    the weights), batch 8, max_len 1024, window 8 each, draining
+    ``CLUSTER_TRAFFIC`` open-loop: once undisturbed in chunks of
+    ``CLUSTER_CHUNK`` (every request completes, both replicas serve,
+    prefix pages hit, K1 = 18 x the ticks of both replicas), once under
+    cluster_serve's kill schedule in chunks of ``KILL_CHUNK`` (failovers,
+    quarantines and retries; the requests whose tokens part from the
+    undisturbed drain printed, no gate: other chunks, and a failed-over
+    request resumes by recompute, and bf16 rows round by how they were
+    computed).  Returns K1's launches of each drain and the model."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import (ClusterChaos, ClusterChaosConfig,
+                                   ClusterFrontEnd, ServeEngine,
+                                   TrafficConfig, generate_traffic)
+
+    cfg = ARCHS["gemma-2b"]
+    bundle, params = load_model(torch, cfg)
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    Timed = timed_engine_class(torch, ServeEngine)
+    launches, tokens = {}, {}
+    for label, chunk, chaos in (
+            ("undisturbed", CLUSTER_CHUNK, None),
+            ("kill schedule", KILL_CHUNK,
+             ClusterChaos(ClusterChaosConfig(**KILL_SCHEDULE)))):
+        engines = [Timed(bundle, params, 8, 1024, prefill_chunk=chunk)]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        engines.append(Timed(bundle, params, 8, 1024, prefill_chunk=chunk))
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated() - before
+        check(engines[1].params is engines[0].params and grew < weights / 10,
+              f"cluster serve: the second replica added {grew} bytes beside "
+              f"{weights} bytes of weights")
+        if chaos is None:
+            print(f"[cluster serve] replicas=2 one weight tree: the second "
+                  f"engine added {grew / 2**30:.3f} GiB (its KV pool "
+                  f"{engines[1].kv_bytes() / 2**30:.3f} GiB) beside "
+                  f"{weights / 1e9:.2f} GB of weights", flush=True)
+        front = ClusterFrontEnd(engines)
+        front.reset()
+        sched = generate_traffic(TrafficConfig(**CLUSTER_TRAFFIC),
+                                 cfg.vocab_size)
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        front.run(sched, chaos=chaos)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st, c = front.stats(), front.cstats
+        reqs = [r for _, r in sched]
+        ticks = [e.stats.decode_steps for e in engines]
+        check(c.completed == len(reqs) and all(
+            len(r.out_tokens) == r.max_new_tokens for r in reqs),
+            f"cluster serve {label}: {c.completed} of {len(reqs)} requests "
+            "completed their budgets")
+        check(all(0 <= t < cfg.vocab_size for r in reqs
+                  for t in r.out_tokens), f"cluster serve {label}: token "
+              "out of range")
+        check(pa.LAUNCHES == cfg.num_layers * sum(ticks) and sum(ticks) > 0,
+              f"cluster serve {label}: K1 launches {pa.LAUNCHES} != "
+              f"{cfg.num_layers} x {sum(ticks)} ticks")
+        tokens[label] = [list(r.out_tokens) for r in reqs]
+        launches["cluster serve" + ("" if chaos is None
+                                    else f" {label}")] = pa.LAUNCHES
+        if chaos is None:
+            check(all(rep.routed > 0 for rep in front.replicas),
+                  "cluster serve: a replica served nothing")
+            check(st.prefix_hit_tokens > 0, "cluster serve: no prefix hit")
+            parted = "n/a"
+        else:
+            check(c.failovers >= 1 and c.quarantines >= 1 and c.retries >= 1,
+                  f"cluster serve kill schedule: failovers={c.failovers} "
+                  f"quarantines={c.quarantines} retries={c.retries}")
+            parted = sum(a != b for a, b in zip(tokens[label],
+                                                tokens["undisturbed"]))
+        decode_s = sum(e.decode_s for e in engines)
+        prefill_s = sum(e.prefill_s for e in engines)
+        print(f"[cluster serve] card='{card}' drain='{label}' arch=gemma-2b "
+              f"dtype=bfloat16 replicas=2 requests={len(reqs)} batch=8 "
+              f"max_len=1024 window=8 prefill_chunk={chunk} "
+              f"seconds={dt:.3f} "
+              f"tok_s={st.tokens_out / dt:.1f} "
+              f"ms_per_round={1e3 * dt / c.rounds:.1f} "
+              f"ticks={'+'.join(map(str, ticks))} "
+              f"ms_per_decode_tick={1e3 * decode_s / sum(ticks):.3f} "
+              f"prefill_chunks={st.prefill_chunks} ms_per_prefill_chunk="
+              f"{1e3 * prefill_s / max(1, st.prefill_chunks):.3f} "
+              f"prefix_hit_tokens={st.prefix_hit_tokens} "
+              f"routed_per_replica="
+              f"{'/'.join(str(rep.routed) for rep in front.replicas)} "
+              + " ".join(f"{k}={getattr(c, k)}" for k in CLUSTER_COUNTERS)
+              + f" recompute_resumes={st.recompute_resumes} "
+              f"preempt_restarts={st.preempt_restarts} {_pct(front)} "
+              f"(rounds) k1_launches={pa.LAUNCHES} requests_parted={parted}",
+              flush=True)
+        del front, engines
+    return launches, (bundle, params)
+
+
+def disagg_serve_phase(torch, np, card, bundle, params):
+    """A ``DisaggPool`` of 1 prefill and 1 decode engine of full-width
+    gemma-2b (the cluster phase's weight tree) with ``force="disagg"``, on
+    ``CLUSTER_TRAFFIC``'s first 8 requests, submitted at once: bf16 pages
+    and int8 pages of 16 tokens (their scale lanes shipped), each drain's
+    tokens equal to a colocated engine's (pages ship bit for bit), the
+    transfer ledger equal to the geometry (2 x the power-of-two padded
+    pages x bytes a page, a hand-off), K1 = 18 x the decode engine's
+    ticks (the prefill engine decodes nothing).  A hand-off's export
+    (gather to pinned host memory), CRC and import (scatter) ms beside the
+    pool's ``SwapCostModel.swap_s`` at the mean prompt.  Then every
+    buffer corrupted in transit: fallbacks, no import of a corrupted
+    buffer, the requests that part (bf16 recompute) printed."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import RuntimeFlags, build
+    from repro_torch.serve import (DisaggChaos, DisaggChaosConfig,
+                                   DisaggConfig, DisaggPool, ServeEngine,
+                                   TrafficConfig, generate_traffic, hosttier)
+    from repro_torch.tune.plan import next_pow2
+
+    cfg = bundle.cfg
+    int8 = build(cfg, RuntimeFlags(kv_dtype="int8"))
+    Timed = swap_timed_engine_class(torch, ServeEngine)
+
+    def batch():
+        sched = generate_traffic(TrafficConfig(**CLUSTER_TRAFFIC),
+                                 cfg.vocab_size)
+        return [r for _, r in sched[:8]]
+
+    def run(target, chaos=None):
+        reqs = batch()
+        submit = getattr(target, "submit", None) or target.add_request
+        for r in reqs:
+            submit(r)
+        pa.reset_launches()
+        with CrcClock(hosttier) as crc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if isinstance(target, DisaggPool):
+                target.run(chaos=chaos)
+            else:
+                target.run_to_completion()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+              "disagg serve: a request missed its budget")
+        return reqs, [list(r.out_tokens) for r in reqs], dt, crc
+
+    launches = {}
+    for kv, b, kw in (("bfloat16", bundle, dict(prefill_chunk=CLUSTER_CHUNK)),
+                      ("int8", int8, dict(page_size=16,
+                                          prefill_chunk=CLUSTER_CHUNK))):
+        _, want, _, _ = run(Timed(b, params, 8, 1024, **kw))
+        pool = DisaggPool([Timed(b, params, 8, 1024, **kw)],
+                          [Timed(b, params, 8, 1024, **kw)],
+                          DisaggConfig(force="disagg"))
+        reqs, got, dt, crc = run(pool)
+        st, d = pool.stats(), pool.dstats
+        pe, de = pool.prefill_engines[0], pool.decode_engines[0]
+        check(got == want, f"disagg serve {kv}: tokens differ from the "
+              "colocated drain's")
+        check(st.prefill_exports == st.prefill_imports == len(reqs)
+              and st.transfer_fallbacks == 0, f"disagg serve {kv}: "
+              f"{st.prefill_exports} exports, {st.prefill_imports} imports")
+        check(pe.stats.decode_steps == 0 and pa.LAUNCHES
+              == cfg.num_layers * de.stats.decode_steps > 0,
+              f"disagg serve {kv}: K1 launches {pa.LAUNCHES} != "
+              f"{cfg.num_layers} x {de.stats.decode_steps} decode ticks")
+        geometry = 2 * sum(next_pow2(max(1, -(-len(r.prompt) // de.page)))
+                           * de.bytes_per_page for r in reqs)
+        check(st.transfer_bytes == geometry, f"disagg serve {kv}: transfer "
+              f"bytes {st.transfer_bytes} != geometry {geometry}")
+        if kv == "int8":
+            check(de.cache["blocks"]["p0"]["k_scale"].dtype == torch.float32,
+                  "disagg serve int8: no scale lanes")
+        mean = int(round(sum(len(r.prompt) for r in reqs) / len(reqs)))
+        cm = pool.cost_model
+        launches["disagg serve" + (" int8" if kv == "int8" else "")] = \
+            pa.LAUNCHES
+        print(f"[disagg serve] card='{card}' kv_dtype={kv} page={de.page} "
+              f"requests={len(reqs)} force=disagg seconds={dt:.3f} "
+              f"tok_s={st.tokens_out / dt:.1f} rounds={d.rounds} "
+              f"transfers={d.transfers} transfer_bytes={st.transfer_bytes} "
+              f"geometry_bytes={geometry} export_ms_per_handoff="
+              f"{1e3 * pe.gather_s / pe.gathers:.3f} import_ms_per_handoff="
+              f"{1e3 * de.scatter_s / de.scatters:.3f} crc_ms_per_handoff="
+              f"{1e3 * crc.s / d.transfers:.3f} crcs={crc.n} "
+              f"model_swap_ms={1e3 * cm.swap_s(mean):.3f} "
+              f"model_reprefill_ms={1e3 * cm.recompute_s(mean):.3f} "
+              f"(pool link {cm.host_link_bw / 1e9:.0f} GB/s, H100 spec, "
+              f"{mean} tokens) decode_ticks={de.stats.decode_steps} "
+              f"ms_per_decode_tick="
+              f"{1e3 * de.decode_s / de.stats.decode_steps:.3f} "
+              f"{_pct(pool)} (rounds) equals_colocated=True "
+              f"k1_launches={pa.LAUNCHES}", flush=True)
+        if kv == "bfloat16":
+            pool.reset()
+            chaos = DisaggChaos(DisaggChaosConfig(seed=5, corrupt_prob=1.0))
+            _, bad, dt, _ = run(pool, chaos)
+            st = pool.stats()
+            check(chaos.corruptions >= 1 and st.transfer_fallbacks >= 1
+                  and st.prefill_imports == 0, f"disagg serve corrupted: "
+                  f"corruptions={chaos.corruptions} fallbacks="
+                  f"{st.transfer_fallbacks} imports={st.prefill_imports}")
+            check(pa.LAUNCHES == cfg.num_layers * de.stats.decode_steps,
+                  "disagg serve corrupted: K1 missed a tick")
+            launches["disagg serve corrupted"] = pa.LAUNCHES
+            print(f"[disagg serve] card='{card}' kv_dtype={kv} "
+                  f"corrupt_prob=1.0 seconds={dt:.3f} "
+                  f"corruptions={chaos.corruptions} "
+                  f"transfer_fallbacks={st.transfer_fallbacks} "
+                  f"prefill_imports={st.prefill_imports} "
+                  f"recompute_resumes={st.recompute_resumes} "
+                  f"requests_parted={sum(a != b for a, b in zip(bad, want))}"
+                  f" of {len(want)} (bf16: a recomputed row rounds as a "
+                  f"prefill chunk's) k1_launches={pa.LAUNCHES}", flush=True)
+        del pool
+    return launches
+
+
+def cluster_parity_phase(torch, np):
+    """Full-width 2-layer gemma-2b in float32, the same weights on the card
+    and on the CPU, greedy and sampled (keys seeded 3): two replicas drain
+    ``PARITY_TRAFFIC`` undisturbed, under the kill schedule and under the
+    reference's random cluster chaos; a ``DisaggPool`` drains its first
+    ``PARITY_DISAGG`` requests with every transfer corrupted.  Card == CPU
+    in tokens, keys, every ClusterStats, DisaggStats and ServeStats field
+    and the percentiles; every chaos drain's tokens are the undisturbed
+    drain's (the disagg drive's, its requests'); K1 once a layer on every
+    card tick."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import build
+    from repro_torch.serve import (ClusterChaos, ClusterChaosConfig,
+                                   ClusterFrontEnd, DisaggChaos,
+                                   DisaggChaosConfig, DisaggConfig,
+                                   DisaggPool, ServeEngine, TrafficConfig,
+                                   generate_traffic)
+    from repro_torch.serve.sampling import SamplingParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = override(ARCHS["gemma-2b"], num_layers=2, param_dtype="float32",
+                   compute_dtype="float32")
+    card_bundle = build(cfg, device="cuda")
+    card_params = card_bundle.init(
+        torch.Generator(device="cuda").manual_seed(1))
+    sides = (("cuda", card_bundle, card_params),
+             ("cpu", build(cfg, device="cpu"), _to(card_params, "cpu")))
+    drives = (("undisturbed", None), ("kill schedule", KILL_SCHEDULE),
+              ("random chaos", RANDOM_CLUSTER_CHAOS),
+              ("disagg corrupted", 1.0))
+    for label, sp in (("greedy", {}), ("sampled", SAMPLINGS[0])):
+        rec = {}
+        for dev, bundle, p in sides:
+            def make(bundle=bundle, p=p, dev=dev):
+                return ServeEngine(bundle, p, 2, 64, window=4,
+                                   prefill_chunk=8, seed=3, device=dev,
+                                   sampling=SamplingParams(**sp))
+            front = ClusterFrontEnd([make(), make()])
+            pool = DisaggPool([make()], [make()],
+                              DisaggConfig(force="disagg"))
+            for drive, chaos in drives:
+                sched = generate_traffic(TrafficConfig(**PARITY_TRAFFIC),
+                                         cfg.vocab_size)
+                pa.reset_launches()
+                if drive.startswith("disagg"):
+                    target = pool
+                    pool.reset()
+                    reqs = [r for _, r in sched[:PARITY_DISAGG]]
+                    for r in reqs:
+                        pool.submit(r)
+                    ch = DisaggChaos(DisaggChaosConfig(seed=5,
+                                                       corrupt_prob=chaos))
+                    pool.run(chaos=ch)
+                    router = dataclasses.asdict(pool.dstats)
+                    faults = ch.corruptions
+                else:
+                    target = front
+                    front.reset()
+                    ch = (None if chaos is None else
+                          ClusterChaos(ClusterChaosConfig(**chaos)))
+                    front.run(sched, chaos=ch)
+                    router = dataclasses.asdict(front.cstats)
+                    faults = (None if ch is None else
+                              (ch.crashes, ch.brownouts, ch.admit_faults))
+                    reqs = [r for _, r in sched]
+                engines = target.engines
+                ticks = sum(e.stats.decode_steps for e in engines)
+                if dev == "cuda":
+                    check(pa.LAUNCHES == cfg.num_layers * ticks and ticks > 0,
+                          f"cluster parity {label} {drive}: K1 launches "
+                          f"{pa.LAUNCHES} != {cfg.num_layers} x {ticks}")
+                check(all(r.done for r in reqs), f"cluster parity {label} "
+                      f"{drive} {dev}: a request did not finish")
+                rec[(dev, drive)] = dict(
+                    tokens=[list(r.out_tokens) for r in reqs],
+                    keys=torch.cat([e.keys.cpu() for e in engines]),
+                    stats=[dataclasses.asdict(e.stats) for e in engines],
+                    router=router, faults=faults,
+                    pct=target.percentiles())
+            del front, pool
+        for drive, _ in drives:
+            g, c = rec[("cuda", drive)], rec[("cpu", drive)]
+            same = {k: (bool(torch.equal(g[k], c[k])) if k == "keys"
+                        else g[k] == c[k]) for k in g}
+            want = rec[("cuda", "undisturbed")]["tokens"][:len(g["tokens"])]
+            equal_base = g["tokens"] == want
+            router = g["router"]
+            print(f"[cluster parity] arch=gemma-2b full width, 2 layers, "
+                  f"float32, {label} drive='{drive}' "
+                  f"requests={len(g['tokens'])} cuda_equals_cpu="
+                  f"{all(same.values())} "
+                  + " ".join(f"{k}_equal={v}" for k, v in same.items())
+                  + f" equals_undisturbed={equal_base} "
+                  f"faults={g['faults']} "
+                  + " ".join(f"{k}={router[k]}" for k in router
+                             if k in CLUSTER_COUNTERS + ("transfers",))
+                  + " " + " ".join(f"{k}={v:.2f}"
+                                   for k, v in g["pct"].items()), flush=True)
+            check(all(same.values()), f"cluster parity {label} {drive}: "
+                  "card and CPU differ in "
+                  f"{[k for k, v in same.items() if not v]}")
+            check(equal_base, f"cluster parity {label} {drive}: tokens "
+                  "differ from the undisturbed drain's")
+        k = rec[("cuda", "kill schedule")]["router"]
+        check(k["failovers"] >= 1 and k["quarantines"] >= 1,
+              f"cluster parity {label}: the kill schedule failed nothing over")
+        check(sum(rec[("cuda", "random chaos")]["faults"]) > 0,
+              f"cluster parity {label}: the random chaos fired nothing")
+        d = rec[("cuda", "disagg corrupted")]["stats"]
+        check(sum(s["transfer_fallbacks"] for s in d) >= 1
+              and sum(s["prefill_imports"] for s in d) == 0,
+              f"cluster parity {label}: corrupted transfers landed")
+
+
+# ---------------------------------------------------------------------------
 # hybrid recurrent stacks: RG-LRU + local attention, and SSD alone
 # ---------------------------------------------------------------------------
 
@@ -2019,11 +2443,10 @@ def prng_phase(torch, np, card):
 
 def sampled_serve_phase(torch, np, card, greedy):
     """Full-width gemma-2b (bf16) through the paged engine with sampling:
-    the serve phase's 16 requests with the first setting, its first 8 (one
-    batch, to keep the run inside its time) with the second and then with
-    the first setting on int8 pages of 16 tokens; each drained twice with
-    identical tokens, K1 once a layer on every tick, the warm tick beside
-    the greedy one."""
+    the serve phase's first 8 requests (one batch, to keep the run inside
+    its time) with each setting and then with the first setting on int8
+    pages of 16 tokens; each drained twice with identical tokens, K1 once
+    a layer on every tick, the warm tick beside the greedy one."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import RuntimeFlags, build
@@ -2039,8 +2462,8 @@ def sampled_serve_phase(torch, np, card, greedy):
     runs = [(b, p, {}, "bf16") for b, p in ((bundle, SAMPLINGS[0]),
                                             (bundle, SAMPLINGS[1]))]
     runs.append((int8, SAMPLINGS[0], dict(page_size=16), "int8"))
-    for i, (b, sp, kw, kv) in enumerate(runs):
-        batch = reqs if i == 0 else reqs[:8]
+    for b, sp, kw, kv in runs:
+        batch = reqs[:8]
         eng = timed_engine_class(torch, ServeEngine)(
             b, params, 8, 1024, sampling=SamplingParams(**sp), seed=3, **kw)
 
@@ -2169,9 +2592,11 @@ def spec_serve_phase(torch, np, card):
             del eng
 
 
-BENCH_SWEEPS = ("serve", "kernel_plan", "paged_serve", "spec_serve")
-# run once, after the comparison (the run's time): its gates are in-sweep
-BENCH_ONCE = ("preempt_serve",)
+BENCH_SWEEPS = ("serve", "kernel_plan", "paged_serve")
+# run once, after the comparison (the run's time): their gates are in-sweep
+# (spec_serve ran in both compared runs before the cluster phases joined)
+BENCH_ONCE = ("spec_serve", "preempt_serve", "cluster_serve",
+              "disagg_serve")
 
 
 def bench_serve_phase(torch, card):
@@ -2198,6 +2623,11 @@ def bench_serve_phase(torch, card):
         print(f"[bench serve] run={i} rows={len(run.results)} "
               f"seconds={time.perf_counter() - t0:.2f} deterministic={det} "
               f"path={os.path.relpath(paths[-1], ROOT)}", flush=True)
+        if names == BENCH_ONCE:
+            for r in run.results:
+                extras = {k: v for k, v in r.extras.items() if k != "metric"}
+                print(f"[bench serve] row={r.name} us={r.us_per_call:.1f} "
+                      f"value={r.gbps_measured:.6g} {extras}", flush=True)
         del run
         gc.collect()
         torch.cuda.empty_cache()
@@ -3224,6 +3654,16 @@ def main():
         lap("preempt parity")
         gc.collect()
         torch.cuda.empty_cache()
+        cluster_launches, model = cluster_serve_phase(torch, np, card)
+        disagg_launches = disagg_serve_phase(torch, np, card, *model)
+        del model
+        lap("cluster serve, disagg serve")
+        gc.collect()                 # the cluster's gemma-2b goes
+        torch.cuda.empty_cache()
+        cluster_parity_phase(torch, np)
+        lap("cluster parity")
+        gc.collect()
+        torch.cuda.empty_cache()
         hybrid_launches = hybrid_serve_phase(torch, np, card)
         gc.collect()                 # the 17 GB of recurrentgemma-9b go
         torch.cuda.empty_cache()
@@ -3262,7 +3702,8 @@ def main():
                                 "ring serve": ring_launches,
                                 "int8 serve": int8_launches,
                                 "hybrid serve": hybrid_launches,
-                                **sampled_launches, **preempt_launches},
+                                **sampled_launches, **preempt_launches,
+                                **cluster_launches, **disagg_launches},
               timed=k1_timed)
     k2 = dict(name="flash_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/flash_attention.cu",

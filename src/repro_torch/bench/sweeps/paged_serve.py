@@ -26,6 +26,8 @@ global) pair of gemma2-27b (window 4096) at max_len 8192, where the first
 request's prompt runs past the window (its ring turns) and the rest are
 the reference's mix (a second long prompt would share the batch with the
 first and hold two full rings: the ratio would then measure the mix).
+The timed rows take two trials everywhere (the reference: three off
+``fast``), for the smoke run's time.
 """
 import time
 
@@ -97,7 +99,7 @@ def run_paged_serve(ctx: SweepContext) -> None:
     n_req, max_new = (4, 8) if ctx.fast else (10, 16)
     max_len = 64 if ctx.fast else 128
     window = 8
-    trials = 2 if ctx.fast else 3
+    trials = 2
 
     def engine(bundle, params, max_len, backend):
         return ServeEngine(bundle, params, batch_size=2, max_len=max_len,

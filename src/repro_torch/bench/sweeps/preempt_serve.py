@@ -43,7 +43,7 @@ import numpy as np
 
 from repro_torch.bench.registry import SweepContext, register
 from repro_torch.bench.schema import Timing
-from repro_torch.bench.sweeps.serve import _sync, model_for, serve_model
+from repro_torch.bench.sweeps.serve import _sync, float32_gemma
 from repro_torch.core.patterns import Knobs, Pattern
 
 
@@ -87,13 +87,7 @@ def run_preempt_serve(ctx: SweepContext) -> None:
                                    SchedulerConfig, ServeEngine, ServeStats,
                                    SwapCostModel)
 
-    if ctx.fast:
-        cfg, bundle, params = serve_model(ctx, "gemma-2b")
-    else:
-        from repro_torch.configs import ARCHS, override
-        cfg, bundle, params = model_for(ctx, override(
-            ARCHS["gemma-2b"], param_dtype="float32",
-            compute_dtype="float32"))
+    cfg, bundle, params = float32_gemma(ctx)
     n_req, max_new = (4, 8) if ctx.fast else (8, 16)
     max_len = 64 if ctx.fast else 128
     trials = 2

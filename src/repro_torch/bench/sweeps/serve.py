@@ -16,8 +16,10 @@
 At ``fast`` both keep the reference's sizes and smoke config in float32.
 On the card ``serve`` drains the reference's larger mix (12 requests, 24
 new tokens, max_len 128) through full-width gemma-2b in bfloat16, and
-``kernel_plan`` runs the reference's 2048-token shape.  Walls are the
-host's clock around a drain that ends in a device synchronise.
+``kernel_plan`` runs the reference's 2048-token shape.  The timed rows
+take two trials everywhere (the reference: three off ``fast``), for the
+smoke run's time.  Walls are the host's clock around a drain that ends in
+a device synchronise.
 """
 import time
 
@@ -60,6 +62,19 @@ def model_for(ctx: SweepContext, cfg, kv_dtype: str = "native",
     return cfg, bundle, bundle.init(gen)
 
 
+def float32_gemma(ctx: SweepContext):
+    """(cfg, bundle, params) of a serving sweep whose gates are bitwise:
+    smoke gemma-2b in float32 at ``fast``, full-width gemma-2b in float32
+    on the card.  In bfloat16 a row computed again (a verify pass, or a
+    prefill chunk of a recompute) rounds differently from the decode step
+    that first wrote it."""
+    if ctx.fast:
+        return serve_model(ctx, "gemma-2b")
+    from repro_torch.configs import ARCHS, override
+    return model_for(ctx, override(ARCHS["gemma-2b"], param_dtype="float32",
+                                   compute_dtype="float32"))
+
+
 def _drain(eng, n_req, max_new):
     """Enqueue the deterministic request mix and serve it to completion."""
     from repro_torch.serve import Request
@@ -84,7 +99,7 @@ def run_serve(ctx: SweepContext) -> None:
     cfg, bundle, params = serve_model(ctx, "gemma-2b")
     n_req, max_new = (4, 8) if ctx.fast else (12, 24)
     max_len = 64 if ctx.fast else 128
-    trials = 2 if ctx.fast else 3
+    trials = 2
 
     variants = {
         # window=1 + exact-length prefill == the per-token host loop

@@ -21,8 +21,9 @@ On the card it drains the reference's larger mix (8 requests, 16 new
 tokens, max_len 128) through full-width gemma-2b, drafting with itself,
 in float32: the verify pass (gathered pages) and the decode kernel round
 differently in bfloat16, so only float32 holds speculative tokens to
-vanilla ones bit for bit.  Walls are the host's clock around a drain that
-ends in a device synchronise.
+vanilla ones bit for bit.  The timed rows take two trials everywhere (the
+reference: three off ``fast``), for the smoke run's time.  Walls are the
+host's clock around a drain that ends in a device synchronise.
 """
 import time
 
@@ -30,7 +31,7 @@ import numpy as np
 
 from repro_torch.bench.registry import SweepContext, register
 from repro_torch.bench.schema import Timing
-from repro_torch.bench.sweeps.serve import _sync, model_for, serve_model
+from repro_torch.bench.sweeps.serve import _sync, float32_gemma
 from repro_torch.core.patterns import Knobs, Pattern
 
 SPEC_K = 3
@@ -69,16 +70,10 @@ def _drain(eng, cfg, n_req, max_new):
 def run_spec_serve(ctx: SweepContext) -> None:
     from repro_torch.serve import ServeEngine
 
-    if ctx.fast:
-        cfg, bundle, params = serve_model(ctx, "gemma-2b")
-    else:
-        from repro_torch.configs import ARCHS, override
-        cfg, bundle, params = model_for(ctx, override(
-            ARCHS["gemma-2b"], param_dtype="float32",
-            compute_dtype="float32"))
+    cfg, bundle, params = float32_gemma(ctx)
     n_req, max_new = (4, 8) if ctx.fast else (8, 16)
     max_len = 64 if ctx.fast else 128
-    trials = 2 if ctx.fast else 3
+    trials = 2
 
     def mk(spec: bool) -> ServeEngine:
         kw = (dict(draft_bundle=bundle, draft_params=params, spec_k=SPEC_K)

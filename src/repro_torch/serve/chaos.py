@@ -21,28 +21,37 @@ per round:
 After every round the wrapper asserts that the allocators conserve pages
 (live + free == pool, every refcount >= 1, every table page live): faults
 may slow a drain, never leak a page.
+
+:class:`ClusterChaos` is the replica-scale sibling: whole-replica crashes,
+brownouts (stalled rounds and slow health probes) and transient admission
+refusals, injected into a
+:class:`~repro_torch.serve.cluster.ClusterFrontEnd` each virtual-clock
+round; :class:`DisaggChaos` corrupts the transfer buffers a
+:class:`~repro_torch.serve.cluster.DisaggPool` has in flight.  Every kind
+draws from its own seed-derived stream (:func:`fault_rng`), so kinds
+compose without moving each other's schedules.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.serve.hosttier import corrupt_entry
 from repro_torch.serve.kvcache import PoolExhausted
 
 # Stable fault-kind ids, the reference's: each kind draws from its own
 # sub-stream keyed (seed, kind id) through a SeedSequence, so a new kind
-# never moves an existing kind's schedule.  Only append; the cluster kinds
-# (crash, brownout, admit, transfer) belong to the cluster harness.
+# never moves an existing kind's schedule.  Only append.
 _FAULT_KIND_IDS = {
     "storm": 0,       # per-slot preemption storms   (ChaosEngine)
     "exhaust": 1,     # phantom free-list grabs      (ChaosEngine)
     "corrupt": 2,     # host-tier byte flips         (ChaosEngine)
-    "crash": 3,       # whole-replica crash          (cluster)
-    "brownout": 4,    # replica stall / slow probes  (cluster)
-    "admit": 5,       # transient admission refusals (cluster)
-    "transfer": 6,    # in-transit buffer corruption (disaggregated pools)
+    "crash": 3,       # whole-replica crash          (ClusterChaos)
+    "brownout": 4,    # replica stall / slow probes  (ClusterChaos)
+    "admit": 5,       # transient admission refusals (ClusterChaos)
+    "transfer": 6,    # in-transit buffer corruption (DisaggChaos)
 }
 
 
@@ -187,3 +196,124 @@ class ChaosEngine:
             f"chaos drain did not converge in {max_rounds} rounds "
             f"(faults={self.faults}, exhausts={self.exhausts}, "
             f"queue={len(self.eng.queue)})")
+
+
+# ----------------------------------------------------------------------
+# cluster-scale faults
+# ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class ClusterChaosConfig:
+    """The cluster fault mix of :class:`ClusterChaos`.  Probabilities are
+    per replica, per round; ``kill_at`` pins faults to rounds as
+    ``(round, replica_index, kind)``, kind one of ``"crash"``,
+    ``"brownout"`` or ``"admit"``, for kill schedules a gate replays."""
+    seed: int = 0
+    crash_prob: float = 0.0        # replica goes dark (device state lost)
+    crash_rounds: int = 6          # rounds a crashed replica stays dark
+    brownout_prob: float = 0.0     # replica stalls, probes turn slow
+    brownout_rounds: int = 4
+    brownout_latency_s: float = 1.0   # what the health probe observes
+    admit_prob: float = 0.0        # transient admission refusal queued
+    kill_at: Tuple[Tuple[int, int, str], ...] = ()
+    max_down: Optional[int] = None    # fault budget; default n_replicas - 1
+
+
+class ClusterChaos:
+    """Seeded replica-scale fault injector for a cluster front end.
+
+    Pass it as ``chaos=`` to :meth:`ClusterFrontEnd.run`: :meth:`inject`
+    fires at the top of every virtual-clock round and arms faults on the
+    :class:`~repro_torch.serve.cluster.Replica` wrappers (crash and stall
+    timers, queued admission refusals).  Each kind draws from its own
+    ``(seed, kind)`` stream (:func:`fault_rng`), and every per-replica
+    draw happens whether or not the fault fires, so a fault schedule is a
+    function of the config alone, whatever the cluster's state.
+    ``max_down`` keeps at least one replica standing: chaos may slow the
+    drain, never wedge it."""
+
+    def __init__(self, cfg: ClusterChaosConfig = ClusterChaosConfig()):
+        self.cfg = cfg
+        self.rngs = {k: fault_rng(cfg.seed, k)
+                     for k in ("crash", "brownout", "admit")}
+        self.crashes = 0
+        self.brownouts = 0
+        self.admit_faults = 0
+
+    def _down(self, front) -> int:
+        return sum(1 for r in front.replicas
+                   if r.crash_rounds > 0 or r.stall_rounds > 0
+                   or r.state == "quarantined")
+
+    def _budget(self, front) -> int:
+        cap = self.cfg.max_down
+        if cap is None:
+            cap = len(front.replicas) - 1
+        return cap - self._down(front)
+
+    def fire(self, rep, kind: str) -> None:
+        if kind == "crash":
+            rep.crash_rounds = self.cfg.crash_rounds
+            self.crashes += 1
+        elif kind == "brownout":
+            rep.stall_rounds = self.cfg.brownout_rounds
+            rep.probe_latency_s = self.cfg.brownout_latency_s
+            self.brownouts += 1
+        elif kind == "admit":
+            rep.admit_faults += 1
+            self.admit_faults += 1
+        else:
+            raise ValueError(f"unknown cluster fault kind {kind!r}")
+
+    def inject(self, front) -> None:
+        now = front.round
+        for rnd, idx, kind in self.cfg.kill_at:
+            if rnd == now:
+                self.fire(front.replicas[idx], kind)
+        for rep in front.replicas:
+            # draw before the gate: the streams advance alike whatever fires
+            if (self.rngs["crash"].random() < self.cfg.crash_prob
+                    and rep.crash_rounds == 0 and self._budget(front) > 0):
+                self.fire(rep, "crash")
+            if (self.rngs["brownout"].random() < self.cfg.brownout_prob
+                    and rep.stall_rounds == 0 and rep.crash_rounds == 0
+                    and self._budget(front) > 0):
+                self.fire(rep, "brownout")
+            if self.rngs["admit"].random() < self.cfg.admit_prob:
+                self.fire(rep, "admit")
+
+
+# ----------------------------------------------------------------------
+# faults of the disaggregated hand-off
+# ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class DisaggChaosConfig:
+    """The fault mix of :class:`DisaggChaos`: per buffer in transit, per
+    round, flip a byte inside the checksummed span.  The decode pool's
+    import must catch every hit at swap-in (the checksum) and recover by
+    recompute."""
+    seed: int = 0
+    corrupt_prob: float = 0.0
+
+
+class DisaggChaos:
+    """Seeded fault injector for a
+    :class:`~repro_torch.serve.cluster.DisaggPool`.
+
+    Pass it as ``chaos=`` to :meth:`DisaggPool.run`: :meth:`inject` fires
+    at the top of every round, while shipped prefill pages are in flight
+    between the pools.  It draws from the ``(seed, "transfer")`` stream,
+    one draw per buffer in transit per round, fired or not, so its
+    schedule moves no other kind's."""
+
+    def __init__(self, cfg: DisaggChaosConfig = DisaggChaosConfig()):
+        self.cfg = cfg
+        self.rng = fault_rng(cfg.seed, "transfer")
+        self.corruptions = 0
+
+    def inject(self, pool) -> None:
+        if self.cfg.corrupt_prob <= 0:
+            return
+        for t in pool._transit:
+            if self.rng.random() < self.cfg.corrupt_prob:
+                corrupt_entry(t.entry)
+                self.corruptions += 1

@@ -75,9 +75,12 @@ stack; a ring or a recurrent state is not in the full pool's pages.
 ``evacuate``/``adopt`` move unfinished requests between engines, and
 ``export_finished_prefill``/``import_prefill`` ship a finished prefill's
 pages from one engine to another through a checksummed transfer entry.
+:mod:`repro_torch.serve.cluster` builds on these hooks: the cluster front
+end fails requests over by evacuate -> adopt, and the disaggregated
+prefill/decode pools hand prompts over by export -> import.
 
-Not ported yet: the cluster front end and disaggregated pools above these
-hooks, tensor/data parallelism, CUDA-graph capture of the decode window.
+Not ported yet: tensor and data parallelism over device meshes, and
+CUDA-graph capture of the decode window.
 """
 from __future__ import annotations
 
@@ -235,6 +238,7 @@ class ServeEngine:
             raise ValueError(f"the bundle runs on {bundle.device}, the "
                              f"engine on {self.device}")
         self.sampling = sampling or GREEDY
+        self.seed = seed
         self._base_key = prng.prng_key(seed, self.device)
         self.draft = draft_bundle
         self.draft_params = draft_params

@@ -342,6 +342,22 @@ class PrefixIndex:
             pages.append(pid)
         return pages
 
+    def match_len(self, hashes: Sequence[str],
+                  alloc: Optional[PageAllocator] = None) -> int:
+        """Length of the longest run of leading hashes this index would
+        serve: a pure peek for routing, which drops no entry, so scoring
+        a request against many replicas' indexes disturbs none of them.
+        With ``alloc`` an entry whose page lost its pin is a miss (it
+        could not be attached) and stays in place for :meth:`lookup` or
+        :meth:`evict_unused` to reap on the owning engine's schedule."""
+        n = 0
+        for h in hashes:
+            pid = self._by_hash.get(h)
+            if pid is None or (alloc is not None and pid not in alloc.pinned):
+                break
+            n += 1
+        return n
+
     def register(self, h: str, pid: int) -> bool:
         """Idempotent: the first page registered for a hash wins (identical
         content by construction)."""

@@ -1331,3 +1331,98 @@ def test_chaos_drain_card_equals_cpu(cuda, no_tf32, mode, sampling):
         runs.append((got, dataclasses.asdict(eng.stats), eng.keys.cpu()))
     assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
     assert torch.equal(runs[0][2], runs[1][2])
+
+
+# ---------------------------------------------------------------------------
+# the cluster front end and the disaggregated pools
+# ---------------------------------------------------------------------------
+
+KILL_SCHEDULE = dict(seed=5, crash_rounds=4, brownout_rounds=4,
+                     brownout_latency_s=1.0,
+                     kill_at=((0, 0, "admit"), (0, 1, "admit"),
+                              (2, 1, "crash"), (12, 0, "brownout")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", [{}, dict(temperature=0.9, top_p=0.95)])
+def test_cluster_kill_schedule_card_equals_cpu(cuda, no_tf32, sampling):
+    """Two smoke gemma-2b replicas (one weight tree) drain open-loop
+    traffic undisturbed and under the ``cluster_serve`` kill schedule: on
+    the card as on the CPU, the tokens, keys, every ServeStats and
+    ClusterStats field and the percentiles agree, and the chaos drain's
+    tokens are the undisturbed ones (float32)."""
+    import dataclasses
+
+    from repro_torch.serve import (ClusterChaos, ClusterChaosConfig,
+                                   ClusterFrontEnd, ServeEngine,
+                                   TrafficConfig, generate_traffic)
+    from repro_torch.serve.sampling import SamplingParams
+
+    cpu, params, card, cparams = _smoke_serving(0)
+    tcfg = TrafficConfig(seed=23, n_requests=8, rate=1.2, burst_rate_mult=3.0,
+                         phase_rounds=4.0, n_prefixes=3, prefix_len=16,
+                         tail_lo=3, tail_hi=9, out_lo=6, out_hi=12)
+    runs = []
+    for bundle, p, dev in ((cpu, params, "cpu"), (card, cparams, "cuda")):
+        front = ClusterFrontEnd([ServeEngine(
+            bundle, p, 2, 64, window=4, prefill_chunk=8,
+            sampling=SamplingParams(**sampling), seed=3, device=dev)
+            for _ in range(2)])
+        got = []
+        for chaos in (None, ClusterChaos(ClusterChaosConfig(
+                **KILL_SCHEDULE))):
+            front.reset()
+            sched = generate_traffic(tcfg, bundle.cfg.vocab_size)
+            front.run(sched, chaos=chaos)
+            got.append([list(r.out_tokens) for _, r in sched])
+        assert got[0] == got[1] and front.cstats.failovers >= 1
+        runs.append((got, dataclasses.asdict(front.cstats),
+                     [dataclasses.asdict(e.stats) for e in front.engines],
+                     torch.cat([e.keys.cpu() for e in front.engines]),
+                     front.percentiles()))
+    (g0, c0, s0, k0, p0), (g1, c1, s1, k1, p1) = runs
+    assert (g0, c0, s0, p0) == (g1, c1, s1, p1)
+    assert torch.equal(k0, k1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corrupt", [0.0, 1.0])
+def test_disagg_drain_card_equals_cpu(cuda, no_tf32, corrupt):
+    """A smoke gemma-2b prefill -> decode hand-off (every transfer
+    corrupted in transit, or none): on the card as on the CPU the tokens,
+    every ServeStats and DisaggStats field agree, and equal a colocated
+    drain's tokens (float32)."""
+    import dataclasses
+
+    from repro_torch.serve import (DisaggChaos, DisaggChaosConfig,
+                                   DisaggConfig, DisaggPool, ServeEngine)
+
+    cpu, params, card, cparams = _smoke_serving(0)
+    runs = []
+    for bundle, p, dev in ((cpu, params, "cpu"), (card, cparams, "cuda")):
+        def make():
+            return ServeEngine(bundle, p, 2, 64, window=4, prefill_chunk=8,
+                               device=dev)
+        want = _drain(make())
+        pool = DisaggPool([make()], [make()], DisaggConfig(force="disagg"))
+        got = _drain(_pool_view(pool, DisaggChaos(DisaggChaosConfig(
+            seed=5, corrupt_prob=corrupt))))
+        assert got == want
+        s = pool.stats()
+        # four hand-offs: the 1-token request retires in the prefill pool
+        assert (s.transfer_fallbacks if corrupt else s.prefill_imports) == 4
+        runs.append((got, dataclasses.asdict(pool.dstats),
+                     [dataclasses.asdict(e.stats) for e in pool.engines]))
+    assert runs[0] == runs[1]
+
+
+def _pool_view(pool, chaos):
+    """``_drain``'s view of a pool: requests go to ``submit`` and the drain
+    runs under ``chaos``."""
+    class View:
+        add_request = pool.submit
+
+        @staticmethod
+        def run_to_completion():
+            return pool.run(chaos=chaos)
+    return View

@@ -73,8 +73,10 @@ def both_runs(tmp_path_factory):
 
 def test_fourteen_sweeps_in_the_reference_order():
     assert T_ORDER == [n for n in J_ORDER if n in T_ORDER]
-    # 15 since the preemption sweep (PR 24) joined the fourteen
-    assert len(T_ORDER) == 15 and T_ORDER[-1] == "preempt_serve"
+    # 15 since the preemption sweep joined the fourteen, 17 since the
+    # cluster and disaggregation sweeps followed it
+    assert len(T_ORDER) == 17 and T_ORDER[-1] == "disagg_serve"
+    assert T_ORDER[-3:] == ["preempt_serve", "cluster_serve", "disagg_serve"]
     assert T_ORDER.index("random") + 1 == T_ORDER.index("database")
     assert T_ORDER[T_ORDER.index("database"):][:4] == [
         "database", "conv", "roofline", "serve"]

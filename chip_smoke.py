@@ -24,7 +24,10 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    with no token, a cluster merge of 4 splits, and one row over 4096 pages
    whose 64 splits merge through the counter), recurrentgemma-9b's local
    layers (B 8, 16 query heads over one kv head, D 256, a ring of 257
-   pages, window 2048, two rows past the window), each in
+   pages, window 2048, two rows past the window), granite-moe-3b-a800m's
+   (B 8, 24/8 heads: group 3, D 64, 128 pages, the moe serve's lengths)
+   and grok-1-314b's (B 4, 48/8: group 6, D 128, softcap 30, the grok
+   serve's lengths), each in
    float32 (tolerance 1e-4) and bfloat16 (3e-2; and, held against the
    plain version run in float32 on the same inputs, within one bfloat16
    rounding of its output), each line naming its configuration, split
@@ -34,8 +37,10 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    and at the serve drain's ragged lengths (its first 8 prompts plus 16
    decoded tokens), then at gemma2-27b's ring and global geometry and at
    gemma-2b's int8 pages (the drain's lengths and full rows of 1024
-   tokens) and recurrentgemma-9b's ring (group 16, D 256, the hybrid
-   serve's lengths at its longest), each beside its plain version, one SDPA call on the gathered
+   tokens), recurrentgemma-9b's ring (group 16, D 256, the hybrid
+   serve's lengths at its longest) and granite-moe-3b-a800m's geometry
+   (group 3, D 64) at the moe serve's lengths, each beside its plain
+   version, one SDPA call on the gathered
    (dequantized) K/V, and its bound, with the configuration run;
 5. serve: full-width gemma-2b (bf16, random weights from a seeded
    generator) through the paged ``ServeEngine``: 16 requests, batch 8,
@@ -46,7 +51,10 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    the card (K1) and on the CPU (plain path); the tokens must agree;
 7. K2: the ``flash_attention`` kernel against its plain version: phi4-mini's
    geometry (24/8 heads, D 128), gemma-2b's (8/1, D 256), a ragged length,
-   window 96, softcap 30 and a non-causal cross length, in float32
+   window 96, softcap 30, a non-causal cross length, pixtral-12b's
+   prefill (B 2, 32/8, causal S 1088, D 128) and seamless-m4t-medium's
+   encoder (non-causal 1024^2) and cross-attention (non-causal, 64 rows
+   over 1024 frames) at 16/16 heads, D 64, in float32
    (tolerance 2e-4, the CUDA cores) and bfloat16 (3e-2, and within one
    bfloat16 rounding of the float32 plain version; the tensor cores), each
    line naming its route; and a window with Sq > Skv, whose rows without a
@@ -255,7 +263,46 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``spec_serve``, ``preempt_serve``, ``cluster_serve`` and
    ``disagg_serve`` sweeps once at card scale (full-width gemma-2b in
    float32, the reference's larger mixes), their gates in the sweeps and
-   every row printed.
+   every row printed;
+40. moe serve: full-width granite-moe-3b-a800m (32 layers of 40 experts,
+   top 8, d_ff 512; 24/8 heads at D 64; 6.6 GB of bf16 weights drawn on
+   the card) through the paged engine under ``moe_impl="sorted"``, batch
+   8, max_len 1024, chunks of 256: the serve phase's recipe at granite's
+   vocab, its first 10 requests (rid 9 hits rid 0's prefix), 16 new
+   tokens each, drained twice with identical tokens; K1 once a layer a
+   tick, prefix hits, every page back; the warm tick, a 256-token chunk
+   and a profiled decode window of 2 ticks; then one drain under the launcher's
+   ``moe_impl="dense"`` on the same weights (tokens not compared: the
+   sorted dispatch drops prefill assignments past capacity), its tick
+   printed;
+41. grok serve: grok-1-314b at its published widths with 64 layers cut to
+   2 (the whole model fits no card: its cut is printed), 8 experts of
+   d_ff 32768, top 2, GeGLU; 48/8 heads, softcaps 30; 23 GB of bf16
+   weights; 4 requests of 64-300 tokens, 8 new tokens each, batch 4,
+   paged, sorted, drained once: K1 = 2 x ticks;
+42. moe parity: granite-moe-3b-a800m at published widths cut to 4 layers,
+   float32, paged drains under ``dense`` and ``sorted`` with chunks of 64
+   (padded chunks overflow capacity) on the card and on the CPU: tokens
+   and every counter equal; one ``apply_sorted`` at (1, 64, 1536) whose
+   last 16 rows are one row (a padded tail): card against CPU within
+   1e-4, expert ids equal, the top-k gap and the dropped assignments
+   (> 0) printed; smoke grok-1-314b drained under both dispatches, card
+   == CPU;
+43. frontend serve: full-width pixtral-12b (40 layers, 24.5 GB) prefilled
+   through the bundle with ``attn_impl="pallas"``: 1024 patch embeddings
+   drawn on the card and 64 tokens, B 2 (K2 = 40 a prefill), 16 tokens
+   decoded on the padded dense cache, once; then the
+   engine's dense fallback drains 4 text-only requests, 8 new tokens
+   each, K2 = 40 a prefill;
+44. encdec serve: full-width seamless-m4t-medium (12 + 12 layers)
+   prefilled with ``attn_impl="pallas"``: frames (2, 1024, 1024) drawn on
+   the card and 64 decoder tokens (K2 = 36 a prefill: encoder, decoder
+   self and cross layers), 16 steps decoded on the split cache, once;
+45. encdec parity: pixtral-12b cut to 2 layers (64 patches, 16 tokens)
+   and seamless-m4t-medium cut to 2 + 2 layers (128 frames, 16 decoder
+   tokens) at published widths, float32, ``attn_impl="pallas"`` (K2's
+   float32 route on the card): the last prefill logits within 1e-3 and 8
+   greedy decode tokens equal, card against CPU.
 
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
@@ -267,12 +314,14 @@ before their redesign, and K1's int8 pages on the CUDA cores, as PERF.md
 records them: not measured in this run),
 the kernels' JSON line (K1, K2, K3, K4 and K8 also carry their design, K7
 its latency bound; K1 its launches on each serving path, the sampled,
-hybrid, preempted, cluster and disagg ones included, and its times at the new geometries), the card line and the
-result line.
+hybrid, preempted, cluster, disagg and MoE ones included, and its times at
+the new geometries; K2 its launches on the dense, frontend and encdec
+paths), the card line and the result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
 """
 import gc
+import inspect
 import json
 import math
 import os
@@ -402,10 +451,11 @@ def k1_inputs(torch, gen, b, hq, hkv, d, page, n, vlens, dtype, int8=False,
     return q, pools, table, valid
 
 
-def k1_cases(drain, hybrid):
+def k1_cases(drain, hybrid, moe, grok):
     """(name, B, Hq, Hkv, D, page, N, valid lengths, kwargs); ``drain``
     holds the serve drain's ragged lengths (:func:`drain_lens`),
-    ``hybrid`` the hybrid serve's (:func:`hybrid_lens`)."""
+    ``hybrid`` the hybrid serve's (:func:`hybrid_lens`), ``moe`` and
+    ``grok`` those of the MoE serves (:func:`moe_lens`)."""
     return [
         # gemma-2b decode geometry: 1, 7, 9, a multiple of the page, full
         ("gemma-2b", 5, 8, 1, 256, 8, 16, [1, 7, 9, 64, 128], {}),
@@ -451,17 +501,24 @@ def k1_cases(drain, hybrid):
         # of 257 pages, window 2048, two rows past the window
         ("recurrentgemma-9b-ring", 8, 16, 1, 256, 8, 257, hybrid,
          dict(window=2048)),
+        # granite-moe-3b-a800m: group 3 (24/8 heads) at D 64, pages of 8 at
+        # max_len 1024, the moe serve's lengths; grok-1-314b: group 6
+        # (48/8) at D 128, softcap 30, max_len 512, the grok serve's
+        ("granite-moe-drain", 8, 24, 8, 64, 8, 128, moe, {}),
+        ("grok-1-drain", 4, 48, 8, 128, 8, GROK_MAX_LEN // 8, grok,
+         dict(softcap=30.0)),
     ]
 
 
-def k1_check(torch, pa, ref, drain, hybrid):
+def k1_check(torch, pa, ref, drain, hybrid, moe, grok):
     """Every case in both dtypes against the plain version; returns the
     largest absolute error seen."""
     from repro_torch.kernels import decode_core as core
     gen = torch.Generator().manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
-    for name, b, hq, hkv, d, page, n, vlens, kw in k1_cases(drain, hybrid):
+    for name, b, hq, hkv, d, page, n, vlens, kw in k1_cases(drain, hybrid,
+                                                            moe, grok):
         kw = dict(kw)
         int8 = kw.pop("int8", False)
         for dname in ("float32", "bfloat16"):
@@ -662,6 +719,14 @@ def k2_cases():
         ("window-96", 1, 8, 2, 300, 300, 128, dict(window=96)),
         ("softcap-30", 1, 8, 1, 200, 200, 256, dict(softcap=30.0)),
         ("cross-noncausal", 2, 24, 8, 100, 356, 128, dict(causal=False)),
+        # the model paths of every family: pixtral-12b's prefill over 1024
+        # patches and 64 tokens (causal, 32/8 heads, D 128), and
+        # seamless-m4t-medium's encoder (non-causal 1024^2) and
+        # cross-attention (non-causal, 64 decoder rows over 1024 frames)
+        # at 16/16 heads, D 64
+        ("pixtral-12b", 2, 32, 8, 1088, 1088, 128, {}),
+        ("seamless-encoder", 2, 16, 16, 1024, 1024, 64, dict(causal=False)),
+        ("seamless-cross", 2, 16, 16, 64, 1024, 64, dict(causal=False)),
     ]
 
 
@@ -1094,19 +1159,20 @@ def load_model(torch, cfg, flags=None, seed=0):
     return bundle, params
 
 
-def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks):
-    """Drain ``reqs`` twice (first, warm) with K1's count set to 0 just
-    before each drain and read just after; checks budgets, token range and
-    K1 launches = attention layers x decode ticks (ticks > 0), then
-    ``extra_checks(run)``, and that both drains gave the same tokens.
-    Prints one ``[tag]`` line a run; returns the warm run's launches and
-    its ms per decode tick, ms per prefill chunk, tokens per second, page
-    peak and tokens."""
+def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks,
+               runs=("first", "warm")):
+    """Drain ``reqs`` once for each of ``runs`` (first, warm) with K1's
+    count set to 0 just before each drain and read just after; checks
+    budgets, token range and K1 launches = attention layers x decode ticks
+    (ticks > 0), then ``extra_checks(run)``, and that the drains gave the
+    same tokens.  Prints one ``[tag]`` line a run; returns the last run's
+    launches and its ms per decode tick, ms per prefill chunk, tokens per
+    second, page peak and tokens."""
     cfg = eng.bundle.cfg
     launches = 0
     warm = {}
     tokens = []
-    for run in ("first", "warm"):
+    for run in runs:
         torch.cuda.reset_peak_memory_stats()
         pa.reset_launches()
         dt = drain(torch, eng, reqs)
@@ -1146,8 +1212,10 @@ def serve_runs(torch, eng, reqs, tag, card, n_attn, pa, extra_checks):
                     tok_s=st.tokens_out / dt,
                     chunk_ms=1e3 * eng.prefill_s / st.prefill_chunks,
                     pages_peak=st.pages_peak, tokens=tokens[-1])
-    check(tokens[0] == tokens[1], f"{tag}: the two drains' tokens differ")
-    print(f"[{tag}] drains_equal=True", flush=True)
+    if len(runs) > 1:
+        check(all(t == tokens[0] for t in tokens),
+              f"{tag}: the drains' tokens differ")
+        print(f"[{tag}] drains_equal=True", flush=True)
     return launches, warm
 
 
@@ -3514,6 +3582,446 @@ def k8_time(torch, ops, ref, mm, card):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# every model family: MoE layers, the patch prefix, the encoder-decoder
+# ---------------------------------------------------------------------------
+
+# granite-moe-3b-a800m's attention layers: 24 query heads over 8 kv heads
+# (group 3) at D 64, pages of 8 tokens at max_len 1024
+GRANITE_GEOMETRY = dict(b=8, hq=24, hkv=8, d=64, page=8, n=128, int8=False,
+                        kw={})
+MOE_NEW = 16                       # [moe serve]'s new tokens a request
+MOE_REQUESTS = 10
+GROK_LAYERS = 2                    # grok-1-314b's 64 layers cut to 2
+GROK_MAX_LEN = 512
+GROK_NEW = 8
+PIXTRAL_PATCHES, PIXTRAL_TOKENS = 1024, 64
+SEAMLESS_FRAMES, SEAMLESS_TOKENS = 1024, 64
+DECODE_STEPS = 16                  # decode ticks after a bundle prefill
+PARITY_DECODE = 8
+LOGIT_TOL = 1e-3                   # float32 last logits, card against CPU
+MOE_TOL = 1e-4                     # float32 apply_sorted, card against CPU
+
+
+def moe_requests(np, vocab):
+    """``[moe serve]``'s requests: ``[serve]``'s recipe at granite's vocab,
+    its first 10 (as ``[int8 serve]``: rid 9 waits for a slot and hits rid
+    0's 256-token prefix; the first 8 alone share none), 16 new tokens
+    each."""
+    from repro_torch.serve import Request
+    return make_requests(np, Request, vocab, 0, 16, (64, 513), 256,
+                         (0, 9, 12, 15), MOE_NEW)[:MOE_REQUESTS]
+
+
+def grok_requests(np, vocab):
+    """``[grok serve]``'s 4 requests of 64-300 tokens, two sharing a
+    64-token prefix, 8 new tokens each."""
+    from repro_torch.serve import Request
+    return make_requests(np, Request, vocab, 3, 4, (64, 301), 64, (0, 3),
+                         GROK_NEW)
+
+
+def moe_lens(np):
+    """K1's lengths at the end of ``[moe serve]`` (its first 8 prompts, the
+    batch's first slots) and ``[grok serve]``."""
+    from repro_torch.configs import ARCHS
+    return ([r.prompt.shape[0] + MOE_NEW for r in moe_requests(
+                np, ARCHS["granite-moe-3b-a800m"].vocab_size)[:8]],
+            [r.prompt.shape[0] + GROK_NEW for r in grok_requests(
+                np, ARCHS["grok-1-314b"].vocab_size)])
+
+
+def _prepare_short_decode(eng, reqs):
+    """As :func:`_prepare_decode`, for a window of 2 ticks: a MoE tick
+    runs about 100 ops a layer, and the profiler's host-side bookkeeping
+    grows with the events it records (an 8-tick granite window holds about
+    50,000 of them)."""
+    _prepare_decode(eng, reqs)
+    return lambda: eng.decode_many(2)
+
+
+def moe_serve_phase(torch, np, card):
+    """Full-width granite-moe-3b-a800m (32 layers of 40 experts, top 8) on
+    the paged engine under the sorted dispatch, K1 on every attention
+    layer at D 64 with 3 query heads a kv head; then one warm drain under
+    the launcher's dense dispatch on the same weights."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_core as core
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import RuntimeFlags, build, moe
+    from repro_torch.serve import ServeEngine
+
+    cfg = ARCHS["granite-moe-3b-a800m"]
+    bundle, params = load_model(torch, cfg, RuntimeFlags(moe_impl="sorted"))
+    engine = timed_engine_class(torch, ServeEngine)
+    eng = engine(bundle, params, 8, 1024, prefill_chunk=256)
+    reqs = moe_requests(np, cfg.vocab_size)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    route = pa.route(torch.bfloat16, torch.bfloat16, cfg.resolved_head_dim)
+    splits = pa.split_count(route, eng.bsz, cfg.num_kv_heads, eng.page,
+                            eng.pages_per_seq, sms)
+    k, e, cf = (cfg.num_experts_per_tok, cfg.num_experts,
+                cfg.moe_capacity_factor)
+    group = inspect.signature(moe.apply_sorted).parameters[
+        "group_size"].default
+    print(f"[moe serve] experts={e} top_k={k} d_ff={cfg.d_ff} "
+          f"activation={cfg.activation} moe_impl=sorted "
+          f"group={group} capacity_factor={cf} "
+          f"cap_decode={moe.capacity(k, 1, cf, e)} "
+          f"cap_256_chunk={moe.capacity(k, 256, cf, e)} K1 route={route} "
+          f"group={cfg.num_heads // cfg.num_kv_heads} "
+          f"D={cfg.resolved_head_dim} N={eng.pages_per_seq} splits={splits} "
+          f"merge={core.merge_kind(route, splits)} "
+          f"lens_at_end={moe_lens(np)[0]}", flush=True)
+
+    def checks(run):
+        check(eng.stats.prefix_hit_tokens > 0,
+              f"moe serve {run}: no prefix hit on shared prompts")
+        check(pages_conserved(eng),
+              f"moe serve {run}: pages not all back at the end")
+        return " pages_back=True"
+
+    launches, warm = serve_runs(torch, eng, reqs, "moe serve", card,
+                                cfg.num_layers, pa, checks)
+    print(f"[moe serve] warm moe_impl=sorted "
+          f"ms_per_decode_tick={warm['tick_ms']:.3f} "
+          f"ms_per_256_token_chunk={warm['chunk_ms']:.3f} card='{card}'",
+          flush=True)
+    for line in profile_window(torch, eng, reqs, steps=(
+            ("decode window of 2 ticks", _prepare_short_decode),)):
+        print(line.replace("[profile]",
+                           "[profile] arch=granite-moe-3b-a800m moe=sorted"),
+              flush=True)
+    del eng
+    # the launcher's dispatch on the same weights, one drain on the warm
+    # card; its tokens are not compared with the sorted ones (the sorted
+    # dispatch drops prefill assignments past capacity)
+    dense = engine(build(cfg, RuntimeFlags(moe_impl="dense")), params, 8,
+                   1024, prefill_chunk=256)
+    pa.reset_launches()
+    dt = drain(torch, dense, reqs)
+    st = dense.stats
+    check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+          "moe serve dense: a request missed its budget")
+    check(pa.LAUNCHES == cfg.num_layers * st.decode_steps > 0,
+          f"moe serve dense: K1 launches {pa.LAUNCHES} != "
+          f"{cfg.num_layers} x {st.decode_steps} decode ticks")
+    print(f"[moe serve] run=warm moe_impl=dense (the launcher's) "
+          f"card='{card}' tokens_out={st.tokens_out} seconds={dt:.3f} "
+          f"tok_s={st.tokens_out / dt:.1f} decode_steps={st.decode_steps} "
+          f"ms_per_decode_tick={1e3 * dense.decode_s / st.decode_steps:.3f} "
+          f"ms_per_256_token_chunk="
+          f"{1e3 * dense.prefill_s / st.prefill_chunks:.3f} "
+          f"k1_launches={pa.LAUNCHES} (tokens not compared with sorted: "
+          f"prefill capacity drops differ)", flush=True)
+    return {"moe serve": launches, "moe serve dense": pa.LAUNCHES}
+
+
+def grok_serve_phase(torch, np, card):
+    """grok-1-314b at its published widths, 2 of its 64 layers: 8 experts
+    of d_ff 32768 (top 2, GeGLU), K1 at 48/8 heads, D 128, softcap 30."""
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import RuntimeFlags
+    from repro_torch.serve import ServeEngine
+
+    full = ARCHS["grok-1-314b"]
+    cfg = override(full, num_layers=GROK_LAYERS)
+    bundle, params = load_model(torch, cfg, RuntimeFlags(moe_impl="sorted"))
+    eng = timed_engine_class(torch, ServeEngine)(bundle, params, 4,
+                                                 GROK_MAX_LEN,
+                                                 prefill_chunk=256)
+    reqs = grok_requests(np, cfg.vocab_size)
+    print(f"[grok serve] depth cut: num_layers {full.num_layers}->"
+          f"{GROK_LAYERS} (the whole model's {full.param_count()[0] / 1e9:.0f}B "
+          f"parameters, {2 * full.param_count()[0] / 1e9:.0f} GB in bf16, fit "
+          f"no card); experts={cfg.num_experts} top_k="
+          f"{cfg.num_experts_per_tok} d_ff={cfg.d_ff} "
+          f"activation={cfg.activation} moe_impl=sorted "
+          f"softcap={cfg.attn_logit_softcap} "
+          f"final_softcap={cfg.final_logit_softcap} K1 group="
+          f"{cfg.num_heads // cfg.num_kv_heads} D={cfg.resolved_head_dim} "
+          f"lens_at_end={moe_lens(np)[1]}", flush=True)
+
+    def checks(run):
+        check(pages_conserved(eng),
+              f"grok serve {run}: pages not all back at the end")
+        return " pages_back=True"
+
+    launches, _ = serve_runs(torch, eng, reqs, "grok serve", card,
+                             cfg.num_layers, pa, checks, runs=("first",))
+    return {"grok serve": launches}
+
+
+def prefill_then_decode(torch, bundle, params, batch, steps):
+    """Prefill ``batch`` through the bundle, write its cache into a decode
+    cache of ``steps`` more rows (an encoder-decoder's split cache keeps
+    the frames' cross rows), then decode ``steps`` greedy tokens at per-slot
+    positions.  Returns (last prefill logits, tokens (B, steps), prefill
+    seconds, seconds a decode step, the prefill's K2 launches); a decode
+    step must launch no K2 (one query takes ``naive``)."""
+    from repro_torch.kernels import flash_attention as fa
+    cfg = bundle.cfg
+    dev = bundle.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    fa.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    new, logits = bundle.prefill(params, batch)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    k2 = fa.LAUNCHES
+    b = logits.shape[0]
+    if cfg.enc_dec:
+        s = batch["dec_tokens"].shape[1]
+        cache = bundle.init_cache(b, s + steps, batch["frames"].shape[1])
+        layers, new = cache["dec"], new["dec"]
+    else:
+        s = batch["tokens"].shape[1] + batch["patch_embeds"].shape[1]
+        cache = bundle.init_cache(b, s + steps)
+        layers, new = cache["blocks"]["p0"], new["blocks"]["p0"]
+    for n, t in new.items():
+        layers[n][:, :, :t.shape[2]] = t
+    tok = logits.argmax(-1)[:, None]
+    pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+    out = []
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, cache = bundle.decode_step(params, cache, tok, pos)
+        tok = lg.argmax(-1)[:, None]
+        out.append(tok)
+        pos = pos + 1
+    sync()
+    step_s = (time.perf_counter() - t0) / steps
+    check(fa.LAUNCHES == k2, f"{cfg.name}: a decode step launched K2")
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(lg).all()),
+          f"{cfg.name}: non-finite logits")
+    return logits, torch.cat(out, dim=1), prefill_s, step_s, k2
+
+
+def frontend_serve_phase(torch, np, card):
+    """Full-width pixtral-12b: 1024 patch embeddings drawn on the card and
+    64 tokens prefilled through the bundle under ``attn_impl="pallas"``
+    (K2 on all 40 layers at S 1088), 16 tokens decoded on the padded
+    dense cache, once; then the engine's dense
+    fallback drains 4 text-only requests (prefill through K2)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import RuntimeFlags
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = ARCHS["pixtral-12b"]
+    bundle, params = load_model(torch, cfg, RuntimeFlags(attn_impl="pallas"))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = dict(
+        patch_embeds=torch.randn((2, PIXTRAL_PATCHES, cfg.d_model),
+                                 generator=gen, device="cuda"
+                                 ).to(torch.bfloat16),
+        tokens=torch.randint(0, cfg.vocab_size, (2, PIXTRAL_TOKENS),
+                             generator=gen, device="cuda"))
+    _, _, pre_s, step_s, launches = prefill_then_decode(
+        torch, bundle, params, batch, DECODE_STEPS)
+    check(launches == cfg.num_layers, f"frontend serve: K2 launches "
+          f"{launches} != {cfg.num_layers} layers a prefill")
+    print(f"[frontend serve] card='{card}' arch={cfg.name} "
+          f"B=2 patches={PIXTRAL_PATCHES} tokens={PIXTRAL_TOKENS} "
+          f"S={PIXTRAL_PATCHES + PIXTRAL_TOKENS} attn_impl=pallas "
+          f"prefill_ms={1e3 * pre_s:.3f} k2_launches={launches} "
+          f"decode_steps={DECODE_STEPS} "
+          f"ms_per_decode_step={1e3 * step_s:.3f} (dense cache of "
+          f"{PIXTRAL_PATCHES + PIXTRAL_TOKENS + DECODE_STEPS} rows; one "
+          "run, its first)", flush=True)
+    eng = timed_engine_class(torch, ServeEngine)(bundle, params, 4, 1024)
+    check(eng.backend == "dense", f"frontend serve: the engine chose "
+          f"{eng.backend}, not the dense fallback")
+    reqs = make_requests(np, Request, cfg.vocab_size, 4, 4, (64, 513), 0, (),
+                         PARITY_DECODE)
+    fa.reset_launches()
+    dt = drain(torch, eng, reqs)
+    st = eng.stats
+    check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+          "frontend serve drain: a request missed its budget")
+    check(fa.LAUNCHES == cfg.num_layers * st.prefills == cfg.num_layers * 4,
+          f"frontend serve drain: K2 launches {fa.LAUNCHES} != "
+          f"{cfg.num_layers} x {st.prefills} prefills")
+    launches += fa.LAUNCHES
+    print(f"[frontend serve] drain backend={eng.backend} (the dense "
+          f"fallback: a frontend stack is not paged) requests={len(reqs)} "
+          f"text-only prompts={[r.prompt.shape[0] for r in reqs]} "
+          f"tokens_out={st.tokens_out} seconds={dt:.3f} "
+          f"ms_per_prefill={1e3 * eng.prefill_s / st.prefills:.3f} "
+          f"ms_per_decode_tick={1e3 * eng.decode_s / st.decode_steps:.3f} "
+          f"k2_launches={fa.LAUNCHES} card='{card}'", flush=True)
+    return {"frontend serve": launches}
+
+
+def encdec_serve_phase(torch, np, card):
+    """Full-width seamless-m4t-medium: frames (2, 1024, 1024) drawn on the
+    card and 64 decoder tokens prefilled under ``attn_impl="pallas"``
+    (K2 on 12 encoder layers, non-causal 1024^2, 12 decoder self layers,
+    causal 64^2, and 12 cross layers, 64 x 1024), 16 steps decoded on the
+    split cache, once."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import RuntimeFlags
+
+    cfg = ARCHS["seamless-m4t-medium"]
+    bundle, params = load_model(torch, cfg, RuntimeFlags(attn_impl="pallas"))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batch = dict(
+        frames=torch.randn((2, SEAMLESS_FRAMES, cfg.d_model), generator=gen,
+                           device="cuda").to(torch.bfloat16),
+        dec_tokens=torch.randint(0, cfg.vocab_size, (2, SEAMLESS_TOKENS),
+                                 generator=gen, device="cuda"))
+    want = cfg.num_encoder_layers + 2 * cfg.num_layers
+    _, _, pre_s, step_s, launches = prefill_then_decode(
+        torch, bundle, params, batch, DECODE_STEPS)
+    check(launches == want, f"encdec serve: K2 launches {launches} != "
+          f"{want} (encoder, decoder self and cross layers) a prefill")
+    print(f"[encdec serve] card='{card}' arch={cfg.name} "
+          f"encoder_layers={cfg.num_encoder_layers} "
+          f"decoder_layers={cfg.num_layers} B=2 "
+          f"frames={SEAMLESS_FRAMES} dec_tokens={SEAMLESS_TOKENS} "
+          f"attn_impl=pallas prefill_ms={1e3 * pre_s:.3f} "
+          f"k2_launches={launches} decode_steps={DECODE_STEPS} "
+          f"ms_per_decode_step={1e3 * step_s:.3f} (split cache: "
+          f"{SEAMLESS_TOKENS + DECODE_STEPS} self rows, "
+          f"{SEAMLESS_FRAMES} cross rows; one run, its first)", flush=True)
+    return {"encdec serve": launches}
+
+
+def moe_parity_phase(torch, np):
+    """granite-moe-3b-a800m at published widths cut to 4 layers, float32,
+    paged drains under both dispatches with chunks of 64 (padded chunks
+    overflow capacity), card == CPU in tokens and counters;
+    ``apply_sorted`` on one input card against CPU; smoke grok-1-314b's
+    drains under both dispatches."""
+    from repro_torch.configs import ARCHS, override, smoke_config
+    from repro_torch.models import RuntimeFlags, moe
+    from repro_torch.serve import Request
+
+    cfg = override(ARCHS["granite-moe-3b-a800m"], num_layers=4,
+                   param_dtype="float32", compute_dtype="float32")
+
+    def reqs():
+        return make_requests(np, Request, cfg.vocab_size, 2, 6, (20, 72), 17,
+                             (0, 4), PARITY_DECODE)
+
+    desc = ("arch=granite-moe-3b-a800m full width, depth cut 32->4 layers, "
+            "float32, prefill chunks of 64")
+    params = None
+    for impl in ("dense", "sorted"):
+        params = card_cpu_parity(torch, np, cfg,
+                                 RuntimeFlags(moe_impl=impl), reqs,
+                                 "moe parity", f"{desc} moe_impl={impl}",
+                                 prefill_chunk=64, params=params)
+    # one sorted dispatch at granite's widths: a 64-token chunk whose last
+    # 16 rows are one row (a padded tail), layer 0's experts
+    p = {n: w[0] for n, w in params["blocks"]["p0"]["moe"].items()}
+    p_cpu = _to(p, "cpu")
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((1, 64, cfg.d_model), generator=gen)
+    x[0, 48:] = torch.randn(cfg.d_model, generator=gen)
+    k, e, cf = (cfg.num_experts_per_tok, cfg.num_experts,
+                cfg.moe_capacity_factor)
+    got, _ = moe.apply_sorted(p, x.cuda(), k, cfg.activation,
+                              capacity_factor=cf)
+    want, _ = moe.apply_sorted(p_cpu, x, k, cfg.activation,
+                               capacity_factor=cf)
+    _, ids, probs = moe._route(p_cpu, x, k)
+    _, card_ids, _ = moe._route(p, x.cuda(), k)
+    top = probs.topk(k + 1, dim=-1).values
+    gap = float((top[..., k - 1] - top[..., k]).min())
+    cap = moe.capacity(k, 64, cf, e)
+    _, _, keep, _ = moe.dispatch(ids, k, 64, cap, e)
+    dropped = int((~keep).sum())
+    g, w = got.cpu(), want
+    err = float((g - w).abs().max())
+    ok = bool(((g - w).abs() <= MOE_TOL + MOE_TOL * w.abs()).all())
+    same_ids = bool(torch.equal(card_ids.cpu(), ids))
+    print(f"[moe parity] apply_sorted x=(1, 64, {cfg.d_model}) float32 "
+          f"(the last 16 rows one row, a padded tail) experts={e} top_k={k} "
+          f"cap={cap} dropped_assignments={dropped} of {64 * k} "
+          f"ids_equal={same_ids} min_topk_gap={gap:.3e} "
+          f"max_abs_err={err:.3e} tol={MOE_TOL} ok={ok}", flush=True)
+    check(dropped > 0, "moe parity: no assignment dropped at capacity")
+    check(same_ids and ok, f"moe parity: apply_sorted card != CPU (ids "
+          f"equal {same_ids}, max_abs_err {err}, min top-k gap {gap})")
+    gcfg = smoke_config(ARCHS["grok-1-314b"])
+    for impl in ("dense", "sorted"):
+        card_cpu_parity(
+            torch, np, gcfg, RuntimeFlags(moe_impl=impl),
+            lambda: make_requests(np, Request, gcfg.vocab_size, 2, 6, (5, 40),
+                                  17, (0, 4), PARITY_DECODE),
+            "moe parity", f"arch=grok-1-314b smoke width, float32, "
+            f"softcaps 30 moe_impl={impl}")
+
+
+def encdec_parity_phase(torch, np):
+    """pixtral-12b cut to 2 layers (64 patches, 16 tokens) and
+    seamless-m4t-medium cut to 2 + 2 layers (128 frames, 16 decoder
+    tokens) at published widths, float32, ``attn_impl="pallas"``: K2's
+    float32 route on the card, its plain version on the CPU; the last
+    prefill logits allclose and 8 greedy decode tokens equal."""
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.models import RuntimeFlags, build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    cases = (
+        (override(ARCHS["pixtral-12b"], num_layers=2, **f32),
+         "depth cut 40->2 layers", 2,
+         lambda cfg, gen: dict(
+             patch_embeds=torch.randn((2, 64, cfg.d_model), generator=gen),
+             tokens=torch.randint(0, cfg.vocab_size, (2, 16),
+                                  generator=gen))),
+        (override(ARCHS["seamless-m4t-medium"], num_layers=2,
+                  num_encoder_layers=2, **f32),
+         "depth cut 12+12->2+2 layers", 6,
+         lambda cfg, gen: dict(
+             frames=torch.randn((2, 128, cfg.d_model), generator=gen),
+             dec_tokens=torch.randint(0, cfg.vocab_size, (2, 16),
+                                      generator=gen))))
+    flags = RuntimeFlags(attn_impl="pallas")
+    for cfg, cut, want_k2, make in cases:
+        card_bundle = build(cfg, flags, device="cuda")
+        params = card_bundle.init(torch.Generator(device="cuda"
+                                                  ).manual_seed(1))
+        batch = make(cfg, torch.Generator().manual_seed(9))
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            bundle = (card_bundle if dev == "cuda"
+                      else build(cfg, flags, device="cpu"))
+            p = params if dev == "cuda" else _to(params, "cpu")
+            logits, toks, _, _, k2 = prefill_then_decode(
+                torch, bundle, p, _to(batch, dev), PARITY_DECODE)
+            if dev == "cuda":
+                check(k2 == want_k2, f"encdec parity {cfg.name}: K2 launches "
+                      f"{k2} != {want_k2} a prefill")
+            outs[dev] = (logits.cpu(), toks.cpu())
+            del p
+        g, w = outs["cuda"][0], outs["cpu"][0]
+        err = float((g - w).abs().max())
+        ok = bool(((g - w).abs() <= LOGIT_TOL + LOGIT_TOL * w.abs()).all())
+        same = bool(torch.equal(outs["cuda"][1], outs["cpu"][1]))
+        print(f"[encdec parity] arch={cfg.name} full width, {cut}, float32, "
+              f"attn_impl=pallas batch={ {n: tuple(t.shape) for n, t in batch.items()} } "
+              f"k2_launches={want_k2} last_logits_max_abs_err={err:.3e} "
+              f"tol={LOGIT_TOL} logits_ok={ok} decode_tokens={PARITY_DECODE} "
+              f"cuda_equals_cpu={same}", flush=True)
+        check(ok, f"encdec parity {cfg.name}: last logits differ by {err}")
+        check(same, f"encdec parity {cfg.name}: greedy tokens differ: cpu "
+              f"{outs['cpu'][1].tolist()} cuda {outs['cuda'][1].tolist()}")
+        del params, card_bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main():
     try:
         import numpy as np
@@ -3565,7 +4073,8 @@ def main():
         lap("build")
         drain = drain_lens(np)
         hybrid = hybrid_lens(np)
-        err = k1_check(torch, pa, ref, drain, hybrid)
+        moe, grok = moe_lens(np)
+        err = k1_check(torch, pa, ref, drain, hybrid, moe, grok)
         timing = k1_time(torch, pa, ref, card, [1024] * 8, "full")
         k1_time(torch, pa, ref, card, drain, "drain")
         k1_timed = [
@@ -3578,7 +4087,8 @@ def main():
                 ("gemma-2b-int8-drain", drain, INT8_GEOMETRY),
                 ("gemma-2b-int8-full", [1024] * 8, INT8_GEOMETRY),
                 ("recurrentgemma-9b-ring", hybrid,
-                 RECURRENTGEMMA_GEOMETRY))]
+                 RECURRENTGEMMA_GEOMETRY),
+                ("granite-moe-3b-drain", moe, GRANITE_GEOMETRY))]
         lap("K1")
         launches, greedy = serve_phase(torch, np, card)
         parity_phase(torch, np)
@@ -3691,6 +4201,27 @@ def main():
         torch.cuda.empty_cache()
         bench_serve_phase(torch, card)
         lap("bench serve")
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_launches = moe_serve_phase(torch, np, card)
+        gc.collect()                 # the 6.6 GB of granite-moe go
+        torch.cuda.empty_cache()
+        moe_launches.update(grok_serve_phase(torch, np, card))
+        lap("moe serve, grok serve")
+        gc.collect()                 # the 23 GB of grok-1's 2 layers go
+        torch.cuda.empty_cache()
+        moe_parity_phase(torch, np)
+        lap("moe parity")
+        gc.collect()
+        torch.cuda.empty_cache()
+        k2_paths = frontend_serve_phase(torch, np, card)
+        gc.collect()                 # the 24.5 GB of pixtral-12b go
+        torch.cuda.empty_cache()
+        k2_paths.update(encdec_serve_phase(torch, np, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        encdec_parity_phase(torch, np)
+        lap("frontend serve, encdec serve, encdec parity")
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1
@@ -3703,12 +4234,14 @@ def main():
                                 "int8 serve": int8_launches,
                                 "hybrid serve": hybrid_launches,
                                 **sampled_launches, **preempt_launches,
-                                **cluster_launches, **disagg_launches},
+                                **cluster_launches, **disagg_launches,
+                                **moe_launches},
               timed=k1_timed)
     k2 = dict(name="flash_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/flash_attention.cu",
               replaces="src/repro/kernels/flash_attention.py:128",
-              launches=k2_launches, max_abs_err=k2_err, **k2_timing)
+              launches=k2_launches, max_abs_err=k2_err, **k2_timing,
+              launches_by_path={"dense serve": k2_launches, **k2_paths})
     replaces = dict(stream_copy="src/repro/kernels/stream_copy.py:29",
                     strided_copy="src/repro/kernels/strided_copy.py:22",
                     random_gather="src/repro/kernels/random_gather.py:46",

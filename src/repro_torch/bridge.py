@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -30,7 +30,8 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
     """A nested dict of numpy arrays (any float dtype, bfloat16 included)
     -> the port's param dict on ``device`` in ``cfg.param_dtype``.  Raises
     unless the paths and shapes are exactly the port's own."""
-    want = flatten(transformer.init_params(cfg, None, "meta"))
+    mod = encdec if cfg.enc_dec else transformer
+    want = flatten(mod.init_params(cfg, None, "meta"))
     got = flatten(tree)
     if set(want) != set(got):
         raise ValueError(f"param paths differ: missing "

@@ -1,12 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves through :data:`ARCHS`.
 
 All ten architectures of ``repro.configs``, as data: the advisor, the
-parameter accounting and the roofline sweep read every one.  The port
-serves the ATTN + DENSE decoders: gemma-2b, gemma2-27b (sliding-window/
-global pairs, both softcaps), internlm2-20b and phi4-mini-3.8b.  Building
-a model of the others (SSD, RG-LRU, MoE, encoder-decoder and frontend
-stacks) raises ``NotImplementedError`` until their layers are ported
-(``models.transformer.check_supported``)."""
+parameter accounting and the roofline sweep read every one, and the port
+builds and serves every one (``models.build``): the attention decoders,
+the hybrid recurrent stacks, the MoE stacks, pixtral-12b's patch prefix
+and seamless-m4t-medium's encoder-decoder."""
 from repro_torch.configs.base import (  # noqa: F401
     ATTN, DENSE, MOE, NONE, RGLRU, SSD, TRAIN, PREFILL, DECODE,
     LM_SHAPES, SHAPES_BY_NAME, LayerSpec, ModelConfig, ShapeCell,

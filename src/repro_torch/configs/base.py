@@ -2,10 +2,9 @@
 
 Plain frozen dataclasses with the same fields and defaults as the
 reference, so a config prints, hashes and diffs the same way in both
-packages.  The port serves the ATTN + DENSE decoders; the other mixer and
-mlp kinds are named here so every field of the reference has its
-counterpart, and the advisor's parameter accounting and shape cells
-(:meth:`ModelConfig.param_count`, :data:`LM_SHAPES`) cover every kind.
+packages.  Every mixer and mlp kind is served; the advisor's parameter
+accounting and shape cells (:meth:`ModelConfig.param_count`,
+:data:`LM_SHAPES`) cover every kind.
 """
 from __future__ import annotations
 

@@ -7,9 +7,14 @@ drawn from a seeded generator, on the card.
 ``--cache`` picks the KV backend (``auto`` lets the engine pick: paged);
 ``--kv-int8`` stores the KV cache as int8 with a float32 scale per token;
 prefill attention is the reference launcher's, ``chunked`` with 64-token
-blocks.  ``--arch gemma2-27b`` serves its sliding-window layers from ring
-pages; ``recurrentgemma-9b`` and ``mamba2-130m`` keep their recurrent
-state beside the pools (mamba2-130m, with no attention layer, has none).  ``--smoke`` serves the same architecture at smoke width;
+blocks, and so is its MoE dispatch, ``dense``.  ``--arch gemma2-27b``
+serves its sliding-window layers from ring pages; ``recurrentgemma-9b``
+and ``mamba2-130m`` keep their recurrent state beside the pools
+(mamba2-130m, with no attention layer, has none); the MoE stacks
+(granite-moe-3b-a800m, grok-1-314b) serve from pages, pixtral-12b's text
+prompts from the dense cache.  seamless-m4t-medium fails at its first
+prefill, as the reference's launcher does: the requests carry no encoder
+frames.  ``--smoke`` serves the same architecture at smoke width;
 ``--device cpu`` runs the plain PyTorch path on the CPU (without it, a
 host with no card is an error).  ``--priority`` gives the requests
 scheduler classes (``mixed``: odd rids high), which admit high first and
@@ -126,6 +131,7 @@ def main(argv=None) -> int:
 
     cfg = smoke_config(ARCHS[args.arch]) if args.smoke else ARCHS[args.arch]
     flags = RuntimeFlags(attn_impl="chunked", attn_bq=64, attn_bkv=64,
+                         moe_impl="dense",
                          kv_dtype="int8" if args.kv_int8 else "native")
     bundle = build(cfg, flags, device=args.device)
     gen = torch.Generator(device=bundle.device).manual_seed(args.seed)

@@ -40,9 +40,13 @@ class ParamBuilder:
               scale: Optional[float] = None) -> None:
         """Truncated normal in [-2, 2] times ``scale`` (default
         ``1/sqrt(fan_in)``), drawn in float32 and cast to the param dtype.
-        A stacked (LAYERS, ...) weight is drawn one layer at a time, so the
-        float32 draw never holds more than one layer (a full-width stack
-        of 23 MLP weights would need 16 GB of it at once)."""
+        A stacked 3-D (LAYERS, ...) weight is drawn one layer at a time, so
+        the float32 draw never holds more than one layer (a full-width
+        stack of 23 MLP weights would need 16 GB of it at once); a 4-D
+        one, stacked experts, is drawn whole (granite-moe-3b-a800m's
+        (32, 40, 1536, 512): 4.0 GB of float32; two layers of
+        grok-1-314b's (8, 6144, 32768): 12.9 GB, which an 80 GB card
+        holds beside the 23 GB of weights)."""
         if self.device.type == "meta":
             self._put(path, torch.empty(tuple(shape), dtype=self.dtype,
                                         device=self.device))

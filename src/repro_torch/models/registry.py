@@ -4,7 +4,10 @@
 device: ``cuda`` unless the caller names another (``device="cpu"`` runs the
 plain PyTorch path).  Without a card and without an explicit device it
 raises.  ``flags`` (:class:`~repro_torch.models.transformer.RuntimeFlags`)
-picks prefill's attention; the default is the reference's, ``chunked``."""
+picks prefill's attention (the default is the reference's, ``chunked``)
+and the MoE dispatch.  An encoder-decoder config
+(:mod:`~repro_torch.models.encdec`) dispatches ``init``, ``prefill``,
+``decode_step`` and ``init_cache`` to its own stack."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -14,7 +17,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.transformer import RuntimeFlags
 
 
@@ -24,30 +27,43 @@ class ModelBundle:
     device: torch.device
     flags: RuntimeFlags = RuntimeFlags()
 
+    @property
+    def _stack(self):
+        """The module of the config's dense entry points."""
+        return encdec if self.cfg.enc_dec else transformer
+
     def init(self, generator: torch.Generator) -> dict:
         """Fresh weights drawn from ``generator`` (a generator on the
         bundle's device)."""
-        return transformer.init_params(self.cfg, generator, self.device)
+        return self._stack.init_params(self.cfg, generator, self.device)
 
     # -- dense KV backend ------------------------------------------------
-    def init_cache(self, batch: int, max_len: int) -> dict:
+    def init_cache(self, batch: int, max_len: int,
+                   enc_len: Optional[int] = None) -> dict:
+        """The dense decode cache; an encoder-decoder's is split, with
+        ``enc_len`` cross rows (default ``max_len``)."""
+        if self.cfg.enc_dec:
+            return encdec.init_cache(self.cfg, batch, max_len,
+                                     enc_len or max_len, self.device)
         return transformer.init_cache(self.cfg, batch, max_len, self.device,
                                       kv_dtype=self.flags.kv_dtype)
 
     def prefill(self, params, batch: dict):
-        return transformer.prefill(params, self.cfg, self.flags, batch)
+        return self._stack.prefill(params, self.cfg, self.flags, batch)
 
     def decode_step(self, params, cache, tokens, pos):
-        return transformer.decode_step(params, self.cfg, self.flags, cache,
+        return self._stack.decode_step(params, self.cfg, self.flags, cache,
                                        tokens, pos)
 
     # -- paged KV backend ------------------------------------------------
     def paged_supported(self) -> bool:
-        """Every stack the port accepts serves from the shared page pools:
+        """Every decoder-only stack serves from the shared page pools:
         full-attention layers grow a page table, windowed layers keep a
         rotating ring of pages, recurrent layers keep dense per-slot state
-        beside the pools, int8 KV stores scale lanes."""
-        return True
+        beside the pools, int8 KV stores scale lanes.  Encoder-decoder
+        stacks (a split cache) and modality frontends fall back to the
+        dense cache, as in the reference."""
+        return not (self.cfg.enc_dec or self.cfg.frontend)
 
     def init_paged_cache(self, num_pages: int, page_size: int,
                          ring_pages: int = 0, batch: int = 1) -> dict:

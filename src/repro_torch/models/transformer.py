@@ -1,5 +1,6 @@
 """Decoder-only LM: attention (full and sliding-window), RG-LRU and SSD
-mixers, with a dense MLP or none, on a dense or a paged KV cache.
+mixers, with a dense MLP, a mixture of experts or none, on a dense or a
+paged KV cache.
 
 The port of ``repro.models.transformer`` for these stacks, four modes:
 
@@ -23,6 +24,13 @@ The port of ``repro.models.transformer`` for these stacks, four modes:
   ``paged_attention`` kernel (K1, :mod:`repro_torch.kernels.ops`) with the
   softcap, the scale and, on windowed layers, the window over a ring
   table.
+
+A modality frontend's precomputed patch embeddings (``patch_embeds``,
+(B, P, d)) are cast to the activation dtype and prepended to the token
+embeddings in prefill, so positions run over ``P + S`` (such stacks are
+served from the dense cache, as in the reference).  MoE layers
+(:mod:`~repro_torch.models.moe`) dispatch by ``flags.moe_impl`` with the
+config's capacity factor; serving discards their load-balance loss.
 
 Recurrent mixers (:mod:`~repro_torch.models.rglru`,
 :mod:`~repro_torch.models.ssm`) keep dense per-slot state (``h``/``state``
@@ -53,10 +61,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE, NONE, RGLRU, SSD,
+from repro_torch.configs.base import (ATTN, DENSE, MOE, NONE, RGLRU, SSD,
                                       LayerSpec, ModelConfig)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
@@ -71,12 +80,14 @@ class RuntimeFlags:
     prefill (naive | chunked | pallas); ``attn_bq``/``attn_bkv`` pin
     chunked's blocks (None = the tuned plan's,
     :func:`repro_torch.models.attention.resolve_blocks`); the CUDA kernel
-    behind ``pallas`` picks its own tiles.  ``kv_dtype="int8"`` stores the
-    KV cache as int8 with a float32 scale per token."""
+    behind ``pallas`` picks its own tiles.  ``moe_impl`` picks the MoE
+    dispatch (dense | sorted).  ``kv_dtype="int8"`` stores the KV cache as int8 with a
+    float32 scale per token."""
 
     attn_impl: str = "chunked"
     attn_bq: Optional[int] = None
     attn_bkv: Optional[int] = None
+    moe_impl: str = "sorted"         # dense | sorted
     kv_dtype: str = "native"         # native | int8
 
 
@@ -88,11 +99,10 @@ RECURRENT = {SSD: ("ssd", ssm_mod, ssm_mod.SSDState),
 
 def check_supported(cfg: ModelConfig,
                     flags: Optional[RuntimeFlags] = None) -> None:
-    """The port serves decoders of attention (full and sliding windows),
-    RG-LRU and SSD layers, each with a dense MLP or none, with a KV cache
-    in the compute dtype or in int8; raise on anything else (MoE,
-    encoder-decoder and frontend stacks) rather than compute something
-    else."""
+    """Every stack of the registry is served (attention, RG-LRU and SSD
+    mixers with a dense MLP, a mixture of experts or none; frontend and
+    encoder-decoder stacks on the dense cache); raise on an unknown flag
+    or layer kind rather than compute something else."""
     if flags is not None:
         if flags.kv_dtype not in KV_DTYPES:
             raise ValueError(f"unknown kv_dtype {flags.kv_dtype!r}; known: "
@@ -100,15 +110,13 @@ def check_supported(cfg: ModelConfig,
         if flags.attn_impl not in attn_mod.IMPLS:
             raise ValueError(f"unknown attn_impl {flags.attn_impl!r}; known: "
                              f"{sorted(attn_mod.IMPLS)}")
-    if cfg.enc_dec or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend stacks are not ported")
+        if flags.moe_impl not in moe_mod.IMPLS:
+            raise ValueError(f"unknown moe_impl {flags.moe_impl!r}; known: "
+                             f"{moe_mod.IMPLS}")
     for spec in tuple(cfg.layer_pattern) + tuple(cfg.remainder_specs):
         if ((spec.mixer != ATTN and spec.mixer not in RECURRENT)
-                or spec.mlp not in (DENSE, NONE)):
-            raise NotImplementedError(
-                f"{cfg.name}: layer {spec} is not ported (attention, RG-LRU "
-                "and SSD mixers with a dense MLP or none)")
+                or spec.mlp not in (DENSE, MOE, NONE)):
+            raise ValueError(f"{cfg.name}: unknown layer kind {spec}")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -158,6 +166,10 @@ def _init_layer(b: ParamBuilder, path: str, spec: LayerSpec, cfg: ModelConfig,
     if spec.mlp == DENSE:
         b.zeros(f"{path}.ln2", lead + (d,))
         mlp_mod.init(b, f"{path}.mlp", d, cfg.d_ff, cfg.activation, stacked)
+    elif spec.mlp == MOE:
+        b.zeros(f"{path}.ln2", lead + (d,))
+        moe_mod.init(b, f"{path}.moe", d, cfg.d_ff, cfg.num_experts,
+                     cfg.activation, stacked)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -550,6 +562,12 @@ def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
     if spec.mlp == DENSE:
         h = rms_norm(x, p["ln2"])
         x = x + mlp_mod.apply(p["mlp"], h, cfg.activation)
+    elif spec.mlp == MOE:
+        h = rms_norm(x, p["ln2"])
+        out, _ = moe_mod.apply(p["moe"], h, cfg.num_experts_per_tok,
+                               cfg.activation, impl=flags.moe_impl,
+                               capacity_factor=cfg.moe_capacity_factor)
+        x = x + out
     return x, cache
 
 
@@ -589,8 +607,10 @@ MODES = ("prefill", "decode", "paged_decode", "paged_extend")
 
 def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
             cache=None, pos=None, table=None, chunk_valid=None, slot=None,
-            active=None):
-    """tokens: (B, S) -> (final-normed hidden states (B, S, d), cache).
+            active=None, patch_embeds=None):
+    """tokens: (B, S) -> (final-normed hidden states (B, S, d), cache);
+    ``patch_embeds`` (B, P, d), a frontend's, are prepended to the token
+    embeddings (then (B, P + S, d)).
     ``prefill`` builds a new dense cache from the prompt (stacked like the
     params); the other modes write ``cache`` in place and return it.
     ``table``/``chunk_valid`` only apply to the paged modes: ``table`` is
@@ -602,6 +622,8 @@ def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
     if table is not None and not isinstance(table, dict):
         table = dict(full=table)
     x = embed_tokens(params, cfg, tokens)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     blocks = {f"p{j}": [] for j, _ in enumerate(cfg.layer_pattern)}
     for i in range(cfg.num_pattern_blocks):
         for j, spec in enumerate(cfg.layer_pattern):
@@ -628,12 +650,15 @@ def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, flags: RuntimeFlags, batch: dict):
     """``batch["tokens"]`` (B, S), right-padded to a bucket;
-    ``batch["valid_len"]`` (scalar or (B,), optional) marks the true prompt
-    length, so the last logits are read at ``valid_len - 1`` instead of the
-    pad tail.  Causal attention keeps positions < valid_len exact under
-    right padding; cache rows past it are masked by the decode step's
-    ``kv_valid_len``.  Returns (cache, last logits (B, V))."""
-    x, cache = forward(params, cfg, flags, batch["tokens"], "prefill")
+    ``batch["patch_embeds"]`` (B, P, d, optional) a frontend's embeddings,
+    prepended; ``batch["valid_len"]`` (scalar or (B,), optional) marks the
+    true prompt length (patches included), so the last logits are read at
+    ``valid_len - 1`` instead of the pad tail.  Causal attention keeps
+    positions < valid_len exact under right padding; cache rows past it
+    are masked by the decode step's ``kv_valid_len``.  Returns (cache,
+    last logits (B, V))."""
+    x, cache = forward(params, cfg, flags, batch["tokens"], "prefill",
+                       patch_embeds=batch.get("patch_embeds"))
     vl = batch.get("valid_len")
     if vl is None:
         last = x[:, -1:]

@@ -12,7 +12,11 @@ its own position.
   is bounded by live tokens.  Prompts sharing a prefix share read-only
   pages (chain-hashed prefix cache); pool exhaustion is backpressure
   (requests stay queued), never a crash.
-- ``dense``: the per-slot ``(batch, max_len)`` cache.  A request's whole
+- ``dense``: the per-slot ``(batch, max_len)`` cache (the only backend of
+  frontend and encoder-decoder stacks, as in the reference; requests carry
+  tokens only, so a frontend stack serves text prompts and an
+  encoder-decoder stack, which needs encoder frames, fails at its first
+  prefill).  A request's whole
   prompt is prefilled in one step (right-padded to a power-of-two bucket;
   with ``attn_impl="pallas"`` through the ``flash_attention`` kernel) and
   its cache is written into the slot's rows; decode attends over the
@@ -887,6 +891,12 @@ class ServeEngine:
         from row 0, as in the reference.  A preempted request resumes here
         by prefilling its recorded context and feeding its pending token
         again (never drawing it anew)."""
+        cfg = self.bundle.cfg
+        if cfg.enc_dec:
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder prefill needs encoder "
+                "frames, and the engine's requests carry no encoder frames "
+                "(a prompt of tokens only)")
         res = self._resume.get(req.rid)
         prompt = req.prompt if res is None else res.ctx
         s = int(prompt.shape[0])

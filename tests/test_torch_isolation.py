@@ -53,6 +53,21 @@ def test_importing_every_module_loads_neither_jax_nor_reference():
     assert int(res.stdout.split()[-1]) >= 15
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.moe",
+                                    "repro_torch.models.encdec"])
+def test_new_module_alone_loads_neither_jax_nor_reference(module):
+    """Each module of the MoE and encoder-decoder slice, imported by itself
+    in a fresh interpreter."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(n for n in sys.modules\n"
+            "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -322,9 +322,19 @@ def both_runs():
     return jrun, trun
 
 
+def _failed_sweeps(**runs) -> str:
+    """Each failing sweep by package and name, with the last lines of its
+    traceback."""
+    return "\n".join(
+        f"{pkg} sweep {name!r} failed:\n"
+        + "\n".join(trace.strip().splitlines()[-6:])
+        for pkg, run in runs.items() for name, trace in run.failures.items())
+
+
 def test_sweeps_run_in_the_reference_order(both_runs):
     jrun, trun = both_runs
-    assert not jrun.failures and not trun.failures
+    assert not jrun.failures and not trun.failures, _failed_sweeps(
+        reference=jrun, port=trun)
     assert [r.sweep for r in trun.results] == [r.sweep for r in jrun.results]
     assert trun.env["device"] == "cpu" and trun.env["fast"] is True
 

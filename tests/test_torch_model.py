@@ -285,9 +285,9 @@ def test_dense_prefill_and_decode_match_reference(name, impl):
 
 
 def test_runtime_flags_refuse_what_is_not_ported():
-    """int8 KV, sliding windows and recurrent (SSD, RG-LRU) layers with a
-    dense MLP or none are served; unknown flags and the MoE and
-    encoder-decoder stacks are refused."""
+    """int8 KV, sliding windows, recurrent (SSD, RG-LRU) layers, MoE
+    layers under either dispatch and encoder-decoder stacks are served;
+    unknown flags are refused."""
     from repro_torch.configs import LayerSpec
     from repro_torch.configs.base import MOE, SSD
     cfg = t_smoke(T_ARCHS["phi4-mini-3.8b"])
@@ -297,10 +297,19 @@ def test_runtime_flags_refuse_what_is_not_ported():
         t_build(cfg, TRuntimeFlags(kv_dtype="fp8"), device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         t_build(cfg, TRuntimeFlags(attn_impl="unrolled"), device="cpu")
+    with pytest.raises(ValueError, match="moe_impl"):
+        t_build(cfg, TRuntimeFlags(moe_impl="grouped"), device="cpu")
     t_build(t_override(cfg, layer_pattern=(LayerSpec(mixer=SSD),)),
             device="cpu")
+    moe = dict(num_experts=4, num_experts_per_tok=2)
     for spec in (LayerSpec(mlp=MOE), LayerSpec(mixer=SSD, mlp=MOE)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_build(t_override(cfg, layer_pattern=(spec,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        t_build(t_override(cfg, enc_dec=True), device="cpu")
+        for impl in ("dense", "sorted"):
+            bundle = t_build(t_override(cfg, layer_pattern=(spec,), **moe),
+                             TRuntimeFlags(moe_impl=impl), device="cpu")
+            assert bundle.paged_supported()
+            params = bundle.init(torch.Generator().manual_seed(0))
+            assert "moe" in params["blocks"]["p0"]
+    encdec = t_build(t_override(cfg, enc_dec=True, num_encoder_layers=1),
+                     device="cpu")
+    assert not encdec.paged_supported()
+    assert "enc" in encdec.init(torch.Generator().manual_seed(0))

@@ -395,21 +395,25 @@ def test_paged_logits_match_reference(name):
 # ---------------------------------------------------------------------------
 
 def test_hybrid_stacks_build_and_moe_encdec_are_refused():
+    """The hybrid stacks build and page; the MoE, frontend and
+    encoder-decoder stacks, once refused, build too, with the reference's
+    paged support (a frontend or an encoder-decoder stack keeps the dense
+    cache)."""
     for arch in ("recurrentgemma-9b", "mamba2-130m"):
         t_build(T_ARCHS[arch], device="cpu")
         assert t_build(T_ARCHS[arch], device="cpu").paged_supported()
     cfg = t_smoke(T_ARCHS["gemma-2b"])
     t_build(t_override(cfg, layer_pattern=(LayerSpec(mixer=SSD, mlp=NONE),)),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_build(t_override(cfg, layer_pattern=(LayerSpec(mlp=MOE),)),
-                device="cpu")
-    for arch in ("granite-moe-3b-a800m", "grok-1-314b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_build(T_ARCHS[arch], device="cpu")
-    for arch in ("seamless-m4t-medium", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="encoder-decoder"):
-            t_build(T_ARCHS[arch], device="cpu")
+    moe = t_override(cfg, layer_pattern=(LayerSpec(mlp=MOE),), num_experts=4,
+                     num_experts_per_tok=2)
+    assert t_build(moe, device="cpu").paged_supported()
+    for arch in ("granite-moe-3b-a800m", "grok-1-314b", "seamless-m4t-medium",
+                 "pixtral-12b"):
+        bundle = t_build(T_ARCHS[arch], device="cpu")
+        want = j_build(J_ARCHS[arch], JFlags()).paged_supported()
+        assert bundle.paged_supported() == want
+        assert want == (arch in ("granite-moe-3b-a800m", "grok-1-314b"))
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])

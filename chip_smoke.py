@@ -260,10 +260,12 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    then ``repro_torch.bench.compare`` between the two runs: every row and
    verdict printed, and ``--gate structural`` (deterministic rows equal,
    no vanished metric) must pass; wall-clock verdicts are advisory; the
-   ``spec_serve``, ``preempt_serve``, ``cluster_serve`` and
-   ``disagg_serve`` sweeps once at card scale (full-width gemma-2b in
-   float32, the reference's larger mixes), their gates in the sweeps and
-   every row printed;
+   ``spec_serve``, ``dist_serve``, ``preempt_serve``, ``cluster_serve``
+   and ``disagg_serve`` sweeps once at card scale (full-width gemma-2b in
+   float32, the reference's larger mixes; ``dist_serve`` at the
+   reference's config, smoke gemma-2b with 2 kv heads in float32, over
+   two shards and two replicas on the one card), their gates in the
+   sweeps and every row printed;
 40. moe serve: full-width granite-moe-3b-a800m (32 layers of 40 experts,
    top 8, d_ff 512; 24/8 heads at D 64; 6.6 GB of bf16 weights drawn on
    the card) through the paged engine under ``moe_impl="sorted"``, batch
@@ -302,7 +304,28 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    and seamless-m4t-medium cut to 2 + 2 layers (128 frames, 16 decoder
    tokens) at published widths, float32, ``attn_impl="pallas"`` (K2's
    float32 route on the card): the last prefill logits within 1e-3 and 8
-   greedy decode tokens equal, card against CPU.
+   greedy decode tokens equal, card against CPU;
+46. tp serve: full-width phi4-mini-3.8b (32 layers, 24/8 heads, bf16
+   weights and pages) through a paged engine at TP=2, both shards on the
+   one card (``ServeMesh.tp(2, [cuda:0, cuda:0])``), batch 8, max_len
+   1024, chunks of 256, the serve phase's first 8 requests at phi4's
+   vocab, 16 new tokens each, after a 2-request warm-up drain; then TP=1
+   on the same weights, the same way.  Gated: K1
+   = 2 shards x 32 layers x ticks at each shard's Hq 12 / Hkv 4, each
+   shard's pools and live bytes half of TP=1's, the shards' tables
+   equal, every request at its length; printed, ungated: the share of
+   tokens equal to TP=1's and the first divergence (two bf16 partial sums
+   round otherwise than one product), and each layout's ms per tick;
+47. tp parity: phi4-mini-3.8b at published widths cut to 2 layers,
+   float32: the greedy drain's tokens equal on the card at TP=2, on the
+   card at TP=1 and on the CPU at TP=1 (K1 = 2 x 2 x ticks at TP=2); a
+   paged chunk and 3 decode ticks' logits at TP=2 within 1e-4 of TP=1;
+   the sampled drain at TP=2 gives the CPU's tokens and keys;
+48. dp serve: a colocated ``build_pool(tp=1, dp=2)`` of full-width
+   gemma-2b in bf16 over the one card twice, one weight tree, 8 of the
+   serve phase's requests, 16 new tokens each: every stream equals the
+   single engine's, both replicas take work, K1 = 18 x the replicas'
+   ticks.
 
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
@@ -314,8 +337,8 @@ before their redesign, and K1's int8 pages on the CUDA cores, as PERF.md
 records them: not measured in this run),
 the kernels' JSON line (K1, K2, K3, K4 and K8 also carry their design, K7
 its latency bound; K1 its launches on each serving path, the sampled,
-hybrid, preempted, cluster, disagg and MoE ones included, and its times at
-the new geometries; K2 its launches on the dense, frontend and encdec
+hybrid, preempted, cluster, disagg, MoE, TP and DP ones included, and its
+times at the new geometries; K2 its launches on the dense, frontend and encdec
 paths), the card line and the result line.
 Any failure exits non-zero before the result line; so does a host without
 a card, or a directory without the package.
@@ -408,6 +431,10 @@ INT8_GEOMETRY = dict(b=8, hq=8, hkv=1, d=256, page=16, n=64, int8=True,
                      kw={})
 # recurrentgemma-9b's local-attention layers: 16 query heads over one kv
 # head (the mma's whole 16-row tile) at D 256, a ring of 2048/8 + 1 pages
+# phi4-mini-3.8b's decode geometry at TP=2: each shard's 12 query heads
+# over 4 kv heads (group 3) at D 128, pages of 8 at max_len 1024
+PHI4_TP2_GEOMETRY = dict(b=8, hq=12, hkv=4, d=128, page=8, n=128,
+                         int8=False, kw={})
 RECURRENTGEMMA_GEOMETRY = dict(b=8, hq=16, hkv=1, d=256, page=8, n=257,
                                int8=False, kw=dict(window=2048))
 # the ring serve's decode lengths at its longest: the two prompts past the
@@ -507,6 +534,12 @@ def k1_cases(drain, hybrid, moe, grok):
         ("granite-moe-drain", 8, 24, 8, 64, 8, 128, moe, {}),
         ("grok-1-drain", 4, 48, 8, 128, 8, GROK_MAX_LEN // 8, grok,
          dict(softcap=30.0)),
+        # phi4-mini-3.8b at TP=2: each shard's 12/4 heads (group 3) at D
+        # 128, pages of 8 at max_len 1024, the tp serve's lengths (the
+        # serve drain's), on bf16 and int8 pages
+        ("phi4-mini-tp2-drain", 8, 12, 4, 128, 8, 128, drain, {}),
+        ("phi4-mini-tp2-drain-int8", 8, 12, 4, 128, 8, 128, drain,
+         dict(int8=True)),
     ]
 
 
@@ -2663,7 +2696,7 @@ def spec_serve_phase(torch, np, card):
 BENCH_SWEEPS = ("serve", "kernel_plan", "paged_serve")
 # run once, after the comparison (the run's time): their gates are in-sweep
 # (spec_serve ran in both compared runs before the cluster phases joined)
-BENCH_ONCE = ("spec_serve", "preempt_serve", "cluster_serve",
+BENCH_ONCE = ("spec_serve", "dist_serve", "preempt_serve", "cluster_serve",
               "disagg_serve")
 
 
@@ -2681,8 +2714,10 @@ def bench_serve_phase(torch, card):
         print(f"[bench serve] run={i} card='{card}' sweeps="
               f"{','.join(names)} scale=card", flush=True)
         t0 = time.perf_counter()
+        # dist_serve spreads over two shards (and two replicas) on the
+        # one card
         run = run_sweeps(names=names, fast=False, out_dir=out,
-                         device="cuda")
+                         device="cuda", devices=tp_devices(torch))
         check(not run.failures, f"bench serve run {i}: sweeps failed "
               f"{sorted(run.failures)}: {run.failures}")
         paths.append(run.env["path"])
@@ -4022,6 +4057,264 @@ def encdec_parity_phase(torch, np):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# tensor and data parallelism: ServeMesh and ReplicaPool on the one card
+# ---------------------------------------------------------------------------
+
+TP_NEW = 16                        # [tp serve]'s and [dp serve]'s new tokens
+
+
+def tp_devices(torch):
+    """A group of two on the one card: both shards of a TP=2 engine, or
+    both replicas of a DP=2 pool, on ``cuda:<current>``."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return [dev, dev]
+
+
+def _first_divergence(got, want):
+    """(equal tokens / all tokens, the first (request, index) that
+    differs or None)."""
+    same = total = 0
+    first = None
+    for i, (g, w) in enumerate(zip(got, want)):
+        for j, (a, b) in enumerate(zip(g, w)):
+            total += 1
+            same += a == b
+            if a != b and first is None:
+                first = (i, j)
+    return same / max(1, total), first
+
+
+def tp_serve_phase(torch, np, card):
+    """Full-width phi4-mini-3.8b at TP=2 on the one card, then TP=1 on the
+    same weights; returns K1's launches on both paths."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.dist import ServeMesh
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = ARCHS["phi4-mini-3.8b"]
+    bundle, params = load_model(torch, cfg)
+    reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
+                         (0, 9, 12, 15), TP_NEW)[:8]
+    Timed = timed_engine_class(torch, ServeEngine)
+    mesh = ServeMesh.tp(2, devices=tp_devices(torch))
+    runs, launches = {}, {}
+    for tag, kw in (("tp2", dict(dist=mesh)), ("tp1", {})):
+        eng = Timed(bundle, params, 8, 1024, prefill_chunk=256, **kw)
+        # a short drain first meets the layout's shapes (GEMMs, K1 at the
+        # shard's heads), so both layouts are timed warm
+        drain(torch, eng, [Request(rid=r.rid, prompt=r.prompt,
+                                   max_new_tokens=2) for r in reqs[:2]])
+        pa.reset_launches()
+        dt = drain(torch, eng, reqs)
+        st = eng.stats
+        n_attn = eng.tp * cfg.num_layers
+        launches[f"{tag} serve"] = pa.LAUNCHES
+        check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+              f"tp serve {tag}: a request missed its budget")
+        check(all(0 <= t < cfg.vocab_size for r in reqs
+                  for t in r.out_tokens), f"tp serve {tag}: token out of "
+              "range")
+        check(pa.LAUNCHES == n_attn * st.decode_steps > 0,
+              f"tp serve {tag}: K1 launches {pa.LAUNCHES} != {eng.tp} "
+              f"shards x {cfg.num_layers} layers x {st.decode_steps} ticks")
+        runs[tag] = dict(eng=eng, tokens=[list(r.out_tokens) for r in reqs],
+                         tick_ms=1e3 * eng.decode_s / st.decode_steps,
+                         chunk_ms=1e3 * eng.prefill_s / st.prefill_chunks,
+                         tok_s=st.tokens_out / dt, seconds=dt)
+    tp2, tp1 = runs["tp2"]["eng"], runs["tp1"]["eng"]
+    # each shard: 12 query heads over a stripe of 4 kv heads, the same
+    # page ids (the tables are one tensor copied per shard)
+    heads = [(s["blocks"]["p0"]["attn"]["wq"].shape[-1] // 128,
+              c["blocks"]["p0"]["k_pages"].shape[-2])
+             for s, c in zip(tp2.params, tp2.cache)]
+    check(heads == [(12, 4), (12, 4)], f"tp serve: shard heads {heads}, "
+          "not Hq 12 / Hkv 4")
+    check(all(torch.equal(t["full"], tp2._table[0]["full"])
+              for t in tp2._table), "tp serve: the shards' tables differ")
+    pool = sum(c["blocks"]["p0"][n].numel() * c["blocks"]["p0"][n]
+               .element_size() for c in tp2.cache[:1]
+               for n in ("k_pages", "v_pages"))
+    check(2 * pool == tp1.kv_bytes() == tp2.kv_bytes(),
+          f"tp serve: a shard's pools hold {pool} bytes, TP=1's "
+          f"{tp1.kv_bytes()}")
+    live = tp2.live_kv_bytes_peak(per_shard=True)
+    check(2 * live == tp1.live_kv_bytes_peak(),
+          f"tp serve: a shard's live bytes {live} are not half of TP=1's "
+          f"{tp1.live_kv_bytes_peak()}")
+    share, first = _first_divergence(runs["tp2"]["tokens"],
+                                     runs["tp1"]["tokens"])
+    for tag, r in runs.items():
+        e = r["eng"]
+        print(f"[tp serve] layout={tag} card='{card}' arch={cfg.name} "
+              f"requests={len(reqs)} batch={e.bsz} max_len={e.max_len} "
+              f"page={e.page} prefill_chunk={e.prefill_chunk} "
+              f"shards={e.tp} shard_heads=Hq{cfg.num_heads // e.tp}/"
+              f"Hkv{cfg.num_kv_heads // e.tp} tokens_out={e.stats.tokens_out} "
+              f"seconds={r['seconds']:.3f} tok_s={r['tok_s']:.1f} "
+              f"decode_steps={e.stats.decode_steps} "
+              f"ms_per_decode_tick={r['tick_ms']:.3f} "
+              f"ms_per_prefill_chunk={r['chunk_ms']:.3f} "
+              f"k1_launches={launches[f'{tag} serve']} "
+              f"live_kv_bytes_per_shard="
+              f"{e.live_kv_bytes_peak(per_shard=True)} "
+              f"kv_pool_GiB_per_shard={e.kv_bytes() / e.tp / 2**30:.3f}",
+              flush=True)
+    print(f"[tp serve] tokens_equal_to_tp1={share:.4f} "
+          f"first_divergence={first} (request, token; not gated: the "
+          "shards' two bf16 partial sums round otherwise than one bf16 "
+          "product, and the reference's token contract is float32 on the "
+          f"CPU) tick_ratio_tp2_to_tp1="
+          f"{runs['tp2']['tick_ms'] / runs['tp1']['tick_ms']:.3f} "
+          f"card='{card}'", flush=True)
+    return launches
+
+
+def tp_parity_phase(torch, np):
+    """phi4-mini-3.8b at published widths cut to 2 layers, float32: TP=2
+    on the card against TP=1 on the card and on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.dist import ServeMesh
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import build
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = override(ARCHS["phi4-mini-3.8b"], num_layers=2,
+                   param_dtype="float32", compute_dtype="float32")
+    card_bundle = build(cfg, device="cuda")
+    card_params = card_bundle.init(
+        torch.Generator(device="cuda").manual_seed(1))
+    cpu_bundle = build(cfg, device="cpu")
+    cpu_params = _to(card_params, "cpu")
+    mesh = ServeMesh.tp(2, devices=tp_devices(torch))
+    layouts = (("card tp2", card_bundle, card_params, dict(dist=mesh)),
+               ("card tp1", card_bundle, card_params, dict(device="cuda")),
+               ("cpu tp1", cpu_bundle, cpu_params, dict(device="cpu")))
+    launches = 0
+    for sampling in (None, SamplingParams(temperature=0.9, top_k=11)):
+        outs, keys, stats = {}, {}, {}
+        for label, bundle, params, kw in layouts:
+            if sampling is not None and label == "card tp1":
+                continue
+            eng = ServeEngine(bundle, params, 4, 128, sampling=sampling,
+                              seed=3, **kw)
+            reqs = make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40),
+                                 17, (0, 4), 8)
+            pa.reset_launches()
+            for r in reqs:
+                eng.add_request(r)
+            eng.run_to_completion()
+            if label == "card tp2":
+                launches += pa.LAUNCHES
+                check(pa.LAUNCHES == 2 * 2 * eng.stats.decode_steps > 0,
+                      f"tp parity: K1 launches {pa.LAUNCHES} != 2 shards x "
+                      f"2 layers x {eng.stats.decode_steps} ticks")
+            outs[label] = [list(r.out_tokens) for r in reqs]
+            keys[label] = eng.keys.cpu()
+            stats[label] = dataclasses.asdict(eng.stats)
+            del eng
+        mode = "greedy" if sampling is None else "sampled"
+        same = all(o == outs["cpu tp1"] for o in outs.values())
+        same_keys = all(torch.equal(k, keys["cpu tp1"])
+                        for k in keys.values())
+        same_stats = all(st == stats["cpu tp1"] for st in stats.values())
+        print(f"[tp parity] arch={cfg.name} full width, 2 layers, float32 "
+              f"mode={mode} layouts={sorted(outs)} requests=6 "
+              f"tokens_equal={same} keys_equal={same_keys} "
+              f"stats_equal={same_stats}", flush=True)
+        check(same, f"tp parity {mode}: tokens differ: {outs}")
+        check(same_keys, f"tp parity {mode}: final keys differ")
+        check(same_stats, f"tp parity {mode}: counters differ")
+    # logits of a paged chunk and 3 decode ticks, TP=2 against TP=1
+    tb, tparams = mesh.bind(card_bundle), mesh.shard_params(card_bundle,
+                                                            card_params)
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen).cuda()
+    table = dict(full=torch.arange(1, 9, dtype=torch.int32,
+                                   device="cuda").reshape(2, 4))
+    c1 = card_bundle.init_paged_cache(9, 8, batch=2)
+    c2 = mesh.shard_paged_cache(card_bundle.init_paged_cache(9, 8, batch=2))
+    cv = torch.tensor([24, 19], dtype=torch.int32, device="cuda")
+    pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+    c1, want = card_bundle.paged_prefill_chunk(card_params, c1, toks, pos,
+                                               table, cv)
+    c2, got = tb.paged_prefill_chunk(tparams, c2, toks, pos, table, cv)
+    errs = [float((torch.cat(got, -1) - want).abs().max())]
+    for t in range(3):
+        nt = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen).cuda()
+        want, c1 = card_bundle.paged_decode_step(card_params, c1, nt, cv + t,
+                                                 table)
+        got, c2 = tb.paged_decode_step(tparams, c2, nt, cv + t, table)
+        errs.append(float((torch.cat(got, -1) - want).abs().max()))
+    print(f"[tp parity] logits TP=2 vs TP=1 on the card: chunk and 3 "
+          f"ticks max_abs_err={['%.3e' % e for e in errs]} tol=1e-4",
+          flush=True)
+    check(max(errs) <= 1e-4, f"tp parity: TP=2 logits {errs} beyond 1e-4 "
+          "of TP=1")
+    return {"tp parity": launches}
+
+
+def dp_serve_phase(torch, np, card):
+    """A colocated DP=2 pool of full-width gemma-2b on the one card, one
+    weight tree, against the single engine."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import build_pool
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = ARCHS["gemma-2b"]
+    bundle, params = load_model(torch, cfg)
+
+    def reqs_of():
+        return make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513),
+                             256, (0, 9, 12, 15), TP_NEW)[:8]
+
+    kw = dict(batch_size=8, max_len=1024, prefill_chunk=256)
+    single = ServeEngine(bundle, params, **kw)
+    want = reqs_of()
+    t0 = time.perf_counter()
+    drain(torch, single, want)
+    single_s = time.perf_counter() - t0
+    pool = build_pool(bundle, params, tp=1, dp=2, devices=tp_devices(torch),
+                      **kw)
+    reqs = reqs_of()
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        pool.submit(r)
+    stats = pool.drain()
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t0
+    ticks = sum(e.stats.decode_steps for e in pool.engines)
+    same = [list(r.out_tokens) for r in reqs] == [list(r.out_tokens)
+                                                  for r in want]
+    shared = all(e.params["embed"]["tok"] is params["embed"]["tok"]
+                 for e in pool.engines)
+    print(f"[dp serve] card='{card}' arch={cfg.name} replicas=2 "
+          f"routed={pool.routed} batch={kw['batch_size']} requests="
+          f"{len(reqs)} tokens_out={stats.tokens_out} "
+          f"streams_equal_single={same} one_weight_tree={shared} "
+          f"k1_launches={pa.LAUNCHES} replica_ticks="
+          f"{[e.stats.decode_steps for e in pool.engines]} "
+          f"pool_seconds={pool_s:.3f} single_seconds={single_s:.3f}",
+          flush=True)
+    check(same, "dp serve: a replica's stream differs from the single "
+          "engine's")
+    check(shared, "dp serve: the replicas copied the weights")
+    check(all(n > 0 for n in pool.routed), "dp serve: a replica took no "
+          "request")
+    check(pa.LAUNCHES == cfg.num_layers * ticks > 0,
+          f"dp serve: K1 launches {pa.LAUNCHES} != {cfg.num_layers} x "
+          f"{ticks} ticks")
+    return {"dp serve": pa.LAUNCHES}
+
+
 def main():
     try:
         import numpy as np
@@ -4088,7 +4381,8 @@ def main():
                 ("gemma-2b-int8-full", [1024] * 8, INT8_GEOMETRY),
                 ("recurrentgemma-9b-ring", hybrid,
                  RECURRENTGEMMA_GEOMETRY),
-                ("granite-moe-3b-drain", moe, GRANITE_GEOMETRY))]
+                ("granite-moe-3b-drain", moe, GRANITE_GEOMETRY),
+                ("phi4-mini-tp2-drain", drain, PHI4_TP2_GEOMETRY))]
         lap("K1")
         launches, greedy = serve_phase(torch, np, card)
         parity_phase(torch, np)
@@ -4222,6 +4516,16 @@ def main():
         torch.cuda.empty_cache()
         encdec_parity_phase(torch, np)
         lap("frontend serve, encdec serve, encdec parity")
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_launches = tp_serve_phase(torch, np, card)
+        gc.collect()                 # the 7.7 GB of phi4-mini (twice) go
+        torch.cuda.empty_cache()
+        tp_launches.update(tp_parity_phase(torch, np))
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_launches.update(dp_serve_phase(torch, np, card))
+        lap("tp serve, tp parity, dp serve")
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1
@@ -4235,7 +4539,7 @@ def main():
                                 "hybrid serve": hybrid_launches,
                                 **sampled_launches, **preempt_launches,
                                 **cluster_launches, **disagg_launches,
-                                **moe_launches},
+                                **moe_launches, **tp_launches},
               timed=k1_timed)
     k2 = dict(name="flash_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/flash_attention.cu",

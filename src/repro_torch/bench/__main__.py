@@ -20,6 +20,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="device to run on (default: the card; 'cpu' runs "
                          "the plain PyTorch versions)")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated device group of the distributed "
+                         "sweep (dist_serve); may repeat one, e.g. "
+                         "cuda:0,cuda:0 (default: the visible cards)")
     ap.add_argument("--out", default="",
                     help="directory for BENCH_torch_<timestamp>.json "
                          "(default: no file)")
@@ -44,7 +48,9 @@ def main(argv=None) -> int:
     print(f"# device {device}")
     print("name,us_per_call,derived")
     run = run_sweeps(names=names, fast=args.fast, out_dir=args.out or None,
-                     calibration=calibration, device=device)
+                     calibration=calibration, device=device,
+                     devices=args.devices.split(",") if args.devices
+                     else None)
     if "path" in run.env:
         print(f"# wrote {run.env['path']}", flush=True)
     if run.failures:

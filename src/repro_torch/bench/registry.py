@@ -54,15 +54,19 @@ def register(name: str, paper_ref: str = ""):
 
 class SweepContext:
     """Handed to each sweep: scale flag, spec, device, timing, and the emit
-    sink."""
+    sink.  ``devices`` is the device group a distributed sweep spreads
+    over (None: the sweep's default; a caller's list may repeat a
+    device)."""
 
     def __init__(self, sweep: str, fast: bool, spec: HopperSpec = H100,
-                 echo: bool = True, device: Optional[torch.device] = None):
+                 echo: bool = True, device: Optional[torch.device] = None,
+                 devices: Optional[Sequence] = None):
         self.sweep = sweep
         self.fast = fast
         self.spec = spec
         self.echo = echo
         self.device = resolve_device(device)
+        self.devices = None if devices is None else list(devices)
         self.results: List[BenchResult] = []
 
     # -- measurement --------------------------------------------------------
@@ -126,9 +130,10 @@ def run_sweeps(names: Optional[Sequence[str]] = None, fast: bool = False,
                spec: HopperSpec = H100, echo: bool = True,
                out_dir: Optional[str] = None,
                calibration: Optional[Dict] = None,
-               device=None) -> BenchRun:
+               device=None, devices: Optional[Sequence] = None) -> BenchRun:
     """Run the selected sweeps (default: all, in registration order) on
-    ``device`` (default: the card; raises without one).
+    ``device`` (default: the card; raises without one); ``devices`` is the
+    device group of the distributed sweep (``dist_serve``).
 
     Per-sweep exceptions are caught and recorded in ``run.failures`` —
     the CLI turns those into a nonzero exit, the library API never throws
@@ -150,7 +155,7 @@ def run_sweeps(names: Optional[Sequence[str]] = None, fast: bool = False,
     for name in selected:
         sw = REGISTRY[name]
         ctx = SweepContext(sweep=name, fast=fast, spec=spec, echo=echo,
-                           device=device)
+                           device=device, devices=devices)
         ctx.header(f"{name} ({sw.paper_ref})" if sw.paper_ref else name)
         try:
             sw.fn(ctx)

@@ -2,9 +2,8 @@
 sweeps, Table 9's ``database``, Table 10's ``conv``, the analytic
 ``roofline``), then the serving sweeps (``serve`` and ``kernel_plan``,
 ``paged_serve``, ``spec_serve``, ``preempt_serve``, ``cluster_serve``,
-``disagg_serve``): 16 modules, 17 sweeps, registered in the reference's
-order (``repro.bench.sweeps``; its ``dist_serve`` waits for the port of
-the device meshes).
+``dist_serve``, ``disagg_serve``): 17 modules, 18 sweeps, registered in
+the reference's order (``repro.bench.sweeps``).
 Importing this package populates
 :data:`repro_torch.bench.registry.REGISTRY`.
 
@@ -16,11 +15,12 @@ times the card's 50 MiB L2, or the card would measure its cache.
 from repro_torch.bench.sweeps import (  # noqa: F401  (import order == run order)
     latency, outstanding, unit_size, stride, burst, num_kernels,
     random_access, database, conv, roofline, serve, paged_serve, spec_serve,
-    preempt_serve, cluster_serve, disagg_serve,
+    dist_serve, preempt_serve, cluster_serve, disagg_serve,
 )
 
 __all__ = [
     "latency", "outstanding", "unit_size", "stride", "burst", "num_kernels",
     "random_access", "database", "conv", "roofline", "serve", "paged_serve",
-    "spec_serve", "preempt_serve", "cluster_serve", "disagg_serve",
+    "spec_serve", "dist_serve", "preempt_serve", "cluster_serve",
+    "disagg_serve",
 ]

@@ -128,6 +128,52 @@ def paged_gather_attention(q, k_pages, v_pages, page_table, p: AttnParams,
                            q_offset=q_offset, kv_valid_len=kv_valid_len)
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel paged dispatches
+# ---------------------------------------------------------------------------
+# The serve-side TP split (the paper's multi-bank axis): attention heads
+# and the KV page pools split over one mesh axis in contiguous blocks,
+# page tables, valid lengths and int8 scale lanes replicate, and each shard
+# walks its own stripe of the pools with its own kernel call.  With tp
+# dividing both Hq and Hkv, every query group stays on the shard of its kv
+# head (the group size is shard-invariant).  Arguments and results are
+# per-shard lists, shard s on its own device; the results concatenated on
+# the head axis in shard order are the single-device call's, and they stay
+# split here because the row-parallel o-projection consumes each shard's
+# heads where they are.  Whether a stack may split at all is checked once,
+# for the whole stack (:func:`repro_torch.dist.serve.check_tp`), where the
+# reference's ``tp_shardable`` chose per call between these and GSPMD.
+
+def tp_paged_attention(q, k_pages, v_pages, page_table, valid_len, *,
+                       scale=None, softcap=None, window=None, k_scale=None,
+                       v_scale=None):
+    """Decode over the split pools: one ``paged_attention`` (K1) call per
+    shard, on its head block q[s] (B, Hq/tp, D) and its pool stripe
+    (P, page, Hkv/tp, D) with its copy of the table, the valid lengths
+    and the scale lanes.  Returns the per-shard outputs."""
+    return [kops.paged_attention(
+        q[s], k_pages[s], v_pages[s], page_table[s], valid_len[s],
+        scale=scale, softcap=softcap, window=window,
+        k_scale=None if k_scale is None else k_scale[s],
+        v_scale=None if v_scale is None else v_scale[s])
+        for s in range(len(q))]
+
+
+def tp_paged_gather_attention(q, k_pages, v_pages, page_table,
+                              p: AttnParams, q_offset, kv_valid_len,
+                              k_scale=None, v_scale=None):
+    """Extend and verify over the split pools: each shard gathers its own
+    stripe through its copy of the table and attends its head block
+    q[s] (B, C, Hq/tp, D), so a prefill chunk never moves another shard's
+    pages.  Returns the per-shard outputs."""
+    return [paged_gather_attention(
+        q[s], k_pages[s], v_pages[s], page_table[s], p,
+        q_offset=q_offset[s], kv_valid_len=kv_valid_len[s],
+        k_scale=None if k_scale is None else k_scale[s],
+        v_scale=None if v_scale is None else v_scale[s])
+        for s in range(len(q))]
+
+
 def chunked_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
     """Online-softmax double loop over (bq, bkv) blocks, forward only (the
     reference's custom VJP waits for training).  q: (B,Sq,Hq,D); k/v:

@@ -5,7 +5,10 @@ Parameters are a nested dict of tensors built through :class:`ParamBuilder`
 under the reference's dotted paths (``embed.tok``, ``blocks.p0.attn.wq``,
 ...), with per-pattern-position weights stacked on a leading LAYERS axis,
 so a reference param tree maps onto the port leaf for leaf
-(:mod:`repro_torch.bridge`).
+(:mod:`repro_torch.bridge`).  The builder also records a parallel tree of
+*logical axis names* per tensor (the reference's), which
+:mod:`repro_torch.dist.sharding` maps onto mesh axes; model code never
+names a mesh axis.
 """
 from __future__ import annotations
 
@@ -14,9 +17,18 @@ from typing import Optional, Sequence
 
 import torch
 
+# logical axis names (the reference's)
+BATCH, SEQ, EMBED, HEADS, KV_HEADS, HEAD_DIM, FF, VOCAB = (
+    "batch", "seq", "embed", "heads", "kv_heads", "head_dim", "ff", "vocab")
+EXPERT, LAYERS, STATE, CONV = "expert", "layers", "state", "conv"
+
+Axes = Sequence[Optional[str]]
+
 
 class ParamBuilder:
-    """Collects parameters under nested dict paths.
+    """Collects (parameter, logical axes) pairs under nested dict paths:
+    ``params`` holds the tensors, ``specs`` the same tree of axis-name
+    tuples (one name, or None, per dimension).
 
     ``generator`` draws every weight (a ``torch.Generator`` on ``device``);
     ``device="meta"`` builds shape-only tensors (no memory, no draws), which
@@ -28,15 +40,21 @@ class ParamBuilder:
         self.dtype = dtype
         self.device = torch.device(device)
         self.params: dict = {}
+        self.specs: dict = {}
 
-    def _put(self, path: str, value: torch.Tensor) -> None:
+    def _put(self, path: str, value: torch.Tensor, axes: Axes) -> None:
+        if len(axes) != value.dim():
+            raise ValueError(f"{path}: {len(axes)} axis names for a "
+                             f"{value.dim()}-d tensor")
         parts = path.split(".")
-        p = self.params
+        p, s = self.params, self.specs
         for part in parts[:-1]:
             p = p.setdefault(part, {})
+            s = s.setdefault(part, {})
         p[parts[-1]] = value
+        s[parts[-1]] = tuple(axes)
 
-    def dense(self, path: str, shape: Sequence[int],
+    def dense(self, path: str, shape: Sequence[int], axes: Axes,
               scale: Optional[float] = None) -> None:
         """Truncated normal in [-2, 2] times ``scale`` (default
         ``1/sqrt(fan_in)``), drawn in float32 and cast to the param dtype.
@@ -49,7 +67,7 @@ class ParamBuilder:
         holds beside the 23 GB of weights)."""
         if self.device.type == "meta":
             self._put(path, torch.empty(tuple(shape), dtype=self.dtype,
-                                        device=self.device))
+                                        device=self.device), axes)
             return
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
@@ -61,24 +79,24 @@ class ParamBuilder:
             torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
                                         generator=self.generator)
             part.copy_(w.mul_(std))
-        self._put(path, out)
+        self._put(path, out, axes)
 
-    def zeros(self, path: str, shape: Sequence[int]) -> None:
+    def zeros(self, path: str, shape: Sequence[int], axes: Axes) -> None:
         self._put(path, torch.zeros(tuple(shape), dtype=self.dtype,
-                                    device=self.device))
+                                    device=self.device), axes)
 
-    def ones(self, path: str, shape: Sequence[int]) -> None:
+    def ones(self, path: str, shape: Sequence[int], axes: Axes) -> None:
         self._put(path, torch.ones(tuple(shape), dtype=self.dtype,
-                                   device=self.device))
+                                   device=self.device), axes)
 
-    def const(self, path: str, value: torch.Tensor) -> None:
+    def const(self, path: str, value: torch.Tensor, axes: Axes) -> None:
         """``value`` in the param dtype; on the meta device only its
         shape."""
         if self.device.type == "meta":
             self._put(path, torch.empty(tuple(value.shape), dtype=self.dtype,
-                                        device=self.device))
+                                        device=self.device), axes)
             return
-        self._put(path, value.to(device=self.device, dtype=self.dtype))
+        self._put(path, value.to(device=self.device, dtype=self.dtype), axes)
 
 
 # ---------------------------------------------------------------------------

@@ -28,43 +28,52 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import AttnParams
-from repro_torch.models.common import ParamBuilder, rms_norm, rope
+from repro_torch.models.common import (EMBED, HEADS, KV_HEADS, LAYERS,
+                                       VOCAB, ParamBuilder, rms_norm, rope)
 from repro_torch.models.transformer import (RuntimeFlags, _pick,
                                             compute_logits, dtype_of)
 
 
 def _init_attn(b: ParamBuilder, path: str, cfg: ModelConfig, stacked: int):
-    lead = (stacked,)
+    lead, la = (stacked,), (LAYERS,)
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    b.dense(f"{path}.wq", lead + (d, cfg.num_heads * hd))
-    b.dense(f"{path}.wk", lead + (d, cfg.num_kv_heads * hd))
-    b.dense(f"{path}.wv", lead + (d, cfg.num_kv_heads * hd))
-    b.dense(f"{path}.wo", lead + (cfg.num_heads * hd, d))
+    b.dense(f"{path}.wq", lead + (d, cfg.num_heads * hd), la + (EMBED, HEADS))
+    b.dense(f"{path}.wk", lead + (d, cfg.num_kv_heads * hd),
+            la + (EMBED, KV_HEADS))
+    b.dense(f"{path}.wv", lead + (d, cfg.num_kv_heads * hd),
+            la + (EMBED, KV_HEADS))
+    b.dense(f"{path}.wo", lead + (cfg.num_heads * hd, d), la + (HEADS, EMBED))
+
+
+def build_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                 device) -> ParamBuilder:
+    """The builder holding the stack's weights and their logical axes."""
+    b = ParamBuilder(generator, dtype_of(cfg.param_dtype), device)
+    d = cfg.d_model
+    ne, nd = cfg.num_encoder_layers, cfg.num_layers
+    b.dense("embed.tok", (cfg.vocab_size, d), (VOCAB, EMBED), scale=d ** -0.5)
+    b.zeros("enc.ln1", (ne, d), (LAYERS, EMBED))
+    _init_attn(b, "enc.attn", cfg, ne)
+    b.zeros("enc.ln2", (ne, d), (LAYERS, EMBED))
+    mlp_mod.init(b, "enc.mlp", d, cfg.d_ff, cfg.activation, ne)
+    b.zeros("enc_norm", (d,), (EMBED,))
+    b.zeros("dec.ln1", (nd, d), (LAYERS, EMBED))
+    _init_attn(b, "dec.self", cfg, nd)
+    b.zeros("dec.lnx", (nd, d), (LAYERS, EMBED))
+    _init_attn(b, "dec.cross", cfg, nd)
+    b.zeros("dec.ln2", (nd, d), (LAYERS, EMBED))
+    mlp_mod.init(b, "dec.mlp", d, cfg.d_ff, cfg.activation, nd)
+    b.zeros("final_norm", (d,), (EMBED,))
+    if not cfg.tie_embeddings:
+        b.dense("lm_head", (d, cfg.vocab_size), (EMBED, VOCAB))
+    return b
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device) -> dict:
     """Fresh weights drawn from ``generator`` (on ``device``); with
     ``device="meta"`` only the paths and shapes."""
-    b = ParamBuilder(generator, dtype_of(cfg.param_dtype), device)
-    d = cfg.d_model
-    ne, nd = cfg.num_encoder_layers, cfg.num_layers
-    b.dense("embed.tok", (cfg.vocab_size, d), scale=d ** -0.5)
-    b.zeros("enc.ln1", (ne, d))
-    _init_attn(b, "enc.attn", cfg, ne)
-    b.zeros("enc.ln2", (ne, d))
-    mlp_mod.init(b, "enc.mlp", d, cfg.d_ff, cfg.activation, ne)
-    b.zeros("enc_norm", (d,))
-    b.zeros("dec.ln1", (nd, d))
-    _init_attn(b, "dec.self", cfg, nd)
-    b.zeros("dec.lnx", (nd, d))
-    _init_attn(b, "dec.cross", cfg, nd)
-    b.zeros("dec.ln2", (nd, d))
-    mlp_mod.init(b, "dec.mlp", d, cfg.d_ff, cfg.activation, nd)
-    b.zeros("final_norm", (d,))
-    if not cfg.tie_embeddings:
-        b.dense("lm_head", (d, cfg.vocab_size))
-    return b.params
+    return build_params(cfg, generator, device).params
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor, heads: int,

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamBuilder
+from repro_torch.models.common import EMBED, EXPERT, FF, LAYERS, ParamBuilder
 from repro_torch.models.mlp import _ACT
 
 IMPLS = ("dense", "sorted")
@@ -34,11 +34,13 @@ def init(b: ParamBuilder, path: str, d: int, f: int, n_exp: int,
     """``router`` (d, E), ``w_gate`` (gated activations only) and ``w_up``
     (E, d, f), ``w_down`` (E, f, d); stacked>0 prepends a LAYERS axis."""
     lead = (stacked,) if stacked else ()
-    b.dense(f"{path}.router", lead + (d, n_exp))
+    la = (LAYERS,) if stacked else ()
+    b.dense(f"{path}.router", lead + (d, n_exp), la + (EMBED, None))
     if activation in ("swiglu", "geglu"):
-        b.dense(f"{path}.w_gate", lead + (n_exp, d, f))
-    b.dense(f"{path}.w_up", lead + (n_exp, d, f))
-    b.dense(f"{path}.w_down", lead + (n_exp, f, d))
+        b.dense(f"{path}.w_gate", lead + (n_exp, d, f),
+                la + (EXPERT, EMBED, FF))
+    b.dense(f"{path}.w_up", lead + (n_exp, d, f), la + (EXPERT, EMBED, FF))
+    b.dense(f"{path}.w_down", lead + (n_exp, f, d), la + (EXPERT, FF, EMBED))
 
 
 def _route(p, x: torch.Tensor, k: int):

@@ -37,6 +37,13 @@ class ModelBundle:
         bundle's device)."""
         return self._stack.init_params(self.cfg, generator, self.device)
 
+    def param_specs(self) -> dict:
+        """The params' logical-axes tree (a tuple of axis names, or None,
+        per dimension of each leaf), built on the meta device: the
+        counterpart of the reference's ``abstract_params()[1]``, which
+        :mod:`repro_torch.dist.sharding` maps onto mesh axes."""
+        return self._stack.build_params(self.cfg, None, "meta").specs
+
     # -- dense KV backend ------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
                    enc_len: Optional[int] = None) -> dict:

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (ParamBuilder, causal_conv1d,
+from repro_torch.models.common import (CONV, EMBED, FF, LAYERS,
+                                       ParamBuilder, causal_conv1d,
                                        conv_state_from)
 from repro_torch.models.scan import associative_scan
 
@@ -42,18 +43,20 @@ def width(cfg: ModelConfig) -> int:
 def init(b: ParamBuilder, path: str, cfg: ModelConfig, stacked: int = 0):
     d, w = cfg.d_model, width(cfg)
     lead = (stacked,) if stacked else ()
+    la = (LAYERS,) if stacked else ()
     blk = w // N_BLOCKS
-    b.dense(f"{path}.w_gate_in", lead + (d, w))
-    b.dense(f"{path}.w_rec_in", lead + (d, w))
-    b.dense(f"{path}.conv_w", lead + (CONV_WIDTH, w), scale=0.5)
-    b.zeros(f"{path}.conv_b", lead + (w,))
-    b.dense(f"{path}.bd_a", lead + (N_BLOCKS, blk, blk))
-    b.zeros(f"{path}.bd_a_bias", lead + (w,))
-    b.dense(f"{path}.bd_x", lead + (N_BLOCKS, blk, blk))
-    b.zeros(f"{path}.bd_x_bias", lead + (w,))
+    b.dense(f"{path}.w_gate_in", lead + (d, w), la + (EMBED, FF))
+    b.dense(f"{path}.w_rec_in", lead + (d, w), la + (EMBED, FF))
+    b.dense(f"{path}.conv_w", lead + (CONV_WIDTH, w), la + (CONV, FF),
+            scale=0.5)
+    b.zeros(f"{path}.conv_b", lead + (w,), la + (FF,))
+    b.dense(f"{path}.bd_a", lead + (N_BLOCKS, blk, blk), la + (None, FF, None))
+    b.zeros(f"{path}.bd_a_bias", lead + (w,), la + (FF,))
+    b.dense(f"{path}.bd_x", lead + (N_BLOCKS, blk, blk), la + (None, FF, None))
+    b.zeros(f"{path}.bd_x_bias", lead + (w,), la + (FF,))
     # Lambda such that a^c spans about (0.9, 0.999), as in the paper
-    b.const(f"{path}.lam", torch.full(lead + (w,), 0.66))
-    b.dense(f"{path}.w_out", lead + (w, d))
+    b.const(f"{path}.lam", torch.full(lead + (w,), 0.66), la + (FF,))
+    b.dense(f"{path}.w_out", lead + (w, d), la + (FF, EMBED))
 
 
 class LRUState(NamedTuple):

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (ParamBuilder, causal_conv1d,
+from repro_torch.models.common import (CONV, EMBED, FF, HEADS, LAYERS,
+                                       ParamBuilder, causal_conv1d,
                                        conv_state_from, rms_norm)
 from repro_torch.models.scan import associative_scan
 
@@ -43,15 +44,17 @@ def init(b: ParamBuilder, path: str, cfg: ModelConfig, stacked: int = 0):
     d = cfg.d_model
     d_in, h, _, n = dims(cfg)
     lead = (stacked,) if stacked else ()
-    b.dense(f"{path}.w_in", lead + (d, 2 * d_in + 2 * n + h))
+    la = (LAYERS,) if stacked else ()
+    b.dense(f"{path}.w_in", lead + (d, 2 * d_in + 2 * n + h),
+            la + (EMBED, FF))
     b.dense(f"{path}.conv_w", lead + (cfg.ssm_conv_width, d_in + 2 * n),
-            scale=0.5)
-    b.zeros(f"{path}.conv_b", lead + (d_in + 2 * n,))
-    b.const(f"{path}.a_log", torch.zeros(lead + (h,)))
-    b.ones(f"{path}.d_skip", lead + (h,))
-    b.zeros(f"{path}.dt_bias", lead + (h,))
-    b.ones(f"{path}.norm", lead + (d_in,))
-    b.dense(f"{path}.w_out", lead + (d_in, d))
+            la + (CONV, FF), scale=0.5)
+    b.zeros(f"{path}.conv_b", lead + (d_in + 2 * n,), la + (FF,))
+    b.const(f"{path}.a_log", torch.zeros(lead + (h,)), la + (HEADS,))
+    b.ones(f"{path}.d_skip", lead + (h,), la + (HEADS,))
+    b.zeros(f"{path}.dt_bias", lead + (h,), la + (HEADS,))
+    b.ones(f"{path}.norm", lead + (d_in,), la + (FF,))
+    b.dense(f"{path}.w_out", lead + (d_in, d), la + (FF, EMBED))
 
 
 def _split(p, x: torch.Tensor, cfg: ModelConfig):

@@ -49,6 +49,17 @@ and chunked prefill agree with what decode reads back.
 Parameters keep the reference's layout: per-pattern-position weights
 stacked on a leading LAYERS axis (``blocks.p{j}``), remainder layers
 unstacked (``rem.r{j}``); the layer loop is a Python loop over that axis.
+
+With ``flags.mesh`` wider than one device along ``flags.tp_axis``
+(:meth:`repro_torch.dist.serve.ServeMesh.bind`) every entry point runs
+tensor-parallel (:func:`_forward_tp`): params and caches are lists of
+per-shard trees (:meth:`~repro_torch.dist.serve.ServeMesh.shard_params`,
+``shard_paged_cache``), the residual stream and the norms stay on the
+first shard, q/k/v and the MLP's gate/up are column-parallel, the
+o-projection and the MLP's down row-parallel (partials summed in shard
+order), the embedding and the head split on vocab (logits come back as
+the shards' vocab slices), and each shard's attention reads its own
+stripe of the pools.
 Caches are updated in place (the reference returns a new cache; here the
 decode modes return the same dict, mutated), which keeps the cache's
 memory at one copy.
@@ -57,12 +68,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import (ATTN, DENSE, MOE, NONE, RGLRU, SSD,
                                       LayerSpec, ModelConfig)
+from repro_torch.dist.serve import (broadcast, check_tp, reduce_max,
+                                    reduce_sum)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -70,7 +83,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnParams, paged_gather_attention
-from repro_torch.models.common import ParamBuilder, rms_norm, rope, softcap
+from repro_torch.models.common import (EMBED, HEADS, KV_HEADS, LAYERS, VOCAB,
+                                       ParamBuilder, rms_norm, rope, softcap)
 
 
 @dataclass(frozen=True)
@@ -82,13 +96,18 @@ class RuntimeFlags:
     :func:`repro_torch.models.attention.resolve_blocks`); the CUDA kernel
     behind ``pallas`` picks its own tiles.  ``moe_impl`` picks the MoE
     dispatch (dense | sorted).  ``kv_dtype="int8"`` stores the KV cache as int8 with a
-    float32 scale per token."""
+    float32 scale per token.  ``mesh`` (a :class:`~repro_torch.launch.
+    mesh.Mesh`, set by :meth:`~repro_torch.dist.serve.ServeMesh.bind`)
+    with more than one device along ``tp_axis`` runs every entry point
+    tensor-parallel over per-shard params and caches."""
 
     attn_impl: str = "chunked"
     attn_bq: Optional[int] = None
     attn_bkv: Optional[int] = None
     moe_impl: str = "sorted"         # dense | sorted
     kv_dtype: str = "native"         # native | int8
+    mesh: Any = None
+    tp_axis: str = "model"
 
 
 KV_DTYPES = ("native", "int8")
@@ -126,12 +145,15 @@ def dtype_of(name: str) -> torch.dtype:
 SENTINEL = -10 ** 9     # the position of an empty ring row
 
 
-def _kv_quant(x: torch.Tensor):
+def _kv_quant(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """(B, S, H, D) -> (int8 values, per-token float32 scale (B, S)):
     the scale is the token's largest magnitude over 127 (at least
-    1e-6 / 127), values rounded half to even and clipped to +-127."""
+    1e-6 / 127), values rounded half to even and clipped to +-127.
+    ``amax`` (B, S) overrides the largest magnitude: under TP a shard holds
+    some of the heads, and the token's amax spans all of them."""
     xf = x.float()
-    amax = xf.abs().amax(dim=(2, 3))
+    if amax is None:
+        amax = xf.abs().amax(dim=(2, 3))
     scale = torch.clamp(amax, min=1e-6) / 127.0
     q = torch.clamp(torch.round(xf / scale[:, :, None, None]), -127, 127)
     return q.to(torch.int8), scale
@@ -153,42 +175,53 @@ def _kv_store_dtype(cfg: ModelConfig, kv_dtype: str) -> torch.dtype:
 def _init_layer(b: ParamBuilder, path: str, spec: LayerSpec, cfg: ModelConfig,
                 stacked: int):
     lead = (stacked,) if stacked else ()
+    la = (LAYERS,) if stacked else ()
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    b.zeros(f"{path}.ln1", lead + (d,))
+    b.zeros(f"{path}.ln1", lead + (d,), la + (EMBED,))
     if spec.mixer == ATTN:
-        b.dense(f"{path}.attn.wq", lead + (d, cfg.num_heads * hd))
-        b.dense(f"{path}.attn.wk", lead + (d, cfg.num_kv_heads * hd))
-        b.dense(f"{path}.attn.wv", lead + (d, cfg.num_kv_heads * hd))
-        b.dense(f"{path}.attn.wo", lead + (cfg.num_heads * hd, d))
+        b.dense(f"{path}.attn.wq", lead + (d, cfg.num_heads * hd),
+                la + (EMBED, HEADS))
+        b.dense(f"{path}.attn.wk", lead + (d, cfg.num_kv_heads * hd),
+                la + (EMBED, KV_HEADS))
+        b.dense(f"{path}.attn.wv", lead + (d, cfg.num_kv_heads * hd),
+                la + (EMBED, KV_HEADS))
+        b.dense(f"{path}.attn.wo", lead + (cfg.num_heads * hd, d),
+                la + (HEADS, EMBED))
     else:
         name, mod, _ = RECURRENT[spec.mixer]
         mod.init(b, f"{path}.{name}", cfg, stacked)
     if spec.mlp == DENSE:
-        b.zeros(f"{path}.ln2", lead + (d,))
+        b.zeros(f"{path}.ln2", lead + (d,), la + (EMBED,))
         mlp_mod.init(b, f"{path}.mlp", d, cfg.d_ff, cfg.activation, stacked)
     elif spec.mlp == MOE:
-        b.zeros(f"{path}.ln2", lead + (d,))
+        b.zeros(f"{path}.ln2", lead + (d,), la + (EMBED,))
         moe_mod.init(b, f"{path}.moe", d, cfg.d_ff, cfg.num_experts,
                      cfg.activation, stacked)
 
 
-def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
-                device) -> dict:
-    """Fresh weights drawn from ``generator`` (on ``device``); with
-    ``device="meta"`` only the paths and shapes."""
+def build_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                 device) -> ParamBuilder:
+    """The builder holding the stack's weights and their logical axes."""
     check_supported(cfg)
     b = ParamBuilder(generator, dtype_of(cfg.param_dtype), device)
-    b.dense("embed.tok", (cfg.vocab_size, cfg.d_model),
+    b.dense("embed.tok", (cfg.vocab_size, cfg.d_model), (VOCAB, EMBED),
             scale=cfg.d_model ** -0.5)
     nb = cfg.num_pattern_blocks
     for j, spec in enumerate(cfg.layer_pattern):
         _init_layer(b, f"blocks.p{j}", spec, cfg, nb)
     for j, spec in enumerate(cfg.remainder_specs):
         _init_layer(b, f"rem.r{j}", spec, cfg, 0)
-    b.zeros("final_norm", (cfg.d_model,))
+    b.zeros("final_norm", (cfg.d_model,), (EMBED,))
     if not cfg.tie_embeddings:
-        b.dense("lm_head", (cfg.d_model, cfg.vocab_size))
-    return b.params
+        b.dense("lm_head", (cfg.d_model, cfg.vocab_size), (EMBED, VOCAB))
+    return b
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                device) -> dict:
+    """Fresh weights drawn from ``generator`` (on ``device``); with
+    ``device="meta"`` only the paths and shapes."""
+    return build_params(cfg, generator, device).params
 
 
 def _stacked(cfg: ModelConfig, make) -> dict:
@@ -312,10 +345,44 @@ def _ring_gather(cache, tbl, off, page, dtype):
     return kg, vg, kpos
 
 
-def _paged_attn(q, k, v, cache, ap: AttnParams, spec: LayerSpec, pos, table,
-                chunk_valid, cfg: ModelConfig, flags: RuntimeFlags,
-                mode: str):
-    """The paged-cache mixer body (both paged modes).
+def _positions(mode: str, pos, bsz: int, s: int, dev):
+    """(per-slot offsets (B,) int32, or None in prefill; every query's
+    absolute position (B, S) int32)."""
+    steps = torch.arange(s, dtype=torch.int32, device=dev)
+    if mode == "prefill":
+        return None, steps[None].expand(bsz, s)
+    posv = torch.as_tensor(pos, dtype=torch.int32, device=dev
+                           ).reshape(-1).expand(bsz)
+    return posv, posv[:, None] + steps[None, :]
+
+
+def _quantize(k, v, flags: RuntimeFlags, amax=(None, None)):
+    """(kq, k scale, vq, v scale) of int8 KV, else None."""
+    if flags.kv_dtype != "int8":
+        return None
+    return _kv_quant(k, amax[0]) + _kv_quant(v, amax[1])
+
+
+class _Shard(NamedTuple):
+    """One shard's operands of an attention layer (a single device is one
+    shard): roped q and k, v, their int8 round trip (``quant``, None on
+    native pages), the shard's cache and its copies of the offsets,
+    positions, tables and chunk lengths."""
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    quant: Optional[tuple]
+    cache: Optional[dict]
+    posv: Optional[torch.Tensor]
+    positions: torch.Tensor
+    table: Optional[dict]
+    chunk_valid: Optional[torch.Tensor]
+
+
+def _paged_attn(shards, ap: AttnParams, spec: LayerSpec, mode: str,
+                flags: RuntimeFlags):
+    """The paged-cache mixer body (both paged modes), over a list of
+    shards (one off a mesh); returns each shard's output.
 
     Full-attention layers read ``table["full"]`` (logical page j covers
     absolute positions [j*page, (j+1)*page)); windowed layers read
@@ -328,102 +395,119 @@ def _paged_attn(q, k, v, cache, ap: AttnParams, spec: LayerSpec, pos, table,
     early queries still read.  Positions outside the chunk (bucket
     padding) and ring positions older than the ring can hold are steered
     to page 0, which the engine reserves as a null page, so masked writes
-    never touch live data."""
-    bsz, s = q.shape[:2]
-    page = cache["k_pages"].shape[1]
+    never touch live data.  Under TP each shard writes and reads its own
+    stripe of the pools (:func:`~repro_torch.models.attention.
+    tp_paged_attention`, :func:`~repro_torch.models.attention.
+    tp_paged_gather_attention`)."""
     ring = spec.sliding_window is not None
-    tbl = table["ring"] if ring else table["full"]
-    n = tbl.shape[1]
-    dev = q.device
-    posv = pos.reshape(-1).to(torch.int32).expand(bsz)
-    positions = (posv[:, None]
-                 + torch.arange(s, dtype=torch.int32, device=dev)[None, :])
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if chunk_valid is None:
-        valid = torch.full((bsz,), s, dtype=torch.int32, device=dev)
-    else:
-        valid = chunk_valid.reshape(-1).to(torch.int32).expand(bsz)
-    in_chunk = (torch.arange(s, dtype=torch.int32, device=dev)[None, :]
-                < valid[:, None])
-    writable = in_chunk
-    if ring:
-        pidx = torch.remainder(positions // page, n).long()
-        if s > 1:
-            # a chunk wider than the ring would write two logical pages
-            # through one slot; only the trailing (R-1) pages of positions
-            # can matter to a later query ((R-1)*page >= window), and they
-            # cannot alias: older ones go to the null page
-            end = (posv + valid)[:, None]
-            writable = in_chunk & (positions >= end - (n - 1) * page)
-    else:
-        pidx = torch.clamp(positions // page, max=n - 1).long()
-    rows = torch.arange(bsz, device=dev)[:, None]
-    pids = torch.where(writable, tbl.long()[rows, pidx], 0)
-    slots = torch.where(writable, (positions % page).long(), 0)
-
-    int8kv = flags.kv_dtype == "int8"
-    if int8kv:
-        kq, ks = _kv_quant(k)
-        vq, vs = _kv_quant(v)
-    else:
-        kq, vq = k, v
-
-    if mode != "paged_decode" and ring:
-        if int8kv:
-            # the chunk attends over what readers will dequantize (the
-            # other paths read it back from the pages)
-            k = _kv_dequant(kq, ks, q.dtype)
-            v = _kv_dequant(vq, vs, q.dtype)
-        kg, vg, kpos = _ring_gather(cache, tbl, posv, page, q.dtype)
-        cpos = torch.where(in_chunk, positions, SENTINEL)
-        o = attn_mod.naive_attention(
-            q, torch.cat([kg, k.to(q.dtype)], dim=1),
-            torch.cat([vg, v.to(q.dtype)], dim=1), ap, q_offset=posv,
-            k_positions=torch.cat([kpos, cpos], dim=1))
-
-    kp, vp = cache["k_pages"], cache["v_pages"]
-    kp[pids, slots] = kq.to(kp.dtype)
-    vp[pids, slots] = vq.to(vp.dtype)
-    k_scale = v_scale = None
-    if int8kv:
-        k_scale, v_scale = cache["k_scale"], cache["v_scale"]
-        k_scale[pids, slots] = ks
-        v_scale[pids, slots] = vs
-
-    if mode == "paged_decode":
-        o = kops.paged_attention(q[:, 0], kp, vp, tbl, posv + 1,
-                                 scale=ap.scale, softcap=ap.softcap,
-                                 window=spec.sliding_window, k_scale=k_scale,
-                                 v_scale=v_scale)[:, None]
-    elif not ring:
-        o = paged_gather_attention(q, kp, vp, tbl, ap, q_offset=posv,
-                                   kv_valid_len=posv + valid,
-                                   k_scale=k_scale, v_scale=v_scale)
-    return o
-
-
-def _dense_attn(q, k, v, cache, ap: AttnParams, spec: LayerSpec, pos,
-                cfg: ModelConfig, flags: RuntimeFlags, mode: str):
-    """The dense-cache mixer body.  Decode writes each slot's k/v into its
-    cache row at its own position (a windowed layer at ``pos % rows`` of
-    its ring, recording the position in ``kpos``), then attends over the
-    row; prefill attends over the whole (right-padded) sequence through
-    ``ap.impl`` and hands back the request's cache (a windowed layer's
-    last ``window`` rows and their positions)."""
-    bsz, s = q.shape[:2]
-    dev = q.device
-    int8kv = flags.kv_dtype == "int8"
-    if mode == "decode":
-        posv = torch.as_tensor(pos, dtype=torch.int32, device=dev
-                               ).reshape(-1).expand(bsz)
-        q = rope(q, posv[:, None], cfg.rope_theta)
-        k = rope(k, posv[:, None], cfg.rope_theta)
-        if int8kv:
-            kq, ks = _kv_quant(k)
-            vq, vs = _kv_quant(v)
+    outs, reads = [], []
+    for sh in shards:
+        q, k, v, cache = sh.q, sh.k, sh.v, sh.cache
+        bsz, s = q.shape[:2]
+        page = cache["k_pages"].shape[1]
+        tbl = sh.table["ring"] if ring else sh.table["full"]
+        n = tbl.shape[1]
+        dev = q.device
+        posv, positions = sh.posv, sh.positions
+        if sh.chunk_valid is None:
+            valid = torch.full((bsz,), s, dtype=torch.int32, device=dev)
+        else:
+            valid = sh.chunk_valid.reshape(-1).to(torch.int32).expand(bsz)
+        in_chunk = (torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+                    < valid[:, None])
+        writable = in_chunk
+        if ring:
+            pidx = torch.remainder(positions // page, n).long()
+            if s > 1:
+                # a chunk wider than the ring would write two logical
+                # pages through one slot; only the trailing (R-1) pages of
+                # positions can matter to a later query ((R-1)*page >=
+                # window), and they cannot alias: older ones go to the
+                # null page
+                end = (posv + valid)[:, None]
+                writable = in_chunk & (positions >= end - (n - 1) * page)
+        else:
+            pidx = torch.clamp(positions // page, max=n - 1).long()
+        rows = torch.arange(bsz, device=dev)[:, None]
+        pids = torch.where(writable, tbl.long()[rows, pidx], 0)
+        slots = torch.where(writable, (positions % page).long(), 0)
+        if sh.quant is not None:
+            kq, ks, vq, vs = sh.quant
         else:
             kq, vq = k, v
+
+        o = None
+        if mode != "paged_decode" and ring:
+            if sh.quant is not None:
+                # the chunk attends over what readers will dequantize (the
+                # other paths read it back from the pages)
+                k = _kv_dequant(kq, ks, q.dtype)
+                v = _kv_dequant(vq, vs, q.dtype)
+            kg, vg, kpos = _ring_gather(cache, tbl, posv, page, q.dtype)
+            cpos = torch.where(in_chunk, positions, SENTINEL)
+            o = attn_mod.naive_attention(
+                q, torch.cat([kg, k.to(q.dtype)], dim=1),
+                torch.cat([vg, v.to(q.dtype)], dim=1), ap, q_offset=posv,
+                k_positions=torch.cat([kpos, cpos], dim=1))
+
+        kp, vp = cache["k_pages"], cache["v_pages"]
+        kp[pids, slots] = kq.to(kp.dtype)
+        vp[pids, slots] = vq.to(vp.dtype)
+        k_scale = v_scale = None
+        if sh.quant is not None:
+            k_scale, v_scale = cache["k_scale"], cache["v_scale"]
+            k_scale[pids, slots] = ks
+            v_scale[pids, slots] = vs
+        outs.append(o)
+        reads.append((q, kp, vp, tbl, posv, valid, k_scale, v_scale))
+
+    if mode != "paged_decode" and ring:
+        return outs
+    q, kp, vp, tbl, posv, valid, k_scale, v_scale = (list(c)
+                                                     for c in zip(*reads))
+    if k_scale[0] is None:
+        k_scale = v_scale = None
+    if mode == "paged_decode":
+        kw = dict(scale=ap.scale, softcap=ap.softcap,
+                  window=spec.sliding_window)
+        if len(shards) > 1:
+            outs = attn_mod.tp_paged_attention(
+                [x[:, 0] for x in q], kp, vp, tbl,
+                [x + 1 for x in posv], k_scale=k_scale, v_scale=v_scale,
+                **kw)
+        else:
+            outs = [kops.paged_attention(
+                q[0][:, 0], kp[0], vp[0], tbl[0], posv[0] + 1,
+                k_scale=None if k_scale is None else k_scale[0],
+                v_scale=None if v_scale is None else v_scale[0], **kw)]
+        return [o[:, None] for o in outs]
+    ends = [p + vl for p, vl in zip(posv, valid)]
+    if len(shards) > 1:
+        return attn_mod.tp_paged_gather_attention(
+            q, kp, vp, tbl, ap, q_offset=posv,
+            kv_valid_len=ends, k_scale=k_scale, v_scale=v_scale)
+    return [paged_gather_attention(
+        q[0], kp[0], vp[0], tbl[0], ap, q_offset=posv[0],
+        kv_valid_len=ends[0],
+        k_scale=None if k_scale is None else k_scale[0],
+        v_scale=None if v_scale is None else v_scale[0])]
+
+
+def _dense_attn(q, k, v, quant, cache, ap: AttnParams, spec: LayerSpec,
+                posv, mode: str):
+    """The dense-cache mixer body, on roped q/k.  Decode writes each slot's
+    k/v into its cache row at its own position (a windowed layer at ``pos
+    % rows`` of its ring, recording the position in ``kpos``), then
+    attends over the row; prefill attends over the whole (right-padded)
+    sequence through ``ap.impl`` and hands back the request's cache (a
+    windowed layer's last ``window`` rows and their positions)."""
+    bsz, s = q.shape[:2]
+    dev = q.device
+    if quant is not None:
+        kq, ks, vq, vs = quant
+    else:
+        kq, vq = k, v
+    if mode == "decode":
         rows = torch.arange(bsz, device=dev)
         kc, vc = cache["k"], cache["v"]
         ring = spec.sliding_window is not None
@@ -432,7 +516,7 @@ def _dense_attn(q, k, v, cache, ap: AttnParams, spec: LayerSpec, pos,
         vc[rows, idx] = vq[:, 0].to(vc.dtype)
         if ring:
             cache["kpos"][rows, idx] = posv
-        if int8kv:
+        if quant is not None:
             cache["k_scale"][rows, idx] = ks[:, 0]
             cache["v_scale"][rows, idx] = vs[:, 0]
             kc = _kv_dequant(kc, cache["k_scale"], k.dtype)
@@ -444,15 +528,9 @@ def _dense_attn(q, k, v, cache, ap: AttnParams, spec: LayerSpec, pos,
             o = attn_mod.naive_attention(q, kc, vc, ap, q_offset=posv,
                                          kv_valid_len=posv + 1)
         return o, cache
-    positions = torch.arange(s, dtype=torch.int32, device=dev
-                             )[None].expand(bsz, s)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if int8kv:
+    if quant is not None:
         # prefill attends over the round trip it stores, so its logits
         # agree with decode and with paged chunked prefill
-        kq, ks = _kv_quant(k)
-        vq, vs = _kv_quant(v)
         k = _kv_dequant(kq, ks, q.dtype)
         v = _kv_dequant(vq, vs, q.dtype)
     o = attn_mod.attention(q, k, v, ap)
@@ -464,7 +542,7 @@ def _dense_attn(q, k, v, cache, ap: AttnParams, spec: LayerSpec, pos,
     else:
         sl = slice(None)
         new = {}
-    if int8kv:
+    if quant is not None:
         new.update(k=kq[:, sl], k_scale=ks[:, sl], v=vq[:, sl],
                    v_scale=vs[:, sl])
     else:
@@ -472,20 +550,33 @@ def _dense_attn(q, k, v, cache, ap: AttnParams, spec: LayerSpec, pos,
     return o, new
 
 
+def _qkv(p, h, cfg: ModelConfig, hq: int, hkv: int, mode: str, pos):
+    """One shard's projections (``hq``/``hkv`` heads), roped at each
+    query's position: (q, k, v, per-slot offsets, positions)."""
+    bsz, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    q = (h @ p["wq"]).reshape(bsz, s, hq, hd)
+    k = (h @ p["wk"]).reshape(bsz, s, hkv, hd)
+    v = (h @ p["wv"]).reshape(bsz, s, hkv, hd)
+    posv, positions = _positions(mode, pos, bsz, s, h.device)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v, posv, positions)
+
+
 def _apply_attn(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
                 mode, cache, pos, table, chunk_valid):
     bsz, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(bsz, s, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(bsz, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(bsz, s, cfg.num_kv_heads, hd)
+    q, k, v, posv, positions = _qkv(p, x, cfg, cfg.num_heads,
+                                    cfg.num_kv_heads, mode, pos)
+    quant = _quantize(k, v, flags)
     ap = _attn_params(cfg, spec, flags)
     if mode in ("paged_decode", "paged_extend"):
-        o = _paged_attn(q, k, v, cache, ap, spec, pos, table, chunk_valid,
-                        cfg, flags, mode)
+        o = _paged_attn([_Shard(q, k, v, quant, cache, posv, positions,
+                                table, chunk_valid)], ap, spec, mode,
+                        flags)[0]
     else:
-        o, cache = _dense_attn(q, k, v, cache, ap, spec, pos, cfg, flags,
-                               mode)
+        o, cache = _dense_attn(q, k, v, quant, cache, ap, spec, posv, mode)
+    hd = cfg.resolved_head_dim
     return o.reshape(bsz, s, cfg.num_heads * hd) @ p["wo"], cache
 
 
@@ -580,12 +671,15 @@ def _pick(tree, i):
 # embedding / logits
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"]["tok"][tokens.long()]
+def _scale_embedding(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.normalize_embedding:
         # the sqrt(d_model) scale is rounded to the activation dtype first
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     return x
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return _scale_embedding(cfg, params["embed"]["tok"][tokens.long()])
 
 
 def _head_weight(params):
@@ -594,8 +688,158 @@ def _head_weight(params):
     return params["embed"]["tok"].T
 
 
-def compute_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return softcap(x @ _head_weight(params), cfg.final_logit_softcap)
+def compute_logits(params, cfg: ModelConfig, x: torch.Tensor):
+    """Final logits (softcapped).  Under TP (``params`` the shards' trees)
+    a vocab-split head gives the shards' vocab slices, a list with each
+    slice on its shard's device, which the engine gathers once a step;
+    a head the policy left whole (the vocabulary does not divide by tp)
+    runs once on the first shard."""
+    if not isinstance(params, list):
+        return softcap(x @ _head_weight(params), cfg.final_logit_softcap)
+    heads = [_head_weight(p) for p in params]
+    if heads[0].shape[-1] == cfg.vocab_size:
+        return softcap(x @ heads[0], cfg.final_logit_softcap)
+    return [softcap(x.to(w.device) @ w, cfg.final_logit_softcap)
+            for w in heads]
+
+
+def _each(logits, fn):
+    """``fn`` over a logits tensor, or over each shard's vocab slice."""
+    return [fn(x) for x in logits] if isinstance(logits, list) else fn(logits)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: per-shard params and caches, driven from one process
+# ---------------------------------------------------------------------------
+
+def tp_devices(flags: RuntimeFlags):
+    """The shards' devices when ``flags`` carry a mesh wider than one
+    device along ``tp_axis``, else None."""
+    mesh = flags.mesh
+    if mesh is None or mesh.shape.get(flags.tp_axis, 1) <= 1:
+        return None
+    return mesh.devices_along(flags.tp_axis)
+
+
+def _embed_tp(params, cfg: ModelConfig, tokens, devs) -> torch.Tensor:
+    """The vocab-split lookup: each shard looks up the tokens in its rows
+    (zeros for a token outside them) and the partials sum on the first
+    shard, which is exact (one nonzero addend an element)."""
+    rows = params[0]["embed"]["tok"].shape[0]
+    if rows == cfg.vocab_size:                  # the policy left it whole
+        return embed_tokens(params[0], cfg, tokens)
+    parts = []
+    for i, (p, dev) in enumerate(zip(params, devs)):
+        t = tokens.to(dev).long() - i * rows
+        inside = ((t >= 0) & (t < rows))[..., None]
+        got = p["embed"]["tok"][t.clamp(0, rows - 1)]
+        parts.append(torch.where(inside, got, torch.zeros((), dtype=got.dtype,
+                                                          device=dev)))
+    return _scale_embedding(cfg, reduce_sum(parts, devs[0]))
+
+
+def _apply_attn_tp(ps, hs, cfg: ModelConfig, spec: LayerSpec,
+                   flags: RuntimeFlags, mode, caches, poss, tables, cvs, devs):
+    """An attention layer over the shards: column-parallel q/k/v (each
+    shard its contiguous head block), each shard's attention over its own
+    pool stripe or dense rows, then the row-parallel o-projection's
+    partials summed on the first shard.  int8 KV quantizes each token with
+    the amax of all its heads (the shards' maxima reduced, then
+    broadcast), so the shards store what one device would."""
+    n = len(devs)
+    bsz, s, _ = hs[0].shape
+    hq, hkv = cfg.num_heads // n, cfg.num_kv_heads // n
+    qkv = [_qkv(p, h, cfg, hq, hkv, mode, pos)
+           for p, h, pos in zip(ps, hs, poss)]
+    if flags.kv_dtype == "int8":
+        amax = [broadcast(reduce_max([t[j].float().abs().amax(dim=(2, 3))
+                                      for t in qkv], devs[0]), devs)
+                for j in (1, 2)]
+        quants = [_quantize(t[1], t[2], flags, am)
+                  for t, am in zip(qkv, zip(*amax))]
+    else:
+        quants = [None] * n
+    ap = _attn_params(cfg, spec, flags)
+    if mode in ("paged_decode", "paged_extend"):
+        outs = _paged_attn([_Shard(q, k, v, qt, c, posv, positions, tb, cv)
+                            for (q, k, v, posv, positions), qt, c, tb, cv
+                            in zip(qkv, quants, caches, tables, cvs)],
+                           ap, spec, mode, flags)
+    else:
+        done = [_dense_attn(q, k, v, qt, c, ap, spec, posv, mode)
+                for (q, k, v, posv, _), qt, c in zip(qkv, quants, caches)]
+        outs, caches = [o for o, _ in done], [c for _, c in done]
+    hd = cfg.resolved_head_dim
+    parts = [o.reshape(bsz, s, hq * hd) @ p["wo"] for o, p in zip(outs, ps)]
+    return reduce_sum(parts, devs[0]), caches
+
+
+def _apply_layer_tp(ps, x, cfg: ModelConfig, spec: LayerSpec,
+                    flags: RuntimeFlags, mode, caches, poss, tables, cvs,
+                    devs):
+    """One layer over the shards; the residual stream and the norms stay
+    on the first shard, whose normed activations are broadcast into each
+    column-parallel projection."""
+    h = rms_norm(x, ps[0]["ln1"])
+    mix, caches = _apply_attn_tp([p["attn"] for p in ps], broadcast(h, devs),
+                                 cfg, spec, flags, mode, caches, poss, tables,
+                                 cvs, devs)
+    x = x + mix
+    if spec.mlp == DENSE:
+        h = rms_norm(x, ps[0]["ln2"])
+        x = x + mlp_mod.apply_tp([p["mlp"] for p in ps], broadcast(h, devs),
+                                 cfg.activation, cfg.d_ff, devs[0])
+    return x, caches
+
+
+def _forward_tp(params, cfg: ModelConfig, flags: RuntimeFlags, tokens,
+                mode: str, cache, pos, table, chunk_valid, patch_embeds,
+                devs):
+    """:func:`forward` over the shards: ``params`` and ``cache`` are lists
+    of per-shard trees (``cache`` None in prefill, whose new per-shard
+    caches come back as a list).  ``table`` may already be a per-shard
+    list (the engine replicates it when it changes); positions and chunk
+    lengths are broadcast here."""
+    check_tp(cfg, len(devs))
+    home = devs[0]
+
+    def per_shard(x):
+        if x is None:
+            return [None] * len(devs)
+        if isinstance(x, list):
+            return x
+        return broadcast(x if isinstance(x, dict)
+                         else torch.as_tensor(x, device=home), devs)
+
+    x = _embed_tp(params, cfg, tokens.to(home), devs)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(home, x.dtype), x], dim=1)
+    poss, tables, cvs = (per_shard(pos), per_shard(table),
+                         per_shard(chunk_valid))
+    n = len(devs)
+    blocks = {f"p{j}": [] for j, _ in enumerate(cfg.layer_pattern)}
+    for i in range(cfg.num_pattern_blocks):
+        for j, spec in enumerate(cfg.layer_pattern):
+            cs = ([None] * n if cache is None
+                  else [_pick(c["blocks"][f"p{j}"], i) for c in cache])
+            x, cs = _apply_layer_tp(
+                [_pick(p["blocks"][f"p{j}"], i) for p in params], x, cfg,
+                spec, flags, mode, cs, poss, tables, cvs, devs)
+            blocks[f"p{j}"].append(cs)
+    rem = {}
+    for j, spec in enumerate(cfg.remainder_specs):
+        cs = [None] * n if cache is None else [c["rem"][f"r{j}"]
+                                               for c in cache]
+        x, rem[f"r{j}"] = _apply_layer_tp(
+            [p["rem"][f"r{j}"] for p in params], x, cfg, spec, flags, mode,
+            cs, poss, tables, cvs, devs)
+    if mode == "prefill":
+        cache = [dict(blocks={name: {k: torch.stack([c[i][k] for c in cs])
+                                     for k in cs[0][i]}
+                              for name, cs in blocks.items()},
+                      rem={name: cs[i] for name, cs in rem.items()})
+                 for i in range(n)]
+    return rms_norm(x, params[0]["final_norm"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -616,11 +860,17 @@ def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
     ``table``/``chunk_valid`` only apply to the paged modes: ``table`` is
     ``{"full": (B, N), "ring": (B, R)}`` (a bare (B, N) table serves a
     stack without windowed layers).  ``slot`` (``paged_extend``) and
-    ``active`` (``paged_decode``) apply to recurrent layers only."""
+    ``active`` (``paged_decode``) apply to recurrent layers only.  With a
+    mesh in ``flags`` (:func:`tp_devices`) the stack runs tensor-parallel
+    (:func:`_forward_tp`)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the port runs {MODES}")
-    if table is not None and not isinstance(table, dict):
+    if table is not None and not isinstance(table, (dict, list)):
         table = dict(full=table)
+    devs = tp_devices(flags)
+    if devs is not None:
+        return _forward_tp(params, cfg, flags, tokens, mode, cache, pos,
+                           table, chunk_valid, patch_embeds, devs)
     x = embed_tokens(params, cfg, tokens)
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
@@ -667,7 +917,7 @@ def prefill(params, cfg: ModelConfig, flags: RuntimeFlags, batch: dict):
         idx = torch.as_tensor(vl, device=x.device).reshape(-1).long(
             ).expand(bsz) - 1
         last = x[torch.arange(bsz, device=x.device), idx][:, None]
-    return cache, compute_logits(params, cfg, last)[:, 0]
+    return cache, _each(compute_logits(params, cfg, last), lambda l: l[:, 0])
 
 
 @torch.no_grad()
@@ -676,7 +926,7 @@ def decode_step(params, cfg: ModelConfig, flags: RuntimeFlags, cache: dict,
     """One decode tick on the dense cache.  tokens: (B, 1); pos: scalar or
     (B,) per-slot positions.  Returns (logits (B, V), cache)."""
     x, cache = forward(params, cfg, flags, tokens, "decode", cache, pos)
-    return compute_logits(params, cfg, x)[:, 0], cache
+    return _each(compute_logits(params, cfg, x), lambda l: l[:, 0]), cache
 
 
 @torch.no_grad()
@@ -692,7 +942,7 @@ def paged_decode_step(params, cfg: ModelConfig, flags: RuntimeFlags,
     (logits (B, V), cache)."""
     x, cache = forward(params, cfg, flags, tokens, "paged_decode", cache, pos,
                        table, active=active)
-    return compute_logits(params, cfg, x)[:, 0], cache
+    return _each(compute_logits(params, cfg, x), lambda l: l[:, 0]), cache
 
 
 @torch.no_grad()
@@ -711,7 +961,7 @@ def paged_prefill_chunk(params, cfg: ModelConfig, flags: RuntimeFlags,
     bsz = x.shape[0]
     idx = chunk_valid.reshape(-1).long().expand(bsz) - 1
     last = x[torch.arange(bsz, device=x.device), idx][:, None]
-    return cache, compute_logits(params, cfg, last)[:, 0]
+    return cache, _each(compute_logits(params, cfg, last), lambda l: l[:, 0])
 
 
 @torch.no_grad()
@@ -729,8 +979,9 @@ def paged_verify(params, cfg: ModelConfig, flags: RuntimeFlags, cache: dict,
     the engine's verify plan (``bq`` the width, ``bkv`` the pool's page);
     it must describe the pool read.  Returns (cache, logits)."""
     # every pool leaf is (..., P, page, Hkv, D)
+    c0 = cache[0] if isinstance(cache, list) else cache
     page = next(layer["k_pages"].shape[-3] for part in ("blocks", "rem")
-                for layer in cache[part].values())
+                for layer in c0[part].values())
     if plan is not None and plan.page_size != page:
         raise ValueError(f"verify plan pages of {plan.page_size} tokens, "
                          f"the pool's hold {page}")

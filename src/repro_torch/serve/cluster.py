@@ -57,7 +57,7 @@ from typing import Deque, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.serve.engine import Request, ServeEngine, ServeStats
-from repro_torch.serve.hosttier import HostKVEntry, tree_leaves
+from repro_torch.serve.hosttier import HostKVEntry
 from repro_torch.serve.kvcache import page_hashes
 from repro_torch.serve.scheduler import PRIORITY_HIGH, SwapCostModel
 
@@ -544,7 +544,8 @@ class DisaggPool:
 
     The prefill pool runs chunked prefill only: when a request's prompt
     completes (its seed token emitted) its pages, k/v and the int8 scale
-    lanes, leave as a checksummed transfer entry
+    lanes (gathered per shard and assembled whole on the host under TP),
+    leave as a checksummed transfer entry
     (:meth:`ServeEngine.export_finished_prefill`) and travel
     ``transit_rounds`` of the virtual clock.  The decode pool lands each
     entry (:meth:`ServeEngine.import_prefill`) through the swap-in path:
@@ -594,10 +595,8 @@ class DisaggPool:
         # decode-side prefill chunk streams the weights again; each
         # shipped context row crosses the link twice (gather and scatter)
         eng = self.decode_engines[0]
-        wb = sum(t.numel() * t.element_size()
-                 for _, t in tree_leaves(eng.params))
         self.cost_model = SwapCostModel(
-            weight_bytes=wb, kv_bytes_per_token=eng.bytes_per_page / eng.page,
+            weight_bytes=eng.weight_bytes, kv_bytes_per_token=eng.bytes_per_page / eng.page,
             prefill_chunk=eng.prefill_chunk, host_link_bw=self.cfg.link_bw)
         self._init_state()
 

@@ -83,8 +83,19 @@ pages from one engine to another through a checksummed transfer entry.
 end fails requests over by evacuate -> adopt, and the disaggregated
 prefill/decode pools hand prompts over by export -> import.
 
-Not ported yet: tensor and data parallelism over device meshes, and
-CUDA-graph capture of the decode window.
+Tensor parallelism (``dist``, a :class:`~repro_torch.dist.serve.
+ServeMesh`): one engine spans a device group.  Params split by the ``tp``
+policy, the page pools on their kv-heads dimension (every shard holds its
+head stripe of every page under one global page-id space, so tables are
+replicated as they are), and the model's entry points run every shard in
+turn from this process.  The vocab-split logits are gathered once a step
+(:func:`_gather_logits`), so token selection and the per-slot key chains
+never see the mesh; swaps and hand-offs move each shard's stripe and
+assemble whole pages on the host, so an entry crosses between meshes of
+any widths.  Data parallelism is a scheduling concern:
+:class:`~repro_torch.launch.serve.ReplicaPool`.
+
+Not ported yet: CUDA-graph capture of the decode window.
 """
 from __future__ import annotations
 
@@ -97,6 +108,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN
+from repro_torch.dist.serve import as_indexed, gather, shard_dim
 from repro_torch.models.registry import ModelBundle
 from repro_torch.models.transformer import SENTINEL
 from repro_torch.serve.hosttier import (HostKVEntry, HostKVTier,
@@ -218,7 +230,15 @@ class ServeEngine:
     FIFO on uniform priorities, preemption only of a lower class) orders
     admission and picks victims; ``host_tier`` is the swap target (made
     when the stack can swap and the scheduler allows it);
-    ``prefix_cache=False`` turns prefix sharing off."""
+    ``prefix_cache=False`` turns prefix sharing off.
+
+    ``dist`` (a :class:`~repro_torch.dist.serve.ServeMesh`) spans the
+    engine over a TP device group: params and pools split as the module
+    docstring says, the engine's own state sits on the group's first
+    device (``device``, if given, must be that one), and a TP=N drain gives
+    the single-device engine's tokens, greedy, sampled and speculative,
+    wherever the shards' partial sums round as one product does.  It
+    requires the paged backend and tp dividing both head counts."""
 
     def __init__(self, bundle: ModelBundle, params, batch_size: int,
                  max_len: int, *, window: int = 8,
@@ -236,8 +256,21 @@ class ServeEngine:
                  spec_k: int = 4,
                  scheduler: Optional[Scheduler] = None,
                  host_tier: Optional[HostKVTier] = None,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 dist=None):
+        if dist is not None:
+            if (device is not None
+                    and as_indexed(torch.device(device)) != dist.home):
+                raise ValueError(f"the engine runs on {device}, its mesh's "
+                                 f"first device is {dist.home}")
+            device = dist.home
         self.device = resolve_device(device)
+        # the weights' bytes as one device holds them (each prefill chunk
+        # streams them; the swap cost model prices that)
+        self.weight_bytes = sum(t.numel() * t.element_size()
+                                for _, t in tree_leaves(params))
+        if dist is not None:
+            bundle = dist.bind(bundle)
         if bundle.device != self.device:
             raise ValueError(f"the bundle runs on {bundle.device}, the "
                              f"engine on {self.device}")
@@ -255,6 +288,25 @@ class ServeEngine:
             raise ValueError(f"{bundle.cfg.name}: the paged KV backend does "
                              "not serve this stack")
         self.backend = cache_backend
+        # -- tensor parallelism: the engine's state stays on the home
+        # device, and the host-side allocator keeps one global page-id
+        # space, so the scheduling below never sees the mesh
+        self.dist = dist
+        self.tp = 1
+        if dist is not None:
+            if self.backend != "paged":
+                raise ValueError(
+                    "dist serving shards the KV page pools; "
+                    "cache_backend='paged' is required")
+            dist.validate(bundle.cfg)
+            params = dist.shard_params(bundle, params)
+            if draft_bundle is not None:
+                dist.validate(draft_bundle.cfg)
+                draft_bundle = self.draft = dist.bind(draft_bundle)
+                if draft_params is not None:
+                    self.draft_params = dist.shard_params(draft_bundle,
+                                                          draft_params)
+            self.tp = dist.tp_degree
         self.bundle = bundle
         self.params = params
         self.bsz = batch_size
@@ -356,6 +408,9 @@ class ServeEngine:
         self.keys = torch.zeros((self.bsz, 2), dtype=torch.int64, device=dev)
         if self.draft is not None:
             self.draft_cache = self.draft.init_cache(self.bsz, self.max_len)
+            if self.dist is not None:
+                self.draft_cache = self.dist.shard_dense_cache(
+                    self.draft_cache)
         self._hpos = np.zeros((self.bsz,), np.int64)       # host mirror
         self.slots: List[Optional[Request]] = [None] * self.bsz
         self.queue: List[Request] = []
@@ -383,6 +438,12 @@ class ServeEngine:
         self.cache = self.bundle.init_paged_cache(
             self.num_pages if self.has_full else 1, self.page,
             ring_pages=self.num_ring_pages, batch=self.bsz)
+        self._swap_specs = None
+        if self.dist is not None:
+            # each shard's stripe: the same page ids on every shard, each
+            # holding its own kv heads of every page
+            self._swap_specs = self.dist.page_swap_shardings(self.cache)
+            self.cache = self.dist.shard_paged_cache(self.cache)
         self._htable = np.zeros((self.bsz, max(1, self.pages_per_seq)),
                                 np.int32)
         # a ring table is exactly ring_slots wide: K1 maps logical page j
@@ -400,11 +461,31 @@ class ServeEngine:
         counts only new ones."""
         self._init_state()
 
+    def _dev(self, tree: dict):
+        """Engine state as the model reads it: on the home device, and
+        under TP one copy per shard (a list)."""
+        tree = {k: v.to(self.device) for k, v in tree.items()}
+        return tree if self.dist is None else self.dist.replicated(tree)
+
     def _sync_table(self) -> None:
-        """Publish the host table mirrors as the device tables."""
-        self._table = dict(full=torch.as_tensor(self._htable).to(self.device),
-                           ring=torch.as_tensor(self._hrtable).to(self.device))
+        """Publish the host table mirrors as the device tables (replicated
+        under TP: page ids are global)."""
+        self._table = self._dev(dict(full=torch.as_tensor(self._htable),
+                                     ring=torch.as_tensor(self._hrtable)))
         self._table_dirty = False
+
+    def _shards(self, tree) -> list:
+        """A cache as the list of its shards' trees (one off a mesh)."""
+        return tree if isinstance(tree, list) else [tree]
+
+    def _split_dim(self, path) -> Optional[int]:
+        """The dim a paged-cache leaf splits over the TP axis, or None."""
+        if self.tp == 1:
+            return None
+        spec = self._swap_specs
+        for k in path:
+            spec = spec[k]
+        return shard_dim(spec, self.dist.axis)
 
     @property
     def kv_store_dtype(self) -> str:
@@ -424,13 +505,22 @@ class ServeEngine:
                    for s in specs)
 
     def kv_bytes(self) -> int:
-        """Allocated device bytes of the KV cache (both backends)."""
+        """Allocated device bytes of the KV cache (both backends), as one
+        device would hold it: under TP the shards' stripes add up, a
+        replicated leaf counts once."""
+        if self.backend != "paged" or self.tp == 1:
+            return int(sum(t.numel() * t.element_size()
+                           for _, t in tree_leaves(self._shards(self.cache)[0])))
         return int(sum(t.numel() * t.element_size()
-                       for _, t in tree_leaves(self.cache)))
+                       * (1 if self._split_dim(path) is None else self.tp)
+                       for path, t in tree_leaves(self.cache[0])))
 
-    def _page_bytes_by_kind(self):
+    def _page_bytes_by_kind(self, per_shard: bool = False):
         """(full, ring) device bytes of ONE page summed over every attention
-        layer of that kind (k + v, plus the int8 scale lanes)."""
+        layer of that kind (k + v, plus the int8 scale lanes).
+        ``per_shard`` gives one TP shard's part: the pools split on
+        kv-heads, so page bytes divide by tp; the scale lanes replicate
+        (per token, over every head) and do not."""
         cfg = self.bundle.cfg
         nb = cfg.num_pattern_blocks
         n_full = n_ring = 0
@@ -444,7 +534,8 @@ class ServeEngine:
                 n_ring += mult
         int8 = self.bundle.flags.kv_dtype == "int8"
         itemsize = getattr(torch, self.kv_store_dtype).itemsize
-        per_layer = (2 * self.page * cfg.num_kv_heads
+        heads = cfg.num_kv_heads // (self.tp if per_shard else 1)
+        per_layer = (2 * self.page * heads
                      * cfg.resolved_head_dim * itemsize
                      + (2 * self.page * 4 if int8 else 0))
         return n_full * per_layer, n_ring * per_layer
@@ -465,13 +556,16 @@ class ServeEngine:
                  + (self.num_ring_pages * ring_pb if self.ralloc else 0))
         return self.kv_bytes() - pools
 
-    def live_kv_bytes_peak(self) -> int:
+    def live_kv_bytes_peak(self, per_shard: bool = False) -> int:
         """Peak *live-token* device bytes: what the pools actually held
         (full-pool and ring-pool page peaks) plus the recurrent state,
         against the ``batch x max_len`` footprint the dense backend commits
-        up front (its :meth:`kv_bytes`)."""
+        up front (its :meth:`kv_bytes`).  ``per_shard`` gives one TP
+        shard's part (pool bytes divide by the mesh width; replicated
+        state does not): the per-channel footprint of the paper's
+        multi-bank framing."""
         if self.backend == "paged":
-            full_pb, ring_pb = self._page_bytes_by_kind()
+            full_pb, ring_pb = self._page_bytes_by_kind(per_shard)
             return (self.stats.pages_peak * full_pb
                     + self.stats.ring_pages_peak * ring_pb
                     + self._recurrent_state_bytes())
@@ -671,8 +765,7 @@ class ServeEngine:
         (each prefill chunk streams them) and the KV bytes a token holds
         (what a swap moves per context row), on the H100's spec."""
         if self.sched.cost_model is None:
-            wb = sum(t.numel() * t.element_size()
-                     for _, t in tree_leaves(self.params))
+            wb = self.weight_bytes
             if self.backend == "paged":
                 kv_tok = self.bytes_per_page / self.page
                 chunk = self.prefill_chunk
@@ -772,33 +865,54 @@ class ServeEngine:
         """Device -> host page gather: ``index_select`` of the padded page
         list along every pool leaf's page axis (k/v pages and int8 scale
         lanes), copied into pinned host memory when the pools are on the
-        card.  The null page's padding lanes fall outside the checksum."""
+        card.  Under TP each shard gathers its own kv-head stripe and the
+        host assembles whole pages in shard order (a replicated leaf comes
+        from the first shard), so the entry is the one a single device
+        would make.  The null page's padding lanes fall outside the
+        checksum."""
         idx = self._page_ids(pids)
+        shards = self._shards(self.cache)
 
         def take(path, leaf):
-            got = leaf.index_select(page_axis(path, leaf), idx)
-            if got.device.type == "cpu":
-                return got
-            host = torch.empty(got.shape, dtype=got.dtype, pin_memory=True)
-            return host.copy_(got, non_blocking=True)
+            parts = ([leaf] if self._split_dim(path) is None
+                     else [_leaf_at(c, path) for c in shards])
+            got = []
+            for part in parts:
+                g = part.index_select(page_axis(path, part),
+                                      idx.to(part.device))
+                if g.device.type != "cpu":
+                    g = torch.empty(g.shape, dtype=g.dtype,
+                                    pin_memory=True).copy_(g, non_blocking=True)
+                got.append(g)
+            return got
 
-        data = tree_map(take, self.cache)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        return data
+        stripes = tree_map(take, shards[0])
+        for dev in {p.device for c in shards for _, p in tree_leaves(c)
+                    if p.device.type == "cuda"}:
+            torch.cuda.current_stream(dev).synchronize()
+        return tree_map(lambda path, got: (
+            got[0] if len(got) == 1
+            else gather(got, self._split_dim(path), got[0].device)), stripes)
 
     def _scatter_from_host(self, pids: List[int], data) -> None:
         """Host -> device page scatter, the gather's inverse: each leaf of
         ``data`` (padded to the power of two of ``pids``) is copied to the
-        card and ``index_copy_``-ed along the pool's page axis.  Padding
-        lanes all land on the null page, a duplicate index whose final
-        value nothing reads."""
+        card and ``index_copy_``-ed along the pool's page axis; under TP
+        each shard takes its own stripe of every page and its copy of a
+        replicated leaf.  Padding lanes all land on the null page, a
+        duplicate index whose final value nothing reads."""
         idx = self._page_ids(pids)
-        for (path, leaf), (hpath, host) in zip(tree_leaves(self.cache),
+        shards = self._shards(self.cache)
+        for (path, leaf), (hpath, host) in zip(tree_leaves(shards[0]),
                                                tree_leaves(data)):
             assert path == hpath, (path, hpath)
-            leaf.index_copy_(page_axis(path, leaf), idx,
-                             host.to(self.device, non_blocking=True))
+            d = self._split_dim(path)
+            pieces = ([host] * len(shards) if d is None
+                      else torch.chunk(host, len(shards), dim=d))
+            for c, piece in zip(shards, pieces):
+                dst = _leaf_at(c, path)
+                dst.index_copy_(page_axis(path, dst), idx.to(dst.device),
+                                piece.to(dst.device, non_blocking=True))
 
     def _swap_in_slot(self, slot: int, req: Request, res: _Resume) -> bool:
         """Copy a swapped-out request's pages back through the page table:
@@ -864,6 +978,14 @@ class ServeEngine:
     # ------------------------------------------------------------------
     @staticmethod
     def _scatter_slot_cache(cache, cache1, slot: int):
+        if isinstance(cache, list):        # a draft's dense cache under TP
+            for c, c1 in zip(cache, cache1):
+                ServeEngine._scatter_slot_cache(c, c1, slot)
+            return cache
+        return ServeEngine._scatter_one_slot(cache, cache1, slot)
+
+    @staticmethod
+    def _scatter_one_slot(cache, cache1, slot: int):
         """Write a single-request prefill cache into the batch cache at
         ``slot``, in place, by the reference's rule: stacked leaves (under
         ``blocks``) carry batch at axis 1, remainder leaves at axis 0, and
@@ -913,6 +1035,7 @@ class ServeEngine:
         cache1, logits = self.bundle.prefill(
             self.params, dict(tokens=torch.as_tensor(padded).to(dev),
                               valid_len=s))
+        logits = _gather_logits(self, logits)
         self.cache = self._scatter_slot_cache(self.cache, cache1, slot)
         self.slots[slot] = req
         self.pos[slot] = s
@@ -1038,6 +1161,7 @@ class ServeEngine:
             dict(full=torch.as_tensor(trow).to(dev),
                  ring=torch.as_tensor(rrow).to(dev)),
             torch.tensor([c], dtype=torch.int32).to(dev), slot)
+        logits = _gather_logits(self, logits)
         self.stats.prefill_chunks += 1
         self._chunks_since_decode += 1
         off += c
@@ -1207,7 +1331,7 @@ class ServeEngine:
                 logits, self.cache = self.bundle.paged_decode_step(
                     self.params, self.cache, self.tokens, self.pos,
                     self._table, act)
-            nxt = self._select_next(logits, act)
+            nxt = self._select_next(_gather_logits(self, logits), act)
             self.tokens = torch.where(act[:, None], nxt[:, None], self.tokens)
             self.pos = torch.where(act, self.pos + 1, self.pos)
             out[i] = torch.where(act, nxt, -1)
@@ -1354,6 +1478,7 @@ class ServeEngine:
             dpos = torch.clamp(self.pos + i, max=self.max_len - 1)
             dlogits, self.draft_cache = self.draft.decode_step(
                 self.draft_params, self.draft_cache, tok, dpos)
+            dlogits = _gather_logits(self, dlogits)
             if i == k:
                 break
             d = (select_greedy(dlogits) if sp.greedy
@@ -1365,7 +1490,8 @@ class ServeEngine:
         verify = torch.cat([self.tokens, drafts], dim=1)     # (B, k+1)
         self.cache, logits = self.bundle.paged_verify(
             self.params, self.cache, verify, self.pos, self._table, cv,
-            self.vplan)                                      # (B, k+1, V)
+            self.vplan)
+        logits = _gather_logits(self, logits)                # (B, k+1, V)
         if sp.greedy:
             tsamp = select_greedy(logits)
         else:
@@ -1429,3 +1555,19 @@ class ServeEngine:
             # zero-budget slots
             self.decode_many(self.window)
         return self.stats
+
+
+def _leaf_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _gather_logits(eng: ServeEngine, logits):
+    """Under TP the model returns the shards' vocab slices: the one gather
+    a step, in shard order onto the engine's device, so that token
+    selection and the per-slot key chains never see the mesh.  Logits of
+    one tensor pass through."""
+    if isinstance(logits, list):
+        return gather(logits, -1, eng.device)
+    return logits

@@ -19,7 +19,7 @@ a 32 GB/s link) wherever a preemption prices its resume.
   prefix hit, deadline shedding and degradation, transient admission
   refusals, crash failover, brownout quarantine, percentiles, and the
   seeded random chaos over native, int8 and sampled replicas (the TP case
-  waits for the port of ``ServeMesh``);
+  runs in ``tests/test_torch_tp_serve.py``);
 - the ``cluster_serve`` sweep at ``fast``: the reference's rows and
   every deterministic column.
 """

@@ -195,6 +195,13 @@ MODEL_CASES = [
      dict(softcap=50.0, scale=GEMMA2_SCALE)),
     ("gemma-2b-int8", 8, 8, 1, 256, 16, 64,
      [273, 429, 166, 401, 388, 310, 385, 418], dict(int8=True)),
+    # phi4-mini-3.8b at TP=2: each shard's 12 query heads over 4 kv heads
+    # (group 3) at D 128, pages of 8 at max_len 1024, the drain's lengths,
+    # on bf16 and int8 pages
+    ("phi4-mini-tp2-drain", 8, 12, 4, 128, 8, 128,
+     [273, 429, 166, 401, 388, 310, 385, 418], {}),
+    ("phi4-mini-tp2-drain-int8", 8, 12, 4, 128, 8, 128,
+     [273, 429, 166, 401, 388, 310, 385, 418], dict(int8=True)),
 ]
 
 

@@ -17,11 +17,11 @@ must be equal, and the tokens equal a colocated engine's.
   corrupted in transit, ``build_disagg_pool``; the engine cases of that
   file (export and import refusals, ``evacuate`` of a swap record whose
   tier is gone, ``adopt`` of a finished request) run in
-  ``tests/test_torch_preempt.py``; the TP=2 case waits for the port of
-  ``ServeMesh``;
+  ``tests/test_torch_preempt.py``; the TP=2 case runs in
+  ``tests/test_torch_tp_serve.py``;
 - the launcher's ``--topology disagg`` against the reference launcher's
-  summary, and its refusals (no card without ``--device``, ``--tp`` > 1,
-  a colocated ``--dp`` > 1);
+  summary, and its refusals (no card without ``--device``, ``--tp`` > 1
+  or a colocated ``--dp`` > 1 on one distinct device);
 - the ``disagg_serve`` sweep at ``fast``: the reference's rows and
   deterministic columns, save the break-even row's ``reprefill_ms``,
   priced on the H100's spec.
@@ -390,9 +390,12 @@ def test_launcher_refusals():
 
     with pytest.raises(RuntimeError, match="no CUDA card"):
         t_main(ARGS)                      # no --device: the card's path
-    with pytest.raises(SystemExit, match="ServeMesh"):
+    # one distinct device: the reference's messages for a TP=2 engine
+    # group and for two colocated replicas
+    with pytest.raises(SystemExit, match="tp=2 needs 2 devices, have 1"):
         t_main(ARGS + ["--device", "cpu", "--tp", "2"])
-    with pytest.raises(SystemExit, match="A9"):
+    with pytest.raises(SystemExit,
+                       match="tp=1 x dp=2 needs 2 devices, have 1"):
         t_main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", "--dp",
                 "2"])
 

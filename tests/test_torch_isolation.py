@@ -54,10 +54,14 @@ def test_importing_every_module_loads_neither_jax_nor_reference():
 
 
 @pytest.mark.parametrize("module", ["repro_torch.models.moe",
-                                    "repro_torch.models.encdec"])
+                                    "repro_torch.models.encdec",
+                                    "repro_torch.dist.sharding",
+                                    "repro_torch.dist.serve",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.bench.sweeps.dist_serve"])
 def test_new_module_alone_loads_neither_jax_nor_reference(module):
-    """Each module of the MoE and encoder-decoder slice, imported by itself
-    in a fresh interpreter."""
+    """Each module of the MoE and encoder-decoder slice and of the
+    distribution slice, imported by itself in a fresh interpreter."""
     code = (f"import sys, {module}\n"
             "bad = sorted(n for n in sys.modules\n"
             "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -11,7 +11,7 @@ reference on the CPU.
   ``lax.conv_general_dilated`` (1e-5), the split row's padded shards, the
   naive CPU window, the r_acc row's LFSR indices (bit for bit) and the
   nest row's chunked attention (1e-5);
-- the sweep registry: 14 sweeps in the reference's order.
+- the sweep registry: the reference's 18 sweeps in its order.
 """
 import math
 
@@ -74,9 +74,11 @@ def both_runs(tmp_path_factory):
 def test_fourteen_sweeps_in_the_reference_order():
     assert T_ORDER == [n for n in J_ORDER if n in T_ORDER]
     # 15 since the preemption sweep joined the fourteen, 17 since the
-    # cluster and disaggregation sweeps followed it
-    assert len(T_ORDER) == 17 and T_ORDER[-1] == "disagg_serve"
-    assert T_ORDER[-3:] == ["preempt_serve", "cluster_serve", "disagg_serve"]
+    # cluster and disaggregation sweeps followed it, 18 (all of the
+    # reference's) since dist_serve took its place after spec_serve
+    assert len(T_ORDER) == 18 and T_ORDER == J_ORDER
+    assert T_ORDER[-5:] == ["spec_serve", "dist_serve", "preempt_serve",
+                            "cluster_serve", "disagg_serve"]
     assert T_ORDER.index("random") + 1 == T_ORDER.index("database")
     assert T_ORDER[T_ORDER.index("database"):][:4] == [
         "database", "conv", "roofline", "serve"]

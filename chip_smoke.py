@@ -242,9 +242,10 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    (temperature 0.8, top_k 50): masks, draws and times;
 36. sampled serve: full-width gemma-2b (bf16) through the paged engine
    with each sampling setting (keys seeded with 3), then the first on
-   int8 pages: the serve phase's first 8 requests (one batch, the run's
-   time), each drained twice with identical tokens, K1 once a layer on every tick, the warm tick
-   beside the greedy tick of phase 5;
+   int8 pages: the serve phase's first 8 requests (one batch) with 16 new
+   tokens (both for the run's time), each drained twice with identical
+   tokens, K1 once a layer on every tick, the warm tick beside the greedy
+   tick of phase 5;
 37. sampled parity: the parity phase's model and requests sampled with
    (temperature 0.9, top_p 0.95) on the card and on the CPU: tokens and
    final keys must agree;
@@ -325,12 +326,58 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    gemma-2b in bf16 over the one card twice, one weight tree, 8 of the
    serve phase's requests, 16 new tokens each: every stream equals the
    single engine's, both replicas take work, K1 = 18 x the replicas'
-   ticks.
+   ticks;
+49. train: full-width gemma-2b (2.51 B params) trained for 8 steps on
+   the card through the training launcher's trainer at its defaults
+   (float32, seq 256, batch 8, markov data, fsdp_tp on a 1x1 mesh, lr
+   1e-3 under warmup_cosine(10, steps), no checkpoint): loss, grad norm,
+   lr and ms per step; the median step time of steps 2-8, tokens/s, the
+   training state's bytes, ``max_memory_allocated`` and the step's
+   6 N T operations against the float32 peak.  Gated: every loss finite,
+   the loss falls over the 8 steps (else over 4 more on one fixed
+   batch, said so), TF32 off, and no launch of K1-K8 (the reference's
+   training path reaches no Pallas kernel);
+50. train parity: gemma-2b at published widths cut to 2 layers, float32,
+   the launcher's flags, B 2 x S 32: one step on the card and on the CPU
+   from the same params and batch: the loss within 1e-5 relative, each
+   gradient leaf within 1e-4 of its largest magnitude, every param after
+   AdamW within 2 lr (one sign flip of a near-zero gradient), the share
+   apart by more than 1e-6 printed; microbatches=2 against that step
+   on the card (loss within 1e-4, params within 2e-3);
+51. train recovery: smoke gemma-2b on the card, 6 steps with a
+   checkpoint every 2 and failures injected at steps 3 and 5: the
+   recovered params equal two uninterrupted runs' within their printed
+   run-to-run spread; a checkpoint written on the CPU restores onto the
+   card exactly;
+52. dp train: ``make_dp_train_step`` with both shards on cuda:0: the
+   reference's dp_compression scenario (16x4 least squares, 150 steps,
+   lr 0.1) with and without int8 error feedback, each converging by
+   more than 100x and the compressed run within 5x of the uncompressed
+   one; an uncompressed DP=2 step of smoke gemma-2b against the
+   one-device step on the full batch (loss within 1e-5, params within
+   2 lr).
 
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
-A ``[phase]`` line after each group of phases gives its seconds and the
-run's elapsed time.
+A ``[phase]`` line after each group of phases gives its seconds, the
+run's elapsed time, the process's peak reserved card memory and the
+card's free memory.
+
+Phases that need no result of another phase run beside the main
+process once the kernels are timed, the host link measured and ring
+serve's weights freed: it starts two lanes, processes of their own on the
+same card (``LANES``; ``chip_smoke.py --lane NAME`` runs one), and drives
+its other serving phases meanwhile.  The bench lane runs bench serve and
+spec serve; then it, the parity lane and the main process, each once its
+own phases are done, take the card == CPU phases of ``QUEUE`` one at a
+time, heaviest first, each with torch's CPU threads shared among those
+taking them.  The main process joins the lanes, prints each lane's log
+(``build/smoke_lanes``), fails if a lane failed or a queued phase never
+finished, then runs train parity, train and dp train on a card of its
+own; a lane that fails ends the run at the main process's next
+``[phase]`` line.  Serving walls measured beside the lanes share the
+card and the host with them; kernel times, the host link, the main
+path's serve and train's step times do not.
 
 It ends with a ``[previous]`` line (K1's, K2's, K3's, K4's and K8's times
 before their redesign, and K1's int8 pages on the CUDA cores, as PERF.md
@@ -348,6 +395,7 @@ import inspect
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2477,6 +2525,7 @@ def ssm_parity_phase(torch, np):
 # sampling and speculative decoding
 # ---------------------------------------------------------------------------
 
+SAMPLED_NEW = 16                   # [sampled serve]'s new tokens
 # the sampled phases' settings, both with keys seeded by 3
 SAMPLINGS = (dict(temperature=0.9, top_p=0.95),
              dict(temperature=0.8, top_k=50))
@@ -2546,8 +2595,9 @@ def sampled_serve_phase(torch, np, card, greedy):
     """Full-width gemma-2b (bf16) through the paged engine with sampling:
     the serve phase's first 8 requests (one batch, to keep the run inside
     its time) with each setting and then with the first setting on int8
-    pages of 16 tokens; each drained twice with identical tokens, K1 once
-    a layer on every tick, the warm tick beside the greedy one."""
+    pages of 16 tokens, 16 new tokens each (the run's time); each
+    drained twice with identical tokens, K1 once a layer on every tick,
+    the warm tick beside the greedy one."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import RuntimeFlags, build
@@ -2558,7 +2608,7 @@ def sampled_serve_phase(torch, np, card, greedy):
     bundle, params = load_model(torch, cfg)
     int8 = build(cfg, RuntimeFlags(kv_dtype="int8"))
     reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
-                         (0, 9, 12, 15), 32)
+                         (0, 9, 12, 15), SAMPLED_NEW)
     launches = {}
     runs = [(b, p, {}, "bf16") for b, p in ((bundle, SAMPLINGS[0]),
                                             (bundle, SAMPLINGS[1]))]
@@ -2578,7 +2628,8 @@ def sampled_serve_phase(torch, np, card, greedy):
                              cfg.num_layers, pa, checks)
         launches[f"sampled serve {kv} {_desc(sp)}"] = n
         print(f"[sampled serve] kv={kv} sampling='{_desc(sp)}' "
-              f"requests={len(batch)} first_equals_warm=True "
+              f"requests={len(batch)} new_tokens={SAMPLED_NEW} "
+              f"first_equals_warm=True "
               f"warm_ms_per_decode_tick="
               f"{warm['tick_ms']:.3f} greedy_ms_per_decode_tick="
               f"{greedy['tick_ms']:.3f} ratio="
@@ -4315,7 +4366,628 @@ def dp_serve_phase(torch, np, card):
     return {"dp serve": pa.LAUNCHES}
 
 
+# ---------------------------------------------------------------------------
+# training (the reference's training path reaches no Pallas kernel, so
+# these phases launch none of K1-K8)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 8                    # [train]'s steps of full-width gemma-2b
+FIXED_STEPS = 4                    # its fixed-batch fallback
+PARITY_SEQ = 32                    # [train parity]'s sequence (B 2)
+FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
+
+
+def kernel_launches():
+    """Every kernel's launch count, K1-K8 in order."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import pointer_chase as pc
+    from repro_torch.kernels import random_gather as rg
+    from repro_torch.kernels import stream_copy as sc
+    from repro_torch.kernels import strided_copy as st
+    return [m.LAUNCHES for m in (pa, fa, da, sc, st, rg, pc, mm)]
+
+
+def _tree_bytes(tree):
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _copy(tree, device):
+    """A detached copy of a param tree on ``device``."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().to(device, copy=True), tree)
+
+
+def _leaf_gap(got, want):
+    """The largest over the leaves of max |got - want| over max |want|
+    (1 where ``want``'s leaf is all zeros), computed on ``got``'s
+    device: how far two gradient trees, or two first moments after one
+    AdamW step ((1 - b1) times the clipped gradient), stand apart."""
+    from repro_torch.tree import leaves_with_paths
+    w = dict(leaves_with_paths(want))
+    worst = 0.0
+    for path, g in leaves_with_paths(got):
+        x = w[path].detach().float().to(g.device)
+        worst = max(worst, float((g.detach().float() - x).abs().max())
+                    / (float(x.abs().max()) or 1.0))
+    return worst
+
+
+def _param_gap(torch, got, want):
+    """(largest |got - want| over every leaf, elements apart by more than
+    1e-6, elements), computed on ``got``'s device."""
+    from repro_torch.tree import leaves_with_paths
+    w = dict(leaves_with_paths(want))
+    worst, parted, total = 0.0, 0, 0
+    for path, g in leaves_with_paths(got):
+        d = (g.detach().float()
+             - w[path].detach().float().to(g.device)).abs()
+        worst = max(worst, float(d.max()))
+        parted += int((d > 1e-6).sum())
+        total += d.numel()
+    return worst, parted, total
+
+
+def train_phase(torch, np, card):
+    """Full-width gemma-2b trained on the card through the launcher's
+    trainer (its defaults: float32, seq 256, batch 8, markov data,
+    fsdp_tp on a 1x1 mesh, lr 1e-3 under warmup_cosine(10, steps)), no
+    checkpoint."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.tree import leaves
+
+    args = launch_train.parser().parse_args(
+        ["--arch", "gemma-2b", "--steps", str(TRAIN_STEPS)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    tr = launch_train.build_trainer(args)
+    tr.tcfg.log_every = 1                # a metrics row every step
+    final = tr.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    cfg = tr.bundle.cfg
+    params, opt = tr._final
+    hist = tr.history
+    losses = [h["loss"] for h in hist]
+    for h in hist:
+        print(f"[train] step={h['step']} loss={h['loss']:.6f} "
+              f"grad_norm={h['grad_norm']:.6f} lr={h['lr']:.3e} "
+              f"ms={h['sec'] * 1e3:.1f}", flush=True)
+    step_s = float(np.median([h["sec"] for h in hist[1:]]))
+    tokens = tr.cell.tokens
+    n_params = sum(t.numel() for t in leaves(params))
+    p_bytes = _tree_bytes(params)
+    mv_bytes = _tree_bytes(opt.m) + _tree_bytes(opt.v)
+    g_bytes = 4 * n_params               # the float32 gradient tree
+    flops = 6.0 * n_params * tokens
+    fixed = []
+    falling = losses[-1] < losses[0]
+    if not falling:
+        # the warmup kept the loss flat: hold one batch for a few steps
+        batch = tr._put(tr.data.batch_at(0))
+        for _ in range(FIXED_STEPS):
+            params, opt, m = tr.step_fn(params, opt, batch)
+            fixed.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    after = kernel_launches()
+    print(f"[train] card='{card}' arch={cfg.name} dtype={cfg.param_dtype} "
+          f"layers={cfg.num_layers} params={n_params} seq={tr.cell.seq_len} "
+          f"batch={tr.cell.global_batch} steps={final} data={args.data} "
+          f"policy={args.policy} mesh={dict(tr.mesh.shape)} "
+          f"step_ms_median_2_{final}={step_s * 1e3:.1f} "
+          f"tokens_per_s={tokens / step_s:.1f} "
+          f"state_GB={(p_bytes + g_bytes + mv_bytes) / 1e9:.2f} "
+          f"(params {p_bytes / 1e9:.2f}, grads {g_bytes / 1e9:.2f}, "
+          f"m+v {mv_bytes / 1e9:.2f}) "
+          f"max_memory_allocated_GB={peak / 1e9:.2f} "
+          f"flops_6NT={flops:.4e} fp32_peak_share="
+          f"{flops / step_s / FP32_OPS_PER_S:.3f} "
+          f"run_s={run_s:.1f} first_step_ms={hist[0]['sec'] * 1e3:.1f} "
+          f"tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"kernel_launches_moved={[a - b for a, b in zip(after, before)]}",
+          flush=True)
+    if fixed:
+        print(f"[train] the loss did not fall over {final} steps of the "
+              f"warmup; {FIXED_STEPS} more steps on batch 0: {fixed}",
+              flush=True)
+    check(all(math.isfinite(x) for x in losses + fixed),
+          f"train: a loss is not finite: {losses + fixed}")
+    check(falling or fixed[-1] < fixed[0],
+          f"train: the loss does not fall: {losses}, fixed batch {fixed}")
+    check(after == before,
+          f"train: kernels launched during training: {before} -> {after}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "train: TF32 is on")
+    del tr, params, opt
+
+
+def train_parity_phase(torch, np):
+    """One train step of 2-layer full-width gemma-2b in float32 at the
+    launcher's flags, B 2 x S 32, on the card and on the CPU from the same
+    params and batch; then microbatches=2 against that step on the card.
+    Compared on the card."""
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.dist import POLICIES
+    from repro_torch.dist.steps import make_train_step, value_and_grad
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import FLAGS
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, adamw, schedule
+    from repro_torch.tree import tree_map
+
+    cfg = override(ARCHS["gemma-2b"], num_layers=2, param_dtype="float32",
+                   compute_dtype="float32")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "train parity: TF32 is on")
+    rng = np.random.default_rng(21)
+    tok = rng.integers(0, cfg.vocab_size, (2, PARITY_SEQ + 1)).astype(
+        np.int32)
+    card = build(cfg, FLAGS, device="cuda")
+    # drawn on the card (the CPU's draw of 744 M values takes seconds)
+    init = card.init(torch.Generator(device="cuda").manual_seed(3))
+    opt_cfg = AdamWConfig(lr=1e-3, schedule=schedule.warmup_cosine(
+        10, TRAIN_STEPS))
+
+    def batch_on(dev):
+        return {k: torch.from_numpy(x).to(dev)
+                for k, x in (("tokens", tok[:, :-1]), ("labels", tok[:, 1:]))}
+
+    def one_step(dev):
+        """The launcher's train step (microbatches=1) from ``init`` on
+        ``dev``: (loss, float32 grads, params after AdamW, AdamW's state,
+        its metrics)."""
+        bundle = build(cfg, FLAGS, device=dev)
+        params = _copy(init, dev)
+        loss, _, grads = value_and_grad(bundle.train_loss, params,
+                                        batch_on(dev))
+        grads = tree_map(lambda g: g.float(), grads)
+        params, opt, om = adamw.update(grads, adamw.init(params), params,
+                                       opt_cfg)
+        return float(loss), grads, params, opt, {k: float(v)
+                                                 for k, v in om.items()}
+
+    t0 = time.perf_counter()
+    l_cpu, g_cpu, p_cpu, o_cpu, om_cpu = one_step("cpu")
+    del o_cpu
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l_card, g_card, p_card, o_card, om_card = one_step("cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    lr = om_cpu["lr"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    gn_rel = abs(om_card["grad_norm"] - om_cpu["grad_norm"]) / om_cpu[
+        "grad_norm"]
+    grad_worst = _leaf_gap(g_card, g_cpu)
+    del g_cpu, g_card
+    worst, parted, total = _param_gap(torch, p_card, p_cpu)
+    del p_cpu
+    # microbatches=2 against that step, tests/test_train.py's check; the
+    # gradients are held through grad_norm and the first moment, since
+    # one AdamW step moves a param by about lr whatever its gradient
+    step, _, _, _ = make_train_step(card, Mesh(("data", "model"), (1, 1),
+                                               ("cuda",)),
+                                    POLICIES["fsdp_tp"], opt_cfg,
+                                    microbatches=2)
+    params = _copy(init, "cuda")
+    params, o_mb, met = step(params, adamw.init(params), batch_on("cuda"))
+    mb_loss = float(met["loss"])
+    mb_gn_rel = abs(float(met["grad_norm"]) - om_card["grad_norm"]) / om_card[
+        "grad_norm"]
+    mb_grad_worst = _leaf_gap(o_mb.m, o_card.m)
+    del o_mb, o_card
+    mb_worst, _, _ = _param_gap(torch, params, p_card)
+    print(f"[train parity] arch={cfg.name} layers=2 dtype=float32 batch=2 "
+          f"seq={PARITY_SEQ} loss_cpu={l_cpu:.8f} loss_card={l_card:.8f} "
+          f"loss_rel={loss_rel:.3e} grad_norm_rel={gn_rel:.3e} "
+          f"grad_worst_rel_to_leaf_max={grad_worst:.3e} "
+          f"param_max_abs_diff={worst:.3e} (2 lr = "
+          f"{2 * lr:.1e}) params_apart_over_1e-6={parted}/{total} "
+          f"micro2_loss={mb_loss:.8f} micro_grad_norm_rel={mb_gn_rel:.3e} "
+          f"micro_moment_worst_rel_to_leaf_max={mb_grad_worst:.3e} "
+          f"micro_param_max_abs_diff={mb_worst:.3e} cpu_step_s={cpu_s:.1f} "
+          f"card_step_s={card_s:.1f}", flush=True)
+    check(loss_rel <= 1e-5, f"train parity: loss {l_card} vs CPU {l_cpu}")
+    check(gn_rel <= 1e-5, f"train parity: grad_norm "
+          f"{om_card['grad_norm']} vs CPU {om_cpu['grad_norm']}")
+    check(grad_worst <= 1e-4, f"train parity: a gradient leaf is "
+          f"{grad_worst:.3e} of its largest magnitude from the CPU's")
+    check(worst <= 2 * lr, f"train parity: a param is {worst:.3e} from "
+          f"the CPU's after AdamW, over 2 lr = {2 * lr:.1e}")
+    check(abs(mb_loss - l_card) < 1e-4 and mb_worst <= 2e-3
+          and mb_gn_rel <= 1e-5 and mb_grad_worst <= 1e-4,
+          f"train parity: microbatches=2 loss {mb_loss} vs {l_card}, "
+          f"grad_norm {mb_gn_rel:.3e} relative, first moment "
+          f"{mb_grad_worst:.3e} of a leaf's largest, params {mb_worst:.3e} "
+          "apart")
+
+
+def _smoke_trainer(ckpt, device, steps=6, injector=None):
+    from repro_torch.configs import ARCHS, ShapeCell, smoke_config
+    from repro_torch.dist import POLICIES
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import FLAGS
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+    return Trainer(build(smoke_config(ARCHS["gemma-2b"]), FLAGS,
+                         device=device),
+                   ShapeCell("smoke", "train", 32, 4),
+                   Mesh(("data", "model"), (1, 1), (device,)),
+                   POLICIES["fsdp_tp"], AdamWConfig(lr=1e-3),
+                   TrainConfig(steps=steps, ckpt_dir=ckpt, ckpt_every=2,
+                               log_every=1, data_kind="markov"),
+                   injector=injector)
+
+
+def train_recovery_phase(torch, np):
+    """Smoke gemma-2b on the card: 6 steps with a checkpoint every 2,
+    failures injected at steps 3 and 5 and recovered, against two
+    uninterrupted runs (their gap is the run-to-run spread); then a
+    checkpoint written on the CPU restored onto the card."""
+    import shutil
+    from repro_torch.train import FailureInjector, run_with_recovery
+    from repro_torch.tree import leaves_with_paths
+
+    root = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    finals = []
+    for name in ("a", "b"):
+        tr = _smoke_trainer(os.path.join(root, name), "cuda")
+        tr.run()
+        finals.append(tr._final[0])
+    spread, _, _ = _param_gap(torch, finals[1], finals[0])
+    inj = FailureInjector(fail_at=(3, 5))
+    tr = _smoke_trainer(os.path.join(root, "rec"), "cuda", injector=inj)
+    final = run_with_recovery(tr.run)
+    gap, parted, total = _param_gap(torch, tr._final[0], finals[0])
+    # written on the CPU, restored onto the card
+    cpu = _smoke_trainer(os.path.join(root, "cpu"), "cpu", steps=2)
+    cpu.run()
+    card = _smoke_trainer(os.path.join(root, "cpu"), "cuda", steps=2)
+    rp, ro, step = card.restore_state()
+    want = dict(leaves_with_paths(dict(params=cpu._final[0],
+                                       opt=cpu._final[1])))
+    exact = all(torch.equal(t.cpu(), want[p].detach().cpu())
+                and t.device.type == "cuda"
+                for p, t in leaves_with_paths(dict(params=rp, opt=ro)))
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[train recovery] arch=gemma-2b(smoke) steps={final} "
+          f"failures_at={sorted(inj.seen)} ckpt_every=2 "
+          f"run_to_run_spread={spread:.3e} recovered_vs_uninterrupted="
+          f"{gap:.3e} params_apart_over_1e-6={parted}/{total} "
+          f"cpu_checkpoint_step={step} restores_exactly_on_card={exact} "
+          f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+    check(final == 6 and inj.seen == {3, 5},
+          f"train recovery: ended at {final}, failures {inj.seen}")
+    check(gap <= spread, f"train recovery: the recovered params are "
+          f"{gap:.3e} from an uninterrupted run's, over the run-to-run "
+          f"spread {spread:.3e}")
+    check(step == 2 and exact, "train recovery: the CPU's checkpoint does "
+          "not restore exactly onto the card")
+
+
+def dp_train_phase(torch, np, card):
+    """DP=2 with both shards on cuda:0: the reference's dp_compression
+    scenario (16x4 least squares, 150 steps, lr 0.1) with and without
+    int8 error feedback, then an uncompressed DP=2 step of smoke gemma-2b
+    against the one-device step on the full batch."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.dist import POLICIES
+    from repro_torch.dist.dp_shardmap import (init_error_feedback,
+                                              make_dp_train_step)
+    from repro_torch.dist.steps import make_train_step
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import FLAGS
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, adamw
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = Mesh(("data",), (2,), (dev, dev))
+    rng = np.random.default_rng(0)
+    w_true = rng.standard_normal((16, 4)).astype(np.float32)
+    batches = []
+    for _ in range(150):
+        x = rng.standard_normal((64, 16)).astype(np.float32)
+        batches.append(dict(x=torch.from_numpy(x).to(dev),
+                            y=torch.from_numpy(x @ w_true).to(dev)))
+
+    def lsq(params, batch):
+        return torch.mean((batch["x"] @ params["w"] - batch["y"]) ** 2)
+
+    t0 = time.perf_counter()
+    results, saved = {}, {}
+    for comp in (False, True):
+        params = dict(w=torch.zeros(16, 4, device=dev))
+        opt, err = adamw.init(params), init_error_feedback(params, 2)
+        step = make_dp_train_step(lsq, mesh, AdamWConfig(
+            lr=0.1, weight_decay=0.0, clip_norm=None), compress_grads=comp)
+        first = None
+        for b in batches:
+            params, opt, err, m = step(params, opt, err, b)
+            first = first if first is not None else float(m["loss"])
+        results[comp] = (first, float(m["loss"]))
+        saved[comp] = float(m.get("wire_bytes_saved", torch.zeros(())))
+    scen_s = time.perf_counter() - t0
+    cfg = smoke_config(ARCHS["gemma-2b"])
+    bundle = build(cfg, FLAGS, device=dev)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 33)).astype(
+        np.int32)).to(dev)
+    batch = dict(tokens=tok[:, :-1], labels=tok[:, 1:])
+    init = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    one, _, _, _ = make_train_step(bundle, Mesh(("data", "model"), (1, 1),
+                                                (dev,)),
+                                   POLICIES["fsdp_tp"], opt_cfg)
+    p1 = _copy(init, dev)
+    p1, o1, m1 = one(p1, adamw.init(p1), batch)
+    dp = make_dp_train_step(lambda p, b: bundle.train_loss(p, b)[0], mesh,
+                            opt_cfg)
+    p2 = _copy(init, dev)
+    p2, o2, _, m2 = dp(p2, adamw.init(p2), init_error_feedback(p2, 2), batch)
+    loss_rel = abs(float(m2["loss"]) - float(m1["loss"])) / abs(
+        float(m1["loss"]))
+    # the parity phase's gates: the shards' mean gradient through
+    # grad_norm and the first moment, the params within 2 lr
+    gn_rel = abs(float(m2["grad_norm"]) - float(m1["grad_norm"])) / float(
+        m1["grad_norm"])
+    grad_worst = _leaf_gap(o2.m, o1.m)
+    worst, parted, total = _param_gap(torch, p2, p1)
+    print(f"[dp train] card='{card}' shards=2 on {dev} scenario=dp_compression "
+          f"uncompressed first={results[False][0]:.6e} "
+          f"last={results[False][1]:.6e} compressed first="
+          f"{results[True][0]:.6e} last={results[True][1]:.6e} "
+          f"wire_bytes_saved={saved[True]:.0f} scenario_s={scen_s:.1f} "
+          f"| smoke gemma-2b dp2 vs full batch: loss_rel={loss_rel:.3e} "
+          f"grad_norm_rel={gn_rel:.3e} moment_worst_rel_to_leaf_max="
+          f"{grad_worst:.3e} "
+          f"param_max_abs_diff={worst:.3e} (2 lr = {2 * opt_cfg.lr:.1e}) "
+          f"params_apart_over_1e-6={parted}/{total}", flush=True)
+    check(results[False][1] < results[False][0] / 100,
+          f"dp train: uncompressed did not converge 100x: {results}")
+    check(results[True][1] < results[True][0] / 100,
+          f"dp train: compressed did not converge 100x: {results}")
+    check(results[True][1] < 5 * results[False][1] + 1e-3,
+          f"dp train: compressed ends over 5x uncompressed: {results}")
+    check(loss_rel <= 1e-5 and gn_rel <= 1e-5 and grad_worst <= 1e-4
+          and worst <= 2 * opt_cfg.lr,
+          f"dp train: DP=2 differs from the full-batch step: loss "
+          f"{loss_rel:.3e}, grad_norm {gn_rel:.3e}, first moment "
+          f"{grad_worst:.3e} of a leaf's largest, params {worst:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# lanes: phases that need no result of another phase, run in processes of
+# their own beside the main one
+# ---------------------------------------------------------------------------
+
+# Once the kernels are timed, the host link measured and [ring serve]'s
+# 68 GiB freed, the main process starts one process per lane on the same
+# card and drives its other serving phases meanwhile.  A lane runs its own
+# phases, then, like the main process once its own are done, takes the
+# card == CPU phases of QUEUE one at a time (heaviest first) until none is
+# left; each phase runs with the counters of the process that runs it.  A
+# lane writes its log under build/smoke_lanes; the main process prints
+# each log when it joins the lanes, fails if a lane failed or a queued
+# phase never finished, then runs [train parity] (30 GiB of the card),
+# [train] (whose step times need the card to itself) and [dp train].
+def _without_card(phase):
+    """``phase(torch, np)`` called as ``phase(torch, np, card)``."""
+    return lambda torch, np, card: phase(torch, np)
+
+
+LANES = {
+    "parity": (),
+    "bench": (
+        ("bench serve",
+         lambda torch, np, card: bench_serve_phase(torch, card)),
+        ("spec serve", spec_serve_phase),
+    ),
+}
+QUEUE = (
+    ("hybrid parity", _without_card(hybrid_parity_phase)),
+    ("ring parity", _without_card(ring_parity_phase)),
+    ("preempt parity", _without_card(preempt_parity_phase)),
+    ("cluster parity", _without_card(cluster_parity_phase)),
+    ("moe parity", _without_card(moe_parity_phase)),
+    ("tp parity", _without_card(tp_parity_phase)),
+    ("encdec parity", _without_card(encdec_parity_phase)),
+    ("parity", _without_card(parity_phase)),
+    ("dense parity", _without_card(dense_parity_phase)),
+    ("sampled parity", _without_card(sampled_parity_phase)),
+    ("int8 parity", _without_card(int8_parity_phase)),
+    ("ssm parity", _without_card(ssm_parity_phase)),
+    ("prng", prng_phase),
+    ("train recovery", _without_card(train_recovery_phase)),
+)
+LANE_DIR = os.path.join(ROOT, "build", "smoke_lanes")
+LANE_DEADLINE_S = 1150               # of the run's elapsed time
+LANE_RESULT = "[lane result] "
+
+
+def lane_file(kind, key):
+    return os.path.join(LANE_DIR, f"{kind}.{key}")
+
+
+def set_state(who, state):
+    """``who``'s state for the others to read: ``own`` (its own phases),
+    ``queue`` (taking queued phases) or ``done``."""
+    with open(lane_file("state", who), "w") as f:
+        f.write(state)
+
+
+def queue_threads(who, cores):
+    """CPU threads of torch for ``who``'s next queued phase: of ``cores``
+    (torch's threads in a fresh process), those that the processes still
+    driving their own phases leave, shared among those taking queued
+    phases (the card == CPU phases' CPU drains run on them)."""
+    states = {}
+    for name in ("main", *LANES):
+        try:
+            with open(lane_file("state", name)) as f:
+                states[name] = f.read()
+        except OSError:
+            states[name] = "own" if name != who else "queue"
+    own = sum(st == "own" for name, st in states.items() if name != who)
+    taking = max(1, sum(st == "queue" for st in states.values()))
+    return max(1, -(-(cores - own) // taking))
+
+
+def take_queue(torch, np, card, who, cores, note):
+    """Run queued phases until none is left, each claimed by creating its
+    claim file (one process wins it) and marked done after it passed;
+    ``note(label)`` ends each.  Returns the launch counts they return."""
+    set_state(who, "queue")
+    results = {}
+    for i, (label, phase) in enumerate(QUEUE):
+        try:
+            fd = os.open(lane_file("claim", i),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except FileExistsError:
+            continue
+        os.write(fd, who.encode())
+        os.close(fd)
+        threads = queue_threads(who, cores)
+        torch.set_num_threads(threads)
+        out = phase(torch, np, card)
+        if isinstance(out, dict):
+            results.update(out)
+        open(lane_file("done", i), "w").close()
+        gc.collect()
+        torch.cuda.empty_cache()
+        note(f"queue {label} by={who} threads={threads}")
+    set_state(who, "done")
+    return results
+
+
+def memory_note(torch):
+    """The process's peak reserved card memory since the last note (a
+    phase that resets the peak itself shows less), and the card's free
+    memory now (every process's use counted)."""
+    peak = torch.cuda.max_memory_reserved() / 2**30
+    free = torch.cuda.mem_get_info()[0] / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    return f"reserved_peak_GiB={peak:.2f} card_free_GiB={free:.2f}"
+
+
+def lane_main(name):
+    """One lane (``python3 chip_smoke.py --lane NAME``, started by
+    ``main``): its own phases in order, then queued ones, a ``[phase]``
+    line after each, then the launch counts its phases returned as one
+    ``[lane result]`` JSON line.  Exits 1 on a failed check; dies with the
+    process that started it."""
+    try:                                 # prctl(PR_SET_PDEATHSIG, SIGKILL)
+        import ctypes
+        import signal
+        ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+    except (OSError, AttributeError):
+        pass
+    import numpy as np
+    import torch
+    import repro_torch  # noqa: F401
+    if not torch.cuda.is_available():
+        print("[FAIL] no CUDA card is visible to the lane", file=sys.stderr)
+        return 2
+    cores = torch.get_num_threads()
+    torch.set_num_threads(2)
+    card = card_line()
+    t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def note(label):
+        now = time.perf_counter()
+        print(f"[phase] lane={name} {label} seconds={now - t_lap[0]:.1f} "
+              f"elapsed={now - t_start:.1f} {memory_note(torch)}",
+              flush=True)
+        t_lap[0] = now
+
+    results = {}
+    try:
+        for label, phase in LANES[name]:
+            out = phase(torch, np, card)
+            if isinstance(out, dict):
+                results.update(out)
+            gc.collect()
+            torch.cuda.empty_cache()
+            note(label)
+        results.update(take_queue(torch, np, card, name, cores, note))
+    except SmokeFailure as e:
+        print(f"[FAIL] {e}", file=sys.stderr, flush=True)
+        return 1
+    print(f"[lane] name={name} seconds={time.perf_counter() - t_start:.1f}",
+          flush=True)
+    print(LANE_RESULT + json.dumps(results), flush=True)
+    return 0
+
+
+def start_lanes():
+    """Start every lane; returns name -> (process, log path)."""
+    shutil.rmtree(LANE_DIR, ignore_errors=True)
+    os.makedirs(LANE_DIR)
+    for name in ("main", *LANES):
+        set_state(name, "own" if LANES.get(name, True) else "queue")
+    lanes = {}
+    for name in LANES:
+        path = lane_file(name, "log")
+        with open(path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--lane", name],
+                stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+        lanes[name] = (proc, path)
+        print(f"[lane] name={name} started pid={proc.pid} phases="
+              f"{','.join(label for label, _ in LANES[name])} then the "
+              "queue", flush=True)
+    return lanes
+
+
+def join_lanes(lanes, timeout):
+    """Wait for each lane (at most ``timeout`` seconds in all), print its
+    log, and fail on the first that failed; returns their results."""
+    deadline = time.perf_counter() + timeout
+    results = {}
+    for name, (proc, path) in lanes.items():
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - t0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at the deadline"
+        with open(path) as f:
+            text = f.read()
+        print(f"[lane] name={name} log={os.path.relpath(path, ROOT)} "
+              f"follows", flush=True)
+        sys.stdout.write(text)
+        print(f"[lane] name={name} rc={rc} waited_s="
+              f"{time.perf_counter() - t0:.1f}", flush=True)
+        fails = [ln for ln in text.splitlines() if ln.startswith("[FAIL]")]
+        check(rc == 0, f"lane {name} failed (rc {rc}): "
+              + (fails[-1] if fails else text[-3000:]))
+        for ln in text.splitlines():
+            if ln.startswith(LANE_RESULT):
+                results.update(json.loads(ln[len(LANE_RESULT):]))
+    missing = [label for i, (label, _) in enumerate(QUEUE)
+               if not os.path.exists(lane_file("done", i))]
+    check(not missing, f"queued phases never finished: {missing}")
+    return results
+
+
+def stop_lanes(lanes):
+    for proc, _ in lanes.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def main():
+    if sys.argv[1:2] == ["--lane"]:
+        return lane_main(sys.argv[2])
     try:
         import numpy as np
         import torch
@@ -4342,17 +5014,25 @@ def main():
         return 2
     t_start = time.perf_counter()
     t_lap = [t_start]
+    lanes = {}
+    cores = torch.get_num_threads()
 
     def lap(name):
         now = time.perf_counter()
         print(f"[phase] {name} seconds={now - t_lap[0]:.1f} "
-              f"elapsed={now - t_start:.1f}", flush=True)
+              f"elapsed={now - t_start:.1f} {memory_note(torch)}",
+              flush=True)
         t_lap[0] = now
+        failed = {n: lane for n, lane in lanes.items()
+                  if lane[0].poll() not in (None, 0)}
+        if failed:                   # a lane that failed ends the run now
+            join_lanes(failed, 1.0)
 
     try:
         card = card_line()
         print(f"[card] card='{card}' torch={torch.__version__} "
-              f"cuda={torch.version.cuda} python={sys.version.split()[0]}",
+              f"cuda={torch.version.cuda} python={sys.version.split()[0]} "
+              f"torch_threads={cores} cpus={len(os.sched_getaffinity(0))}",
               flush=True)
         t0 = time.perf_counter()
         built = kbuild.build()
@@ -4385,17 +5065,13 @@ def main():
                 ("phi4-mini-tp2-drain", drain, PHI4_TP2_GEOMETRY))]
         lap("K1")
         launches, greedy = serve_phase(torch, np, card)
-        parity_phase(torch, np)
-        lap("serve, parity")
+        lap("serve")
         gc.collect()                 # the gemma-2b engine and weights go
         torch.cuda.empty_cache()
         k2_err = k2_check(torch, fa, ref)
         k2_timing = k2_time(torch, fa, ref, card)
         k2_launches = dense_serve_phase(torch, np, card)
-        gc.collect()
-        torch.cuda.empty_cache()
-        dense_parity_phase(torch, np)
-        lap("K2, dense serve, dense parity")
+        lap("K2, dense serve")
         gc.collect()
         torch.cuda.empty_cache()
         mem_err = dict(stream_copy=k4_check(torch, ops, ref, sc),
@@ -4434,101 +5110,76 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         ring_launches = ring_serve_phase(torch, np, card)
-        lap("ring serve")
         gc.collect()                 # the 54 GB of gemma2-27b go
         torch.cuda.empty_cache()
+        host_link_phase(torch, card)
+        lap("ring serve, host link")
+        lanes.update(start_lanes())
         int8_launches, int8_warm = int8_serve_phase(torch, np, card)
         lap("int8 serve")
         gc.collect()
         torch.cuda.empty_cache()
-        ring_parity_phase(torch, np)
-        gc.collect()
-        torch.cuda.empty_cache()
-        int8_parity_phase(torch, np)
-        lap("ring parity, int8 parity")
-        gc.collect()
-        torch.cuda.empty_cache()
-        host_link_phase(torch, card)
         preempt_launches = preempt_serve_phase(torch, np, card, greedy,
                                                int8_warm)
-        lap("host link, preempt serve")
-        gc.collect()
-        torch.cuda.empty_cache()
-        preempt_parity_phase(torch, np)
-        lap("preempt parity")
+        lap("preempt serve")
         gc.collect()
         torch.cuda.empty_cache()
         cluster_launches, model = cluster_serve_phase(torch, np, card)
         disagg_launches = disagg_serve_phase(torch, np, card, *model)
         del model
-        lap("cluster serve, disagg serve")
         gc.collect()                 # the cluster's gemma-2b goes
         torch.cuda.empty_cache()
-        cluster_parity_phase(torch, np)
-        lap("cluster parity")
-        gc.collect()
-        torch.cuda.empty_cache()
+        lap("cluster serve, disagg serve")
         hybrid_launches = hybrid_serve_phase(torch, np, card)
         gc.collect()                 # the 17 GB of recurrentgemma-9b go
         torch.cuda.empty_cache()
         ssm_serve_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
-        hybrid_parity_phase(torch, np)
-        gc.collect()
-        torch.cuda.empty_cache()
-        ssm_parity_phase(torch, np)
-        lap("hybrid serve, ssm serve, hybrid parity, ssm parity")
-        gc.collect()
-        torch.cuda.empty_cache()
-        prng_phase(torch, np, card)
+        lap("hybrid serve, ssm serve")
         sampled_launches = sampled_serve_phase(torch, np, card, greedy)
-        lap("prng, sampled serve")
         gc.collect()
         torch.cuda.empty_cache()
-        sampled_parity_phase(torch, np)
-        gc.collect()
-        torch.cuda.empty_cache()
-        spec_serve_phase(torch, np, card)
-        lap("sampled parity, spec serve")
-        gc.collect()
-        torch.cuda.empty_cache()
-        bench_serve_phase(torch, card)
-        lap("bench serve")
-        gc.collect()
-        torch.cuda.empty_cache()
+        lap("sampled serve")
         moe_launches = moe_serve_phase(torch, np, card)
         gc.collect()                 # the 6.6 GB of granite-moe go
         torch.cuda.empty_cache()
         moe_launches.update(grok_serve_phase(torch, np, card))
-        lap("moe serve, grok serve")
         gc.collect()                 # the 23 GB of grok-1's 2 layers go
         torch.cuda.empty_cache()
-        moe_parity_phase(torch, np)
-        lap("moe parity")
-        gc.collect()
-        torch.cuda.empty_cache()
+        lap("moe serve, grok serve")
         k2_paths = frontend_serve_phase(torch, np, card)
         gc.collect()                 # the 24.5 GB of pixtral-12b go
         torch.cuda.empty_cache()
         k2_paths.update(encdec_serve_phase(torch, np, card))
         gc.collect()
         torch.cuda.empty_cache()
-        encdec_parity_phase(torch, np)
-        lap("frontend serve, encdec serve, encdec parity")
-        gc.collect()
-        torch.cuda.empty_cache()
+        lap("frontend serve, encdec serve")
         tp_launches = tp_serve_phase(torch, np, card)
         gc.collect()                 # the 7.7 GB of phi4-mini (twice) go
         torch.cuda.empty_cache()
-        tp_launches.update(tp_parity_phase(torch, np))
+        tp_launches.update(dp_serve_phase(torch, np, card))
+        gc.collect()                 # the pool's gemma-2b goes
+        torch.cuda.empty_cache()
+        lap("tp serve, dp serve")
+        tp_launches.update(take_queue(torch, np, card, "main", cores, lap))
+        tp_launches.update(join_lanes(
+            lanes, LANE_DEADLINE_S - (time.perf_counter() - t_start)))
+        lap("lanes joined")
+        torch.set_num_threads(cores)
+        train_parity_phase(torch, np)
         gc.collect()
         torch.cuda.empty_cache()
-        tp_launches.update(dp_serve_phase(torch, np, card))
-        lap("tp serve, tp parity, dp serve")
+        train_phase(torch, np, card)
+        gc.collect()                 # the 40 GB of training state go
+        torch.cuda.empty_cache()
+        dp_train_phase(torch, np, card)
+        lap("train parity, train, dp train")
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_lanes(lanes)
     k1 = dict(name="paged_attention", route="cuda",
               source="src/repro_torch/kernels/csrc/paged_attention.cu",
               replaces="src/repro/kernels/paged_attention.py:100",

@@ -2,7 +2,8 @@
 numpy arrays under the same dotted paths (``embed.tok``,
 ``blocks.p0.attn.wq``, ... with the LAYERS axis stacked), becomes the
 port's tensors.  Both packages then compute the same function, which is
-how the tests hold the port against the reference."""
+how the tests hold the port against the reference; the optimizer state
+crosses the same way (:func:`opt_state_from_numpy`)."""
 from __future__ import annotations
 
 from typing import Dict, Mapping
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
+from repro_torch.optim.adamw import AdamWState
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -37,18 +39,42 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device) -> dict:
         raise ValueError(f"param paths differ: missing "
                          f"{sorted(set(want) - set(got))}, unexpected "
                          f"{sorted(set(got) - set(want))}")
-    dtype = transformer.dtype_of(cfg.param_dtype)
+    return _nest(got, want, device, transformer.dtype_of(cfg.param_dtype))
+
+
+def _nest(got: Dict[str, object], want: Dict[str, torch.Tensor], device,
+          dtype: torch.dtype) -> dict:
+    """{dotted path: array} with ``want``'s paths -> the nested dict of
+    tensors on ``device`` in ``dtype``; raises on a shape that is not
+    ``want``'s."""
     out: dict = {}
     for path, ref in want.items():
         arr = np.asarray(got[path])
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{path}: shape {arr.shape} != "
                              f"{tuple(ref.shape)}")
-        t = torch.from_numpy(arr.astype(np.float32)).to(device=device,
-                                                        dtype=dtype)
         node = out
         parts = path.split(".")
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = t
+        node[parts[-1]] = torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=dtype)
     return out
+
+
+def opt_state_from_numpy(state, params: dict, device):
+    """The reference's ``AdamWState`` (``step``, ``m``, ``v``, as numpy or
+    anything ``np.asarray`` reads) -> the port's
+    :class:`~repro_torch.optim.adamw.AdamWState` on ``device``: the step
+    an int32 0-d tensor, the moments float32 trees with ``params``' paths
+    (which must be exactly theirs)."""
+    def tree(moments):
+        got, want = flatten(moments), flatten(params)
+        if set(got) != set(want):
+            raise ValueError(f"moment paths differ from the params': "
+                             f"{sorted(set(got) ^ set(want))}")
+        return _nest(got, want, device, torch.float32)
+
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=device)
+    return AdamWState(step=step, m=tree(state.m), v=tree(state.v))

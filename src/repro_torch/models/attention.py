@@ -5,7 +5,9 @@
                 takes it, and chunked prefill over a paged cache gathers
                 the pages and calls it (:func:`paged_gather_attention`);
 - ``chunked`` — blockwise online softmax (the paper's `nest` blocking) in
-                plain PyTorch, forward only;
+                plain PyTorch, with the reference's blockwise backward
+                (:class:`_Flash`, an autograd function: training's
+                attention);
 - ``pallas``  — the ``flash_attention`` kernel (K2): CUDA on the card, its
                 plain version on the CPU (:mod:`repro_torch.kernels.ops`).
 
@@ -175,14 +177,15 @@ def tp_paged_gather_attention(q, k_pages, v_pages, page_table,
 
 
 def chunked_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
-    """Online-softmax double loop over (bq, bkv) blocks, forward only (the
-    reference's custom VJP waits for training).  q: (B,Sq,Hq,D); k/v:
+    """Online-softmax double loop over (bq, bkv) blocks with the
+    reference's flash-style backward (:class:`_Flash`): the backward
+    recomputes each score block from (q, k, v, out, lse) instead of
+    keeping every block's accumulators.  q: (B,Sq,Hq,D); k/v:
     (B,Skv,Hkv,D) -> (B,Sq,Hq,D).  ``q_offset``/``kv_valid_len`` are
     scalars.  Non-divisible lengths are padded and masked; every kv block
     is visited, as in the reference (a block masked for a whole row adds
     p = 1 terms that the row's first live block wipes with alpha = 0)."""
-    b, orig_sq, hq, d = q.shape
-    orig_skv, hkv = k.shape[1], k.shape[2]
+    orig_sq, orig_skv = q.shape[1], k.shape[1]
     bq, bkv = resolve_blocks(p, q, k)
     bq, bkv = min(bq, orig_sq), min(bkv, orig_skv)
     pad_q, pad_kv = (-orig_sq) % bq, (-orig_skv) % bkv
@@ -193,37 +196,141 @@ def chunked_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
         v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
         if kv_valid_len is None:
             kv_valid_len = orig_skv
-    kv_valid_len = None if kv_valid_len is None else int(kv_valid_len)
-    q_offset = int(q_offset)
-    scale = p.scale if p.scale is not None else d ** -0.5
+    meta = _FlashMeta(
+        causal=p.causal, window=p.window, softcap=p.softcap,
+        scale=p.scale if p.scale is not None else q.shape[-1] ** -0.5,
+        bq=bq, bkv=bkv, q_offset=int(q_offset),
+        kv_valid_len=None if kv_valid_len is None else int(kv_valid_len))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(meta, q, k, v)[:, :orig_sq]
+    # serving: the forward alone, with no lse for a backward
+    return _flash_fwd_impl(meta, q, k, v, with_lse=False)[0][:, :orig_sq]
+
+
+class _FlashMeta(NamedTuple):
+    causal: bool
+    window: Optional[int]
+    softcap: Optional[float]
+    scale: float
+    bq: int
+    bkv: int
+    q_offset: int
+    kv_valid_len: Optional[int]
+
+
+def _blocks(meta: _FlashMeta, q, k, v):
+    """float32 blocks: q (B, nq, bq, Hkv, g, D) times the scale, k/v
+    (B, nkv, bkv, Hkv, D), and the shape numbers."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    nq, nkv = q.shape[1] // bq, k.shape[1] // bkv
+    nq, nkv = sq // meta.bq, skv // meta.bkv
+    qb = q.reshape(b, nq, meta.bq, hkv, g, d).float() * meta.scale
+    kb = k.reshape(b, nkv, meta.bkv, hkv, d).float()
+    vb = v.reshape(b, nkv, meta.bkv, hkv, d).float()
+    return qb, kb, vb, (b, sq, hq, d, skv, hkv, g, nq, nkv)
+
+
+def _q_pos(meta: _FlashMeta, qi: int, device) -> torch.Tensor:
+    """Positions (bq, 1) of q block ``qi``'s rows."""
+    return (meta.q_offset + qi * meta.bq
+            + torch.arange(meta.bq, device=device)[:, None])
+
+
+def _block_scores(meta: _FlashMeta, q_blk, k_blk, q_pos, kj: int,
+                  with_dsoft: bool = False):
+    """(softcapped scores, the softcap's derivative when ``with_dsoft``
+    and a softcap is set, else None, mask) of the block of q rows at
+    ``q_pos`` and kv block ``kj``; the mask broadcasts over (B, bq, Hkv,
+    g, bkv)."""
+    s = torch.einsum("bqhgd,bkhd->bqhgk", q_blk, k_blk)
+    s_c, dsoft = common.softcap(s, meta.softcap), None
+    if with_dsoft and meta.softcap is not None:
+        dsoft = 1.0 - torch.square(s_c / meta.softcap)
+    k_pos = kj * meta.bkv + torch.arange(meta.bkv, device=s.device)[None, :]
+    msk = _mask(q_pos, k_pos, meta.causal, meta.window, meta.kv_valid_len)
+    return s_c, dsoft, msk[None, :, None, None, :]
+
+
+def _flash_fwd_impl(meta: _FlashMeta, q, k, v, with_lse: bool = True):
+    """(out (B, Sq, Hq, D) in q's dtype, lse (nq, B, bq, Hkv, g) float32,
+    or None unless ``with_lse``); a row with no live key gets lse +1e30,
+    so that the backward's recomputed p underflows to exactly 0 there."""
+    qb, kb, vb, (b, sq, hq, d, skv, hkv, g, nq, nkv) = _blocks(meta, q, k, v)
     dev = q.device
-    qb = q.reshape(b, nq, bq, hkv, g, d).float() * scale
-    kb = k.reshape(b, nkv, bkv, hkv, d).float()
-    vb = v.reshape(b, nkv, bkv, hkv, d).float()
-    outs = []
+    outs, lses = [], []
     for i in range(nq):
-        m = torch.full((b, bq, hkv, g), NEG_INF, device=dev)
-        l = torch.zeros((b, bq, hkv, g), device=dev)
-        acc = torch.zeros((b, bq, hkv, g, d), device=dev)
-        q_pos = q_offset + i * bq + torch.arange(bq, device=dev)[:, None]
+        m = torch.full((b, meta.bq, hkv, g), NEG_INF, device=dev)
+        l = torch.zeros((b, meta.bq, hkv, g), device=dev)
+        acc = torch.zeros((b, meta.bq, hkv, g, d), device=dev)
+        q_pos = _q_pos(meta, i, dev)
         for j in range(nkv):
-            s = torch.einsum("bqhgd,bkhd->bqhgk", qb[:, i], kb[:, j])
-            s = common.softcap(s, p.softcap)
-            k_pos = j * bkv + torch.arange(bkv, device=dev)[None, :]
-            msk = _mask(q_pos, k_pos, p.causal, p.window, kv_valid_len)
-            s = torch.where(msk[None, :, None, None, :], s, NEG_INF)
-            m_n = torch.maximum(m, s.amax(dim=-1))
-            pr = torch.exp(s - m_n[..., None])
+            s_c, _, msk = _block_scores(meta, qb[:, i], kb[:, j], q_pos, j)
+            s_c = torch.where(msk, s_c, NEG_INF)
+            m_n = torch.maximum(m, s_c.amax(dim=-1))
+            pr = torch.exp(s_c - m_n[..., None])
             alpha = torch.exp(m - m_n)
             l = l * alpha + pr.sum(dim=-1)
             acc = acc * alpha[..., None] + torch.einsum(
                 "bqhgk,bkhd->bqhgd", pr, vb[:, j])
             m = m_n
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    out = torch.stack(outs, dim=1).reshape(b, nq * bq, hq, d)
-    return out[:, :orig_sq].to(q.dtype)
+        if with_lse:
+            lses.append(torch.where(
+                l > 0, m + torch.log(torch.clamp(l, min=1e-30)), 1e30))
+    out = torch.stack(outs, dim=1).reshape(b, sq, hq, d).to(q.dtype)
+    return out, torch.stack(lses) if with_lse else None
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` custom VJP: forward
+    :func:`_flash_fwd_impl`, backward the blockwise recomputation
+    (``D_i = rowsum(dO * O)``, ``ds = p (dp - D_i)`` times ``1 -
+    (s_c/cap)^2`` under a softcap, dq taken on ``q * scale`` and scaled
+    at the end, dk/dv summed per kv block in q-block order)."""
+
+    @staticmethod
+    def forward(ctx, meta, q, k, v):
+        out, lse = _flash_fwd_impl(meta, q, k, v)
+        ctx.meta = meta
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        meta = ctx.meta
+        q, k, v, out, lse = ctx.saved_tensors
+        qb, kb, vb, (b, sq, hq, d, skv, hkv, g, nq, nkv) = _blocks(
+            meta, q, k, v)
+        dob = dout.reshape(b, nq, meta.bq, hkv, g, d).float()
+        outb = out.reshape(b, nq, meta.bq, hkv, g, d).float()
+        db = torch.sum(dob * outb, dim=-1)            # (B, nq, bq, Hkv, g)
+        dk = [torch.zeros((b, meta.bkv, hkv, d), device=q.device)
+              for _ in range(nkv)]
+        dv = [torch.zeros_like(x) for x in dk]
+        dqs = []
+        for i in range(nq):
+            q_blk, do_blk, d_blk = qb[:, i], dob[:, i], db[:, i]
+            dq_i = torch.zeros((b, meta.bq, hkv, g, d), device=q.device)
+            q_pos = _q_pos(meta, i, q.device)
+            for j in range(nkv):
+                s_c, dsoft, msk = _block_scores(meta, q_blk, kb[:, j], q_pos,
+                                                j, with_dsoft=True)
+                pr = torch.where(msk, torch.exp(s_c - lse[i][..., None]), 0.0)
+                dv_j = torch.einsum("bqhgk,bqhgd->bkhd", pr, do_blk)
+                dp = torch.einsum("bqhgd,bkhd->bqhgk", do_blk, vb[:, j])
+                ds = pr * (dp - d_blk[..., None])
+                if dsoft is not None:
+                    ds = ds * dsoft
+                dq_i = dq_i + torch.einsum("bqhgk,bkhd->bqhgd", ds, kb[:, j])
+                dk[j] = dk[j] + torch.einsum("bqhgk,bqhgd->bkhd", ds, q_blk)
+                dv[j] = dv[j] + dv_j
+            dqs.append(dq_i)
+        dq = (torch.stack(dqs, dim=1).reshape(b, sq, hq, d)
+              * meta.scale).to(q.dtype)
+        return (None, dq, torch.stack(dk, dim=1).reshape(b, skv, hkv, d
+                                                         ).to(k.dtype),
+                torch.stack(dv, dim=1).reshape(b, skv, hkv, d).to(v.dtype))
 
 
 def pallas_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):

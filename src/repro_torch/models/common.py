@@ -1,5 +1,5 @@
 """Shared model components: norms, RoPE, softcap, the depthwise causal
-convolution of the recurrent mixers, init helpers.
+convolution of the recurrent mixers, the cross-entropy loss, init helpers.
 
 Parameters are a nested dict of tensors built through :class:`ParamBuilder`
 under the reference's dotted paths (``embed.tok``, ``blocks.p0.attn.wq``,
@@ -164,3 +164,31 @@ def conv_state_from(x: torch.Tensor, k: int,
     if prev is not None:
         x = torch.cat([prev, x], dim=1)
     return x[:, -(k - 1):]
+
+
+def nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None, z_loss: float = 0.0):
+    """(summed next-token negative log-likelihood in float32, count) over
+    the counted positions: labels below 0 (-100) and positions where
+    ``mask`` is false are left out; ``z_loss`` adds ``z_loss * lse**2``
+    per counted position."""
+    logits = logits.float()
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & mask.bool()
+    safe = torch.where(valid, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - ll) * valid
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse) * valid
+    return nll.sum(), valid.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 (:func:`nll_sum` over its
+    count, at least 1)."""
+    tot, cnt = nll_sum(logits, labels, mask, z_loss)
+    return tot / torch.clamp(cnt, min=1)

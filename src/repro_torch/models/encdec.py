@@ -11,7 +11,9 @@ decode cache is split: the self-attention ``k``/``v`` rows of ``max_len``
 ``enc_len`` rows, computed once at prefill.  Prefill attention goes
 through ``flags.attn_impl`` (``pallas`` runs the ``flash_attention``
 kernel, K2, on every encoder, decoder-self and cross layer); a decode
-step's one query takes ``naive``.
+step's one query takes ``naive``.  :func:`train_loss` runs the encoder
+and the decoder over whole sequences with autograd and no cache (each
+layer rematerialised when ``flags.remat`` is on).
 
 Parameters keep the reference's dotted paths (``enc.*``, ``enc_norm``,
 ``dec.{ln1,self,lnx,cross,ln2,mlp}``, ``final_norm``, ``lm_head`` when the
@@ -30,8 +32,10 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import (EMBED, HEADS, KV_HEADS, LAYERS,
                                        VOCAB, ParamBuilder, rms_norm, rope)
-from repro_torch.models.transformer import (RuntimeFlags, _pick,
-                                            compute_logits, dtype_of)
+from repro_torch.models.transformer import (RuntimeFlags, _layer_remat,
+                                            _pick, _remat, chunked_ce,
+                                            compute_logits, dtype_of,
+                                            tp_devices)
 
 
 def _init_attn(b: ParamBuilder, path: str, cfg: ModelConfig, stacked: int):
@@ -105,19 +109,23 @@ def _attn_params(flags: RuntimeFlags, causal: bool) -> AttnParams:
 
 def encode(params, cfg: ModelConfig, flags: RuntimeFlags,
            frames: torch.Tensor) -> torch.Tensor:
-    """frames: (B, S, d) -> encoder memory (B, S, d) in the compute dtype."""
+    """frames: (B, S, d) -> encoder memory (B, S, d) in the compute dtype;
+    each layer under ``flags.remat`` when it trains (:func:`_layer_remat`)."""
     ap = _attn_params(flags, causal=False)
     bsz, s, _ = frames.shape
     positions = torch.arange(s, dtype=torch.int32, device=frames.device
                              )[None].expand(bsz, s)
     x = frames.to(dtype_of(cfg.compute_dtype))
-    for i in range(cfg.num_encoder_layers):
-        bp = _pick(params["enc"], i)
+
+    def layer(bp, x):
         h = rms_norm(x, bp["ln1"])
         q, k, v = _qkv(bp["attn"], h, cfg, positions)
         x = x + _proj_out(bp["attn"], attn_mod.attention(q, k, v, ap), cfg)
         h = rms_norm(x, bp["ln2"])
-        x = x + mlp_mod.apply(bp["mlp"], h, cfg.activation)
+        return x + mlp_mod.apply(bp["mlp"], h, cfg.activation)
+
+    for i in range(cfg.num_encoder_layers):
+        x = _remat(_layer_remat(flags), layer, _pick(params["enc"], i), x)
     return rms_norm(x, params["enc_norm"])
 
 
@@ -131,8 +139,10 @@ def _decoder(params, cfg: ModelConfig, flags: RuntimeFlags, x, memory=None,
              cache=None, pos=None, mode: str = "prefill"):
     """x: (B, St, d) token embeddings.  ``prefill`` attends over the whole
     sequence and the encoder ``memory`` and returns the new split cache;
-    ``decode`` (St = 1) writes each slot's k/v at its own ``pos`` (scalar
-    or (B,)) into ``cache`` in place and reads the cross k/v from it."""
+    ``train`` does the same and keeps no cache (each layer under
+    ``flags.remat``, :func:`_layer_remat`); ``decode`` (St = 1) writes
+    each slot's k/v at its own ``pos`` (scalar or (B,)) into ``cache`` in
+    place and reads the cross k/v from it."""
     ap_self = _attn_params(flags, causal=True)
     ap_cross = _attn_params(flags, causal=False)
     bsz, st, _ = x.shape
@@ -147,8 +157,8 @@ def _decoder(params, cfg: ModelConfig, flags: RuntimeFlags, x, memory=None,
         positions = torch.arange(st, dtype=torch.int32, device=dev
                                  )[None].expand(bsz, st)
     new = {n: [] for n in ("k", "v", "ck", "cv")}
-    for i in range(cfg.num_layers):
-        bp = _pick(params["dec"], i)
+
+    def layer(i, bp, x, memory):
         # causal self-attention (cached in decode)
         h = rms_norm(x, bp["ln1"])
         q, k, v = _qkv(bp["self"], h, cfg, positions)
@@ -162,8 +172,9 @@ def _decoder(params, cfg: ModelConfig, flags: RuntimeFlags, x, memory=None,
         else:
             o = attn_mod.attention(q, k, v, ap_self)
             ck, cv = _cross_kv(bp["cross"], memory, cfg)
-            for n, t in (("k", k), ("v", v), ("ck", ck), ("cv", cv)):
-                new[n].append(t)
+            if mode == "prefill":
+                for n, t in (("k", k), ("v", v), ("ck", ck), ("cv", cv)):
+                    new[n].append(t)
         x = x + _proj_out(bp["self"], o, cfg)
         # cross-attention over the encoder memory
         h = rms_norm(x, bp["lnx"])
@@ -172,15 +183,37 @@ def _decoder(params, cfg: ModelConfig, flags: RuntimeFlags, x, memory=None,
                                                           ap_cross), cfg)
         # FFN
         h = rms_norm(x, bp["ln2"])
-        x = x + mlp_mod.apply(bp["mlp"], h, cfg.activation)
+        return x + mlp_mod.apply(bp["mlp"], h, cfg.activation)
+
+    for i in range(cfg.num_layers):
+        x = _remat(_layer_remat(flags), layer, i, _pick(params["dec"], i), x,
+                   memory)
     x = rms_norm(x, params["final_norm"])
     if mode == "decode":
         return x, cache
+    if mode == "train":
+        return x, None
     return x, dict(dec={n: torch.stack(ts) for n, ts in new.items()})
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"]["tok"][tokens.long()]
+
+
+def train_loss(params, cfg: ModelConfig, flags: RuntimeFlags, batch: dict):
+    """``batch["frames"]`` (B, Se, d), ``batch["dec_tokens"]`` (B, St),
+    ``batch["labels"]`` (B, St) -> (cross-entropy, dict(ce=, aux=)), with
+    the graph kept for autograd; ``aux`` is a float32 zero (no MoE)."""
+    if tp_devices(flags) is not None:
+        raise NotImplementedError(
+            "training over a mesh of more than one device is ROADMAP A10b "
+            "(FSDP x TP under the single controller); train on one device")
+    memory = encode(params, cfg, flags, batch["frames"])
+    x = _embed(params, batch["dec_tokens"])
+    x, _ = _decoder(params, cfg, flags, x, memory=memory, mode="train")
+    loss = chunked_ce(params, cfg, x, batch["labels"], flags)
+    return loss, dict(ce=loss, aux=torch.zeros((), dtype=torch.float32,
+                                               device=loss.device))
 
 
 @torch.no_grad()

@@ -1,4 +1,5 @@
-"""ModelBundle: the model's interface to the serving engine.
+"""ModelBundle: the model's interface to the serving engine and the
+trainer.
 
 ``build(cfg, flags=None, device=None)`` returns a bundle bound to one
 device: ``cuda`` unless the caller names another (``device="cpu"`` runs the
@@ -6,8 +7,8 @@ plain PyTorch path).  Without a card and without an explicit device it
 raises.  ``flags`` (:class:`~repro_torch.models.transformer.RuntimeFlags`)
 picks prefill's attention (the default is the reference's, ``chunked``)
 and the MoE dispatch.  An encoder-decoder config
-(:mod:`~repro_torch.models.encdec`) dispatches ``init``, ``prefill``,
-``decode_step`` and ``init_cache`` to its own stack."""
+(:mod:`~repro_torch.models.encdec`) dispatches ``init``, ``train_loss``,
+``prefill``, ``decode_step`` and ``init_cache`` to its own stack."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -37,12 +38,24 @@ class ModelBundle:
         bundle's device)."""
         return self._stack.init_params(self.cfg, generator, self.device)
 
+    def abstract_params(self):
+        """(the params on the meta device: paths, shapes and dtypes with
+        no memory, their logical-axes tree), the reference's
+        ``abstract_params()``."""
+        b = self._stack.build_params(self.cfg, None, "meta")
+        return b.params, b.specs
+
     def param_specs(self) -> dict:
         """The params' logical-axes tree (a tuple of axis names, or None,
         per dimension of each leaf), built on the meta device: the
         counterpart of the reference's ``abstract_params()[1]``, which
         :mod:`repro_torch.dist.sharding` maps onto mesh axes."""
         return self._stack.build_params(self.cfg, None, "meta").specs
+
+    def train_loss(self, params, batch: dict):
+        """(loss, dict(ce=, aux=)) of a training batch, differentiable
+        (:func:`~repro_torch.models.transformer.train_loss`)."""
+        return self._stack.train_loss(params, self.cfg, self.flags, batch)
 
     # -- dense KV backend ------------------------------------------------
     def init_cache(self, batch: int, max_len: int,

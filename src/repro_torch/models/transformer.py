@@ -2,7 +2,13 @@
 mixers, with a dense MLP, a mixture of experts or none, on a dense or a
 paged KV cache.
 
-The port of ``repro.models.transformer`` for these stacks, four modes:
+The port of ``repro.models.transformer`` for these stacks, five modes:
+
+- ``train`` (:func:`train_loss`): the whole sequence with autograd, no
+  cache; each pattern block under ``flags.remat`` (``torch.utils.
+  checkpoint``), the loss over sequence chunks (:func:`chunked_ce`),
+  the MoE layers' load-balance loss added with ``aux_loss_weight``;
+  serving's entry points stay under ``torch.no_grad()``;
 
 - ``prefill`` (:func:`prefill`): a whole (right-padded) prompt; attention
   through ``flags.attn_impl`` (``pallas`` runs the ``flash_attention``
@@ -30,7 +36,8 @@ A modality frontend's precomputed patch embeddings (``patch_embeds``,
 embeddings in prefill, so positions run over ``P + S`` (such stacks are
 served from the dense cache, as in the reference).  MoE layers
 (:mod:`~repro_torch.models.moe`) dispatch by ``flags.moe_impl`` with the
-config's capacity factor; serving discards their load-balance loss.
+config's capacity factor; serving discards their load-balance loss,
+training adds it.
 
 Recurrent mixers (:mod:`~repro_torch.models.rglru`,
 :mod:`~repro_torch.models.ssm`) keep dense per-slot state (``h``/``state``
@@ -84,7 +91,8 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnParams, paged_gather_attention
 from repro_torch.models.common import (EMBED, HEADS, KV_HEADS, LAYERS, VOCAB,
-                                       ParamBuilder, rms_norm, rope, softcap)
+                                       ParamBuilder, cross_entropy, nll_sum,
+                                       rms_norm, rope, softcap)
 
 
 @dataclass(frozen=True)
@@ -95,8 +103,12 @@ class RuntimeFlags:
     chunked's blocks (None = the tuned plan's,
     :func:`repro_torch.models.attention.resolve_blocks`); the CUDA kernel
     behind ``pallas`` picks its own tiles.  ``moe_impl`` picks the MoE
-    dispatch (dense | sorted).  ``kv_dtype="int8"`` stores the KV cache as int8 with a
-    float32 scale per token.  ``mesh`` (a :class:`~repro_torch.launch.
+    dispatch (dense | sorted).  Training reads ``remat`` (none | full |
+    dots: what a pattern block's backward recomputes, :func:`_remat`),
+    ``loss_chunk`` (the sequence chunk of :func:`chunked_ce`, 0 = one
+    shot) and ``aux_loss_weight`` (the MoE load-balance loss's weight in
+    :func:`train_loss`).  ``kv_dtype="int8"`` stores the KV cache as int8
+    with a float32 scale per token.  ``mesh`` (a :class:`~repro_torch.launch.
     mesh.Mesh`, set by :meth:`~repro_torch.dist.serve.ServeMesh.bind`)
     with more than one device along ``tp_axis`` runs every entry point
     tensor-parallel over per-shard params and caches."""
@@ -105,12 +117,16 @@ class RuntimeFlags:
     attn_bq: Optional[int] = None
     attn_bkv: Optional[int] = None
     moe_impl: str = "sorted"         # dense | sorted
+    remat: str = "none"              # none | full | dots
+    loss_chunk: int = 512
+    aux_loss_weight: float = 0.01
     kv_dtype: str = "native"         # native | int8
     mesh: Any = None
     tp_axis: str = "model"
 
 
 KV_DTYPES = ("native", "int8")
+REMATS = ("none", "full", "dots")
 # the recurrent mixers: the reference's param name, module, state type
 RECURRENT = {SSD: ("ssd", ssm_mod, ssm_mod.SSDState),
              RGLRU: ("rglru", rglru_mod, rglru_mod.LRUState)}
@@ -132,6 +148,9 @@ def check_supported(cfg: ModelConfig,
         if flags.moe_impl not in moe_mod.IMPLS:
             raise ValueError(f"unknown moe_impl {flags.moe_impl!r}; known: "
                              f"{moe_mod.IMPLS}")
+        if flags.remat not in REMATS:
+            raise ValueError(f"unknown remat {flags.remat!r}; known: "
+                             f"{REMATS}")
     for spec in tuple(cfg.layer_pattern) + tuple(cfg.remainder_specs):
         if ((spec.mixer != ATTN and spec.mixer not in RECURRENT)
                 or spec.mlp not in (DENSE, MOE, NONE)):
@@ -346,10 +365,10 @@ def _ring_gather(cache, tbl, off, page, dtype):
 
 
 def _positions(mode: str, pos, bsz: int, s: int, dev):
-    """(per-slot offsets (B,) int32, or None in prefill; every query's
-    absolute position (B, S) int32)."""
+    """(per-slot offsets (B,) int32, or None in prefill and training;
+    every query's absolute position (B, S) int32)."""
     steps = torch.arange(s, dtype=torch.int32, device=dev)
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         return None, steps[None].expand(bsz, s)
     posv = torch.as_tensor(pos, dtype=torch.int32, device=dev
                            ).reshape(-1).expand(bsz)
@@ -495,9 +514,11 @@ def _paged_attn(shards, ap: AttnParams, spec: LayerSpec, mode: str,
 
 def _dense_attn(q, k, v, quant, cache, ap: AttnParams, spec: LayerSpec,
                 posv, mode: str):
-    """The dense-cache mixer body, on roped q/k.  Decode writes each slot's
-    k/v into its cache row at its own position (a windowed layer at ``pos
-    % rows`` of its ring, recording the position in ``kpos``), then
+    """The dense-cache mixer body, on roped q/k (training's too, which
+    attends over the whole sequence and keeps no cache).  Decode writes
+    each slot's k/v into its cache row at its own position (a windowed
+    layer at ``pos % rows`` of its ring, recording the position in
+    ``kpos``), then
     attends over the row; prefill attends over the whole (right-padded)
     sequence through ``ap.impl`` and hands back the request's cache (a
     windowed layer's last ``window`` rows and their positions)."""
@@ -528,6 +549,8 @@ def _dense_attn(q, k, v, quant, cache, ap: AttnParams, spec: LayerSpec,
             o = attn_mod.naive_attention(q, kc, vc, ap, q_offset=posv,
                                          kv_valid_len=posv + 1)
         return o, cache
+    if mode == "train":
+        return attn_mod.attention(q, k, v, ap), None
     if quant is not None:
         # prefill attends over the round trip it stores, so its logits
         # agree with decode and with paged chunked prefill
@@ -568,7 +591,7 @@ def _apply_attn(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
     bsz, s, _ = x.shape
     q, k, v, posv, positions = _qkv(p, x, cfg, cfg.num_heads,
                                     cfg.num_kv_heads, mode, pos)
-    quant = _quantize(k, v, flags)
+    quant = None if mode == "train" else _quantize(k, v, flags)
     ap = _attn_params(cfg, spec, flags)
     if mode in ("paged_decode", "paged_extend"):
         o = _paged_attn([_Shard(q, k, v, quant, cache, posv, positions,
@@ -616,7 +639,8 @@ def _apply_recurrent(spec: LayerSpec, p, h, cfg: ModelConfig, mode, cache,
                      pos, slot, active):
     """A recurrent mixer in each mode: decode advances every row of the
     state (``paged_decode`` only the active ones) in place; a paged chunk
-    continues ``slot``'s row; prefill returns the prompt's state."""
+    continues ``slot``'s row; prefill returns the prompt's state; training
+    keeps none."""
     name, mod, state_type = RECURRENT[spec.mixer]
     p = p[name]
     if mode in ("decode", "paged_decode"):
@@ -633,6 +657,8 @@ def _apply_recurrent(spec: LayerSpec, p, h, cfg: ModelConfig, mode, cache,
                              "recurrent layer needs the slot it continues")
         return (_recurrent_chunk(mod, state_type, p, h, cache, cfg, pos,
                                  slot), cache)
+    if mode == "train":
+        return mod.forward(p, h, cfg), None
     mix, st = mod.forward(p, h, cfg, return_state=True)
     return mix, st._asdict()
 
@@ -640,8 +666,9 @@ def _apply_recurrent(spec: LayerSpec, p, h, cfg: ModelConfig, mode, cache,
 def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
                  mode, cache, pos, table, chunk_valid, slot=None,
                  active=None):
-    """Returns (x, the layer's cache: the one given, written in place, or
-    the prompt's new k/v or state in prefill)."""
+    """Returns (x, the layer's cache: the one given, written in place, the
+    prompt's new k/v or state in prefill, None in training; the MoE
+    load-balance loss, float32, or None without a MoE)."""
     h = rms_norm(x, p["ln1"])
     if spec.mixer == ATTN:
         mix, cache = _apply_attn(p["attn"], h, cfg, spec, flags, mode, cache,
@@ -650,16 +677,17 @@ def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
         mix, cache = _apply_recurrent(spec, p, h, cfg, mode, cache, pos,
                                       slot, active)
     x = x + mix
+    aux = None
     if spec.mlp == DENSE:
         h = rms_norm(x, p["ln2"])
         x = x + mlp_mod.apply(p["mlp"], h, cfg.activation)
     elif spec.mlp == MOE:
         h = rms_norm(x, p["ln2"])
-        out, _ = moe_mod.apply(p["moe"], h, cfg.num_experts_per_tok,
-                               cfg.activation, impl=flags.moe_impl,
-                               capacity_factor=cfg.moe_capacity_factor)
+        out, aux = moe_mod.apply(p["moe"], h, cfg.num_experts_per_tok,
+                                 cfg.activation, impl=flags.moe_impl,
+                                 capacity_factor=cfg.moe_capacity_factor)
         x = x + out
-    return x, cache
+    return x, cache, aux
 
 
 def _pick(tree, i):
@@ -706,6 +734,34 @@ def compute_logits(params, cfg: ModelConfig, x: torch.Tensor):
 def _each(logits, fn):
     """``fn`` over a logits tensor, or over each shard's vocab slice."""
     return [fn(x) for x in logits] if isinstance(logits, list) else fn(logits)
+
+
+def _chunk_nll(head, cap, xb, lb):
+    """:func:`nll_sum` of one sequence chunk's logits."""
+    return nll_sum(softcap(xb @ head, cap), lb)
+
+
+def chunked_ce(params, cfg: ModelConfig, x, labels,
+               flags: RuntimeFlags) -> torch.Tensor:
+    """Mean cross-entropy over sequence chunks of ``min(loss_chunk, S)``
+    positions (S must divide by it), each under a checkpoint, so that no
+    (B, c, V) logits are kept for the backward; the chunks' sums add in
+    order.  ``loss_chunk=0`` computes the logits in one shot."""
+    if flags.loss_chunk <= 0:
+        return cross_entropy(compute_logits(params, cfg, x), labels)
+    from torch.utils.checkpoint import checkpoint
+    s = x.shape[1]
+    c = min(flags.loss_chunk, s)
+    assert s % c == 0, f"sequence {s} does not divide by loss chunk {c}"
+    head = _head_weight(params)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(0, s, c):
+        t, n = checkpoint(_chunk_nll, head, cfg.final_logit_softcap,
+                          x[:, i:i + c], labels[:, i:i + c],
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1)
 
 
 # ---------------------------------------------------------------------------
@@ -846,7 +902,78 @@ def _forward_tp(params, cfg: ModelConfig, flags: RuntimeFlags, tokens,
 # public entry points
 # ---------------------------------------------------------------------------
 
-MODES = ("prefill", "decode", "paged_decode", "paged_extend")
+MODES = ("train", "prefill", "decode", "paged_decode", "paged_extend")
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``remat="dots"``'s policy: keep the outputs of the unbatched
+    matmuls (the projections and the MLP, ``aten.mm``; the counterpart of
+    the reference's ``dots_with_no_batch_dims_saveable``), recompute
+    everything else, batched attention products included."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(remat: str, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    ``full`` keeps only the inputs and recomputes the rest in the
+    backward, ``dots`` also keeps the unbatched matmuls' outputs
+    (selective checkpointing, :func:`_save_matmuls`), ``none`` (or no
+    autograd) calls it."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_matmuls)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _layer_remat(flags: RuntimeFlags) -> str:
+    """A layer outside the pattern blocks (the remainder layers here, an
+    encoder-decoder's layers in :mod:`repro_torch.models.encdec`) is
+    recomputed whole in the backward under either remat policy, as the
+    reference's ``nothing_saveable`` does."""
+    return "none" if flags.remat == "none" else "full"
+
+
+def _forward_train(params, cfg: ModelConfig, flags: RuntimeFlags, tokens,
+                   patch_embeds=None):
+    """The full-sequence stack with gradients: (final-normed hidden states,
+    the MoE load-balance losses summed over the layers, float32).  Each
+    pattern block runs under ``flags.remat``; the remainder layers under
+    :func:`_layer_remat`."""
+    if tp_devices(flags) is not None:
+        raise NotImplementedError(
+            "training over a mesh of more than one device is ROADMAP A10b "
+            "(FSDP x TP under the single controller); train on one device")
+    x = embed_tokens(params, cfg, tokens)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layers(pairs, x, aux):
+        """(spec, params) pairs applied in order."""
+        for spec, p in pairs:
+            x, _, a = _apply_layer(p, x, cfg, spec, flags, "train", None,
+                                   None, None, None)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    for i in range(cfg.num_pattern_blocks):
+        bp = _pick(params["blocks"], i)
+        x, aux = _remat(flags.remat, layers,
+                        [(spec, bp[f"p{j}"])
+                         for j, spec in enumerate(cfg.layer_pattern)], x, aux)
+    for j, spec in enumerate(cfg.remainder_specs):
+        x, aux = _remat(_layer_remat(flags), layers,
+                        [(spec, params["rem"][f"r{j}"])], x, aux)
+    return rms_norm(x, params["final_norm"]), aux
 
 
 def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
@@ -855,6 +982,9 @@ def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
     """tokens: (B, S) -> (final-normed hidden states (B, S, d), cache);
     ``patch_embeds`` (B, P, d), a frontend's, are prepended to the token
     embeddings (then (B, P + S, d)).
+    ``train`` builds no cache and keeps the graph for autograd: it
+    returns (hidden states, the MoE load-balance loss summed over the
+    layers) (:func:`_forward_train`).
     ``prefill`` builds a new dense cache from the prompt (stacked like the
     params); the other modes write ``cache`` in place and return it.
     ``table``/``chunk_valid`` only apply to the paged modes: ``table`` is
@@ -865,6 +995,8 @@ def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
     (:func:`_forward_tp`)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the port runs {MODES}")
+    if mode == "train":
+        return _forward_train(params, cfg, flags, tokens, patch_embeds)
     if table is not None and not isinstance(table, (dict, list)):
         table = dict(full=table)
     devs = tp_devices(flags)
@@ -879,22 +1011,33 @@ def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
         for j, spec in enumerate(cfg.layer_pattern):
             c = (None if cache is None
                  else _pick(cache["blocks"][f"p{j}"], i))
-            x, c = _apply_layer(_pick(params["blocks"][f"p{j}"], i), x, cfg,
-                                spec, flags, mode, c, pos, table, chunk_valid,
-                                slot, active)
+            x, c, _ = _apply_layer(_pick(params["blocks"][f"p{j}"], i), x,
+                                   cfg, spec, flags, mode, c, pos, table,
+                                   chunk_valid, slot, active)
             blocks[f"p{j}"].append(c)
     rem = {}
     for j, spec in enumerate(cfg.remainder_specs):
         c = None if cache is None else cache["rem"][f"r{j}"]
-        x, rem[f"r{j}"] = _apply_layer(params["rem"][f"r{j}"], x, cfg, spec,
-                                       flags, mode, c, pos, table,
-                                       chunk_valid, slot, active)
+        x, rem[f"r{j}"], _ = _apply_layer(params["rem"][f"r{j}"], x, cfg,
+                                          spec, flags, mode, c, pos, table,
+                                          chunk_valid, slot, active)
     if mode == "prefill":
         cache = dict(blocks={name: {n: torch.stack([c[n] for c in cs])
                                     for n in cs[0]}
                              for name, cs in blocks.items()},
                      rem=rem)
     return rms_norm(x, params["final_norm"]), cache
+
+
+def train_loss(params, cfg: ModelConfig, flags: RuntimeFlags, batch: dict):
+    """``batch["tokens"]`` (B, S), ``batch["labels"]`` (B, S + P) (labels
+    below 0 are left out), ``batch["patch_embeds"]`` (B, P, d, optional).
+    Returns (cross-entropy + ``aux_loss_weight`` x the MoE load-balance
+    loss, dict(ce=, aux=)), with the graph kept for autograd."""
+    x, aux = forward(params, cfg, flags, batch["tokens"], "train",
+                     patch_embeds=batch.get("patch_embeds"))
+    loss = chunked_ce(params, cfg, x, batch["labels"], flags)
+    return loss + flags.aux_loss_weight * aux, dict(ce=loss, aux=aux)
 
 
 @torch.no_grad()

@@ -1433,3 +1433,79 @@ def _pool_view(pool, chaos):
         def run_to_completion():
             return pool.run(chaos=chaos)
     return View
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(causal=True, softcap=5.0),
+                                dict(causal=True, window=24),
+                                dict(causal=False)])
+def test_chunked_attention_backward_card_equals_cpu(cuda, no_tf32, kw):
+    """The trainable chunked attention (an autograd function, plain torch
+    ops, no kernel of the port) on the card: output and q/k/v gradients
+    within 1e-5 of the CPU's on a ragged length that pads."""
+    from repro_torch.models import attention as attn
+    rng = np.random.default_rng(11)
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((2, 45, 8, 32), (2, 45, 2, 32), (2, 45, 2, 32),
+                             (2, 45, 8, 32)))
+    p = attn.AttnParams(impl="chunked", bq=16, bkv=16, scale=0.2, **kw)
+    got = []
+    for dev in ("cpu", cuda):
+        tq, tk, tv = (torch.from_numpy(x).to(dev).requires_grad_(True)
+                      for x in (q, k, v))
+        out = attn.chunked_attention(tq, tk, tv, p)
+        out.backward(torch.from_numpy(do).to(dev))
+        got.append([t.detach().cpu() for t in (out, tq.grad, tk.grad,
+                                               tv.grad)])
+    for a, b in zip(*got):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_card_equals_cpu(cuda, no_tf32):
+    """One train step of smoke gemma-2b (the launcher's flags, float32)
+    from the same params on the card and on the CPU: the loss and
+    ``grad_norm`` within 1e-5 relative, AdamW's first moment ((1 - b1)
+    times the clipped gradient) per leaf within 1e-4 of its largest
+    magnitude, every param within 2 lr after AdamW (one step moves a
+    param by about lr whatever its gradient), and no kernel of the port
+    launched (the reference's training path reaches none)."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.dist import POLICIES
+    from repro_torch.dist.steps import make_train_step
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import FLAGS
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = smoke_config(ARCHS["gemma-2b"])
+    rng = np.random.default_rng(12)
+    tok = rng.integers(0, cfg.vocab_size, (4, 33)).astype(np.int32)
+    mods = (pa, fa, da, mm, sc, st, rg, pc)
+    before = [m.LAUNCHES for m in mods]
+    init = build(cfg, FLAGS, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    out = []
+    for dev in ("cpu", cuda):
+        bundle = build(cfg, FLAGS, device=dev)
+        step, _, _, _ = make_train_step(bundle, Mesh(("data", "model"),
+                                                     (1, 1), (dev,)),
+                                        POLICIES["fsdp_tp"],
+                                        AdamWConfig(lr=1e-3))
+        params = tree_map(lambda t: t.detach().to(dev, copy=True), init)
+        b = {k: torch.from_numpy(x).to(dev)
+             for k, x in (("tokens", tok[:, :-1]), ("labels", tok[:, 1:]))}
+        params, opt, m = step(params, adamw.init(params), b)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    [t.detach().cpu() for t in leaves(opt.m)],
+                    [t.detach().cpu() for t in leaves(params)]))
+    assert [m.LAUNCHES for m in mods] == before
+    (l_cpu, gn_cpu, m_cpu, p_cpu), (l_card, gn_card, m_card, p_card) = out
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert abs(gn_card - gn_cpu) <= 1e-5 * gn_cpu
+    for a, b in zip(m_cpu, m_card):
+        assert float((a - b).abs().max()) <= 1e-4 * (
+            float(a.abs().max()) or 1.0)
+    for a, b in zip(p_cpu, p_card):
+        assert float((a - b).abs().max()) <= 2e-3

@@ -11,10 +11,15 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.configs import ARCHS, smoke_config
+from repro_torch.configs import ARCHS, ShapeCell, smoke_config
+from repro_torch.dist import POLICIES
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import build
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import ModelBundle, build
+from repro_torch.optim import AdamWConfig
 from repro_torch.serve import ServeEngine
+from repro_torch.train import TrainConfig, Trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -58,10 +63,24 @@ def test_importing_every_module_loads_neither_jax_nor_reference():
                                     "repro_torch.dist.sharding",
                                     "repro_torch.dist.serve",
                                     "repro_torch.launch.mesh",
-                                    "repro_torch.bench.sweeps.dist_serve"])
+                                    "repro_torch.bench.sweeps.dist_serve",
+                                    "repro_torch.tree",
+                                    "repro_torch.optim",
+                                    "repro_torch.optim.adamw",
+                                    "repro_torch.optim.schedule",
+                                    "repro_torch.optim.compress",
+                                    "repro_torch.data.pipeline",
+                                    "repro_torch.dist.steps",
+                                    "repro_torch.dist.dp_shardmap",
+                                    "repro_torch.train",
+                                    "repro_torch.train.checkpoint",
+                                    "repro_torch.train.fault",
+                                    "repro_torch.train.loop",
+                                    "repro_torch.launch.train"])
 def test_new_module_alone_loads_neither_jax_nor_reference(module):
-    """Each module of the MoE and encoder-decoder slice and of the
-    distribution slice, imported by itself in a fresh interpreter."""
+    """Each module of the MoE and encoder-decoder slice, of the
+    distribution slice and of the training slice, imported by itself in
+    a fresh interpreter."""
     code = (f"import sys, {module}\n"
             "bad = sorted(n for n in sys.modules\n"
             "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -89,6 +108,17 @@ def test_entry_points_raise_without_a_card(no_card):
         ServeEngine(bundle, params, 2, 32)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         launch_serve.main(["--arch", "gemma-2b", "--smoke"])
+
+
+def test_training_raises_without_a_card(no_card):
+    cfg = smoke_config(ARCHS["gemma-2b"])
+    on_card = ModelBundle(cfg=cfg, device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        Trainer(on_card, ShapeCell("c", "train", 32, 4),
+                Mesh(("data", "model"), (1, 1), ("cuda",)),
+                POLICIES["fsdp_tp"], AdamWConfig(), TrainConfig(steps=1))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        launch_train.main(["--arch", "gemma-2b", "--smoke", "--steps", "1"])
 
 
 def test_launcher_serves_on_an_explicit_cpu(capsys):

@@ -4504,6 +4504,7 @@ def train_phase(torch, np, card):
           f"train: kernels launched during training: {before} -> {after}")
     check(not torch.backends.cuda.matmul.allow_tf32, "train: TF32 is on")
     del tr, params, opt
+    return dict(peak=peak, p_bytes=p_bytes, mv_bytes=mv_bytes)
 
 
 def train_parity_phase(torch, np):
@@ -4760,6 +4761,351 @@ def dp_train_phase(torch, np, card):
           f"dp train: DP=2 differs from the full-batch step: loss "
           f"{loss_rel:.3e}, grad_norm {gn_rel:.3e}, first moment "
           f"{grad_worst:.3e} of a leaf's largest, params {worst:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# sharded training, the sharded step builders and the dry-run (one process
+# drives every shard; the four devices of the (2, 2) mesh are cuda:0)
+# ---------------------------------------------------------------------------
+
+FSDP_STEPS = 5                     # [fsdp tp train]'s steps on batch 0
+FSDP_GROUP = ",".join(["cuda:0"] * 4)
+DECODE_PROMPT = 256                # [sharded decode]: 8 prompts, 16 steps
+DECODE_NEW = 16
+MIN_FREE_GIB = 2.0
+
+
+def _card_mesh(torch, shape):
+    from repro_torch.launch.mesh import Mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return Mesh(("data", "model"), shape, (dev,) * (shape[0] * shape[1]))
+
+
+def _device_bytes(trees, n):
+    """Bytes of the blocks each mesh device owns, over ``trees``."""
+    from repro_torch.dist.sharding import Sharded
+    from repro_torch.tree import leaves
+    out = [0] * n
+    for tree in trees:
+        for x in leaves(tree):
+            for k, nb in (x.block_bytes() if isinstance(x, Sharded)
+                          else [(0, x.numel() * x.element_size())]):
+                out[k] += nb
+    return out
+
+
+def fsdp_tp_train_phase(torch, np, card):
+    """Full-width gemma-2b in float32 through the launcher's trainer with
+    ``--mesh-model 2 --devices cuda:0 x4``: a (2, 2) mesh under fsdp_tp,
+    FSDP_STEPS steps on batch 0 (B 8 x S 256, the launcher's defaults)."""
+    from repro_torch.launch import train as launch_train
+
+    args = launch_train.parser().parse_args(
+        ["--arch", "gemma-2b", "--mesh-model", "2", "--devices", FSDP_GROUP,
+         "--steps", str(FSDP_STEPS)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    tr = launch_train.build_trainer(args)
+    params, opt, _ = tr.init_state()
+    batch = tr._put(tr.data.batch_at(0))
+    init_s = time.perf_counter() - t0
+    free = [torch.cuda.mem_get_info()[0] / 2**30]
+    losses, secs = [], []
+    for i in range(FSDP_STEPS):
+        t1 = time.perf_counter()
+        params, opt, m = tr.step_fn(params, opt, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        free.append(torch.cuda.mem_get_info()[0] / 2**30)
+        losses.append(loss)
+        print(f"[fsdp tp train] step={i + 1} loss={loss:.6f} "
+              f"grad_norm={float(m['grad_norm']):.6f} "
+              f"lr={float(m['lr']):.3e} ms={secs[-1] * 1e3:.1f}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    after = kernel_launches()
+    n = len(tr.mesh.devices)
+    per_dev = _device_bytes((params, opt.m, opt.v), n)
+    step_s = float(np.median(secs[1:]))
+    tokens = tr.cell.tokens
+    headroom = (total - reserved) / 2**30
+    print(f"[fsdp tp train] card='{card}' arch=gemma-2b dtype=float32 "
+          f"mesh={dict(tr.mesh.shape)} devices={FSDP_GROUP} "
+          f"policy={args.policy} seq={tr.cell.seq_len} "
+          f"batch={tr.cell.global_batch} steps={FSDP_STEPS} (batch 0) "
+          f"step_ms_median_2_{FSDP_STEPS}={step_s * 1e3:.1f} "
+          f"first_step_ms={secs[0] * 1e3:.1f} "
+          f"tokens_per_s={tokens / step_s:.1f} "
+          f"block_bytes_GB_by_device="
+          f"{[round(b / 1e9, 3) for b in per_dev]} "
+          f"(params + m + v, {sum(per_dev) / 1e9:.2f} GB in all) "
+          f"max_memory_allocated_GB={peak / 1e9:.2f} "
+          f"max_reserved_GiB={reserved / 2**30:.2f} "
+          f"card_free_GiB_min={min(free):.2f} "
+          f"init_s={init_s:.1f} "
+          f"kernel_launches_moved={[a - b for a, b in zip(after, before)]}",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses),
+          f"fsdp tp train: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0],
+          f"fsdp tp train: the loss does not fall: {losses}")
+    check(after == before, f"fsdp tp train: kernels launched: {before} -> "
+          f"{after}")
+    check(min(free) >= MIN_FREE_GIB and headroom >= MIN_FREE_GIB,
+          f"fsdp tp train: the card's free memory fell to {min(free):.2f} "
+          f"GiB (reserved peak leaves {headroom:.2f})")
+    return dict(peak=peak, step_ms=step_s * 1e3, per_dev=per_dev)
+
+
+def fsdp_tp_parity_phase(torch, np):
+    """One step of 2-layer gemma-2b in float32 (the launcher's flags,
+    B 4 x S 32) on the (2, 2) card mesh against the 1x1 card step from the
+    same weights; then the (2, 2) state checkpointed and restored onto a
+    (1, 2) mesh (the elastic restore), compared whole."""
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.dist import POLICIES
+    from repro_torch.dist.sharding import assemble, assemble_tree
+    from repro_torch.dist.steps import make_train_step, shard_state
+    from repro_torch.launch.train import FLAGS
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, adamw, schedule
+    from repro_torch.train import CheckpointManager
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = override(ARCHS["gemma-2b"], num_layers=2, param_dtype="float32",
+                   compute_dtype="float32")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "fsdp tp parity: TF32 is on")
+    rng = np.random.default_rng(22)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 33)).astype(
+        np.int32))
+    batch = dict(tokens=tok[:, :-1], labels=tok[:, 1:])
+    bundle = build(cfg, FLAGS, device="cuda")
+    init = bundle.init(torch.Generator(device="cuda").manual_seed(4))
+    opt_cfg = AdamWConfig(lr=1e-3, schedule=schedule.warmup_cosine(
+        10, TRAIN_STEPS))
+    t0 = time.perf_counter()
+    out = {}
+    for shape in ((1, 1), (2, 2)):
+        mesh = _card_mesh(torch, shape)
+        step, p_sh, o_sh, _ = make_train_step(bundle, mesh,
+                                              POLICIES["fsdp_tp"], opt_cfg)
+        params, opt = shard_state(_copy(init, mesh.devices[0]), p_sh, mesh)
+        b = {k: v.to(mesh.devices[0]) for k, v in batch.items()}
+        params, opt, m = step(params, opt, b)
+        out[shape] = (params, opt, {k: float(v) for k, v in m.items()})
+    step_s = time.perf_counter() - t0
+    (p1, o1, m1), (p4, o4, m4) = out[1, 1], out[2, 2]
+    loss_rel = abs(m4["loss"] - m1["loss"]) / abs(m1["loss"])
+    gn_rel = abs(m4["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    moment = _leaf_gap(assemble_tree(o4.m), o1.m)
+    # elastic: (2, 2) -> (1, 2)
+    root = os.path.join(ROOT, "build", "fsdp_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = CheckpointManager(root, async_save=False)
+    mgr.save(1, dict(params=p4, opt=o4))
+    mesh12 = _card_mesh(torch, (1, 2))
+    _, p_sh12, o_sh12, _ = make_train_step(bundle, mesh12,
+                                           POLICIES["fsdp_tp"], opt_cfg)
+    abs_params, _ = bundle.abstract_params()
+    like = dict(params=abs_params, opt=adamw.AdamWState(
+        step=None, m=abs_params, v=abs_params))
+    back = mgr.restore(None, like, mesh12.devices[0],
+                       shardings=dict(params=p_sh12, opt=o_sh12),
+                       mesh=mesh12)
+    want = dict(leaves_with_paths(dict(params=p4, opt=o4)))
+    exact = all(torch.equal(assemble(x).detach(),
+                            assemble(want[path]).detach())
+                for path, x in leaves_with_paths(back))
+    exact = exact and all(x.mesh is mesh12 for _, x in
+                          leaves_with_paths(back["params"]))
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[fsdp tp parity] arch=gemma-2b layers=2 dtype=float32 batch=4 "
+          f"seq=32 mesh=(2, 2) on cuda:0 vs 1x1: loss_1x1={m1['loss']:.8f} "
+          f"loss_mesh={m4['loss']:.8f} loss_rel={loss_rel:.3e} "
+          f"grad_norm_rel={gn_rel:.3e} "
+          f"moment_worst_rel_to_leaf_max={moment:.3e} "
+          f"elastic_2x2_to_1x2_exact={exact} steps_s={step_s:.1f}",
+          flush=True)
+    check(loss_rel <= 1e-6, f"fsdp tp parity: loss {m4['loss']} vs "
+          f"{m1['loss']} ({loss_rel:.3e} relative)")
+    check(gn_rel <= 1e-5, f"fsdp tp parity: grad_norm {gn_rel:.3e} relative")
+    check(moment <= 1e-4, f"fsdp tp parity: a first-moment leaf is "
+          f"{moment:.3e} of its largest from the 1x1 step's")
+    check(exact, "fsdp tp parity: the (2, 2) checkpoint does not restore "
+          "exactly onto (1, 2)")
+
+
+def _grown(torch, cache, max_len):
+    """A dense prefill cache (k/v rows of the prompt) in a decode cache of
+    ``max_len`` rows."""
+    from repro_torch.tree import tree_map
+
+    def grow(t):
+        if t.dim() < 4:
+            return t
+        out = torch.zeros(t.shape[:2] + (max_len,) + t.shape[3:],
+                          dtype=t.dtype, device=t.device)
+        out[:, :, :t.shape[2]] = t
+        return out
+    return tree_map(grow, cache)
+
+
+def _decode_run(torch, np, cfg, mesh_shape, init, tok, vl, forced=None):
+    """Prefill ``tok`` (valid lengths ``vl``) and decode DECODE_NEW greedy
+    steps at per-slot positions ``vl + t`` through make_prefill_step and
+    make_decode_step on a card mesh of ``mesh_shape`` (1x1: one device).
+    ``forced`` feeds those tokens instead of the greedy ones.  Returns
+    (tokens (B, DECODE_NEW), [prefill logits, each step's logits])."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.dist import POLICIES
+    from repro_torch.dist.sharding import assemble_tree, cut_tree
+    from repro_torch.dist.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build
+
+    mesh = _card_mesh(torch, mesh_shape)
+    dev = mesh.devices[0]
+    bundle = build(cfg, device=dev)
+    b = tok.shape[0]
+    max_len = DECODE_PROMPT + DECODE_NEW
+    pol = POLICIES["fsdp_tp"]
+    pre, p_sh = make_prefill_step(bundle, mesh, pol,
+                                  ShapeCell("p", "prefill", DECODE_PROMPT, b))
+    dec, _, c_sh = make_decode_step(bundle, mesh, pol,
+                                    ShapeCell("d", "decode", max_len, b))
+    many = len(mesh.devices) > 1
+    params = cut_tree(init, p_sh, mesh) if many else init
+    batch = dict(tokens=torch.from_numpy(tok).to(dev),
+                 valid_len=torch.from_numpy(vl).to(dev))
+    cache, logits = pre(params, batch)
+    cache = _grown(torch, assemble_tree(cache) if many else cache, max_len)
+    if many:
+        cache = cut_tree(cache, c_sh, mesh)
+    pos = torch.from_numpy(vl).to(dev)
+    out, all_logits = [], [logits]
+    nxt = logits.argmax(-1)
+    for t in range(DECODE_NEW):
+        feed = nxt if forced is None else torch.from_numpy(
+            forced[:, t]).to(dev)
+        out.append(feed.cpu())
+        logits, cache = dec(params, cache, feed[:, None].int(), pos + t)
+        all_logits.append(logits)
+        nxt = logits.argmax(-1)
+    return torch.stack(out, 1).numpy(), all_logits
+
+
+def sharded_decode_phase(torch, np, card):
+    """make_prefill_step + make_decode_step of full-width gemma-2b in
+    bf16 on the (2, 2) card mesh against 1x1: 8 prompts of up to 256
+    tokens (right-padded, valid lengths 256 - 8 i) and DECODE_NEW greedy
+    steps at per-slot positions; the share of tokens equal to 1x1's is
+    printed (bf16 TP sums differ).  Then the same path at 2 layers in
+    float32, 1x1's tokens fed to both: logits within 1e-4."""
+    from repro_torch.configs import ARCHS, override
+    from repro_torch.models import build
+
+    rng = np.random.default_rng(31)
+    cfg = ARCHS["gemma-2b"]
+    b = 8
+    tok = rng.integers(0, cfg.vocab_size, (b, DECODE_PROMPT)).astype(
+        np.int32)
+    vl = (DECODE_PROMPT - 8 * np.arange(b)).astype(np.int32)
+    t0 = time.perf_counter()
+    before = kernel_launches()
+    init = build(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(5))
+    one, _ = _decode_run(torch, np, cfg, (1, 1), init, tok, vl)
+    t1 = time.perf_counter()
+    mesh_tok, _ = _decode_run(torch, np, cfg, (2, 2), init, tok, vl)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t1
+    after = kernel_launches()
+    share = float((mesh_tok == one).mean())
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = override(cfg, num_layers=2, param_dtype="float32",
+                   compute_dtype="float32")
+    init = build(f32, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(6))
+    ref_tok, ref_logits = _decode_run(torch, np, f32, (1, 1), init, tok, vl)
+    _, got_logits = _decode_run(torch, np, f32, (2, 2), init, tok, vl,
+                                forced=ref_tok)
+    gap = max(float((g.float() - r.float()).abs().max())
+              for g, r in zip(got_logits, ref_logits))
+    print(f"[sharded decode] card='{card}' arch=gemma-2b dtype=bfloat16 "
+          f"mesh=(2, 2) on cuda:0 prompts={b} prompt_len<={DECODE_PROMPT} "
+          f"new={DECODE_NEW} per_slot_pos=True token_share_equal_1x1="
+          f"{share:.4f} mesh_prefill_decode_s={mesh_s:.2f} | 2 layers "
+          f"float32: max_abs_logit_gap_vs_1x1={gap:.3e} (prefill + "
+          f"{DECODE_NEW} steps) kernel_launches_moved="
+          f"{[a - c for a, c in zip(after, before)]} "
+          f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+    check(gap <= 1e-4, f"sharded decode: float32 logits {gap:.3e} from "
+          "1x1's")
+    check(np.isfinite(share) and mesh_tok.shape == (b, DECODE_NEW),
+          "sharded decode: no tokens")
+
+
+def dryrun_phase(torch, np, card, train_info, fsdp_info):
+    """The dry-run's accounting of [train]'s configuration (full-width
+    gemma-2b in float32, the launcher's flags, B 8 x S 256, fsdp_tp) on
+    meta meshes of 1x1 and (2, 2): per-device argument bytes and peak,
+    beside [train]'s and [fsdp tp train]'s max_memory_allocated."""
+    from repro_torch.configs import ARCHS, ShapeCell, override
+    from repro_torch.dist import POLICIES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import FLAGS
+
+    cfg = override(ARCHS["gemma-2b"], param_dtype="float32",
+                   compute_dtype="float32")
+    cell = ShapeCell("cli", "train", 256, 8)
+    batch = 2 * cell.global_batch * cell.seq_len * 4
+    state = train_info["p_bytes"] + train_info["mv_bytes"] + 4
+    t0 = time.perf_counter()
+    traces = {}
+    for shape, measured in (((1, 1), train_info["peak"]),
+                            ((2, 2), fsdp_info["peak"])):
+        mesh = Mesh(("data", "model"), shape, ("meta",) * (shape[0]
+                                                          * shape[1]))
+        tr = dryrun.trace_cell(cfg, cell, mesh, POLICIES["fsdp_tp"], FLAGS)
+        traces[shape] = tr
+        print(f"[dryrun] card='{card}' config=[train] mesh={shape} "
+              f"argument_GB_by_device={[round(a / 1e9, 4) for a in tr.args]}"
+              f" peak_GB_by_device={[round(p / 1e9, 3) for p in tr.peak]} "
+              f"peak_GB_all_devices={sum(tr.peak) / 1e9:.2f} "
+              f"max_memory_allocated_GB={measured / 1e9:.2f} "
+              f"ratio_measured_over_traced="
+              f"{measured / sum(tr.peak):.3f} "
+              f"flops={tr.total_flops:.4e} flops_by_device_sum="
+              f"{sum(tr.flops):.4e} collective_GB_by_device="
+              f"{[round(r / 1e9, 3) for r in tr.recv]} "
+              f"trace_s={tr.seconds:.1f}", flush=True)
+    one, four = traces[1, 1], traces[2, 2]
+    blocks = fsdp_info["per_dev"]
+    # each device: its blocks on the card, the optimizer's step on the
+    # first, and a row's batch slice on each row's first device (0, 2)
+    want = [blocks[k] + (4 if k == 0 else 0)
+            + (batch // 2 if k in (0, 2) else 0) for k in range(4)]
+    print(f"[dryrun] state_bytes(params + m + v + step)={state} "
+          f"batch_bytes={batch} traced_1x1={sum(one.args)} "
+          f"traced_2x2={sum(four.args)} traced_2x2_by_device={four.args} "
+          f"card_blocks_by_device={blocks} "
+          f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+    check(sum(one.args) == state + batch and sum(four.args) == state + batch,
+          f"dryrun: argument bytes {sum(one.args)} / {sum(four.args)} are "
+          f"not the state's {state} + the batch's {batch}")
+    check(four.args == want, f"dryrun: the (2, 2) trace's argument bytes "
+          f"{four.args} are not the card's blocks, step and batch slices "
+          f"{want}")
+    check(all(sum(t.flops) == t.total_flops for t in traces.values()),
+          "dryrun: the per-device FLOPs do not add up to the total")
 
 
 # ---------------------------------------------------------------------------
@@ -5170,11 +5516,22 @@ def main():
         train_parity_phase(torch, np)
         gc.collect()
         torch.cuda.empty_cache()
-        train_phase(torch, np, card)
+        train_info = train_phase(torch, np, card)
         gc.collect()                 # the 40 GB of training state go
         torch.cuda.empty_cache()
         dp_train_phase(torch, np, card)
         lap("train parity, train, dp train")
+        fsdp_tp_parity_phase(torch, np)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fsdp_info = fsdp_tp_train_phase(torch, np, card)
+        gc.collect()                 # the 40 GB of sharded state go
+        torch.cuda.empty_cache()
+        sharded_decode_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dryrun_phase(torch, np, card, train_info, fsdp_info)
+        lap("fsdp tp parity, fsdp tp train, sharded decode, dryrun")
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1

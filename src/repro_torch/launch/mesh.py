@@ -1,12 +1,13 @@
 """Device meshes: named axis sizes over a row-major list of devices.
 
-The port of ``repro.launch.mesh`` for the serving mesh.  A :class:`Mesh`
-is plain bookkeeping (no process group, no collective library): the
-serving layer (:mod:`repro_torch.dist.serve`) drives every shard from one
-process, and the shards' tensors sit on the mesh's own ``torch.device``s.
-Devices may repeat, so two shards can share one card or the CPU.  The
-reference's ``make_production_mesh`` describes TPU pods and waits for the
-port of training (ROADMAP A9b).
+The port of ``repro.launch.mesh``.  A :class:`Mesh` is plain bookkeeping
+(no process group, no collective library): the serving layer
+(:mod:`repro_torch.dist.serve`) and the sharded steps
+(:mod:`repro_torch.dist.steps`) drive every shard from one process, and
+the shards' tensors sit on the mesh's own ``torch.device``s.  Devices may
+repeat, so two shards can share one card or the CPU, and a mesh of
+``meta`` devices is what the dry-run accounts a step on
+(:func:`make_production_mesh`).
 """
 from __future__ import annotations
 
@@ -52,6 +53,23 @@ def visible_devices() -> List[torch.device]:
     """Every CUDA card this process sees, each once (none without a
     card)."""
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_production_mesh(devices: Sequence, *, multi_pod: bool = False
+                         ) -> Mesh:
+    """The reference's production shapes over a device list the caller
+    gives: (16, 16) over ``("data", "model")``, or (2, 16, 16) with a
+    leading ``"pod"`` axis (pure data parallelism across pods).  The
+    dry-run passes ``"meta"`` repeated; a caller with cards passes them
+    (repeated, to lay 256 shards on fewer cards)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    devs = [torch.device(d) for d in devices]
+    if len(devs) < n:
+        raise ValueError(f"a {shape} mesh needs {n} devices, have "
+                         f"{len(devs)}")
+    return Mesh(axes, shape, tuple(devs[:n]))
 
 
 def make_test_mesh(data: int = 4, model: int = 2,

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
         --smoke --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
+        --smoke --mesh-model 2 --devices cpu,cpu,cpu,cpu --steps 3
 
 Trains on the card unless ``--device`` names another device.  Without
 ``--smoke`` the config runs in float32 (params and compute), as the
@@ -10,17 +12,23 @@ reference's launcher sets it; the flags are the reference launcher's:
 dense MoE dispatch, AdamW at ``--lr`` under ``warmup_cosine(10,
 steps)``.  Failures are retried with a restore from the latest
 checkpoint (``--max-failures``); data keyed by step makes the recovery
-exact.  The mesh is one device: ``--mesh-model`` above 1 (tensor-parallel
-training) waits for ROADMAP A10b.
+exact.  The mesh is ``(n // m, m)`` over ``("data", "model")``, ``m``
+being ``--mesh-model`` and ``n`` the devices of the group: ``--devices``
+names it (a group may repeat a device: ``cpu,cpu,cpu,cpu``, or
+``cuda:0`` four times); without it the group is the visible cards, each
+once, when ``--mesh-model`` is above 1, and ``--device`` alone
+otherwise.
 """
 import argparse
 import logging
 import sys
 
+import torch
+
 from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, ShapeCell, override, smoke_config
 from repro_torch.dist import POLICIES
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, visible_devices
 from repro_torch.models import RuntimeFlags, build
 from repro_torch.optim import AdamWConfig, schedule
 from repro_torch.train import TrainConfig, Trainer, run_with_recovery
@@ -48,22 +56,43 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="the device to train on (default: the card; "
                          "'cpu' runs the plain PyTorch path)")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated device group of the mesh (may "
+                         "repeat a device); default: the visible cards "
+                         "when --mesh-model is above 1")
     return ap
+
+
+def mesh_of(args) -> Mesh:
+    """The ``(n // m, m)`` data x model mesh of the launcher's device
+    group; exits naming the shortfall when the group has fewer than
+    ``m`` devices."""
+    m = args.mesh_model
+    if args.devices:
+        devs = [torch.device(d) for d in args.devices.split(",")]
+    elif m > 1:
+        devs = visible_devices()
+    else:
+        devs = [resolve_device(args.device)]
+    if m < 1 or len(devs) < m:
+        raise SystemExit(
+            f"--mesh-model {m} needs {m} devices, have {len(devs)}"
+            + ("" if args.devices else
+               " (the visible cards; name a group with --devices, which "
+               "may repeat a device)"))
+    n = len(devs) // m * m
+    return Mesh(("data", "model"), (n // m, m), tuple(devs[:n]))
 
 
 def build_trainer(args) -> Trainer:
     """The trainer ``main`` runs, from parsed arguments."""
-    if args.mesh_model > 1:
-        raise SystemExit(
-            f"--mesh-model {args.mesh_model}: tensor-parallel training is "
-            "ROADMAP A10b; the port trains on one device (--mesh-model 1)")
-    device = resolve_device(args.device)
+    mesh = mesh_of(args)
+    device = mesh.devices[0]
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = smoke_config(cfg)
     else:
         cfg = override(cfg, param_dtype="float32", compute_dtype="float32")
-    mesh = Mesh(("data", "model"), (1, 1), (device,))
     bundle = build(cfg, FLAGS, device=device)
     cell = ShapeCell("cli", "train", args.seq, args.batch)
     opt = AdamWConfig(lr=args.lr,

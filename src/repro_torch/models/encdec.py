@@ -34,8 +34,7 @@ from repro_torch.models.common import (EMBED, HEADS, KV_HEADS, LAYERS,
                                        VOCAB, ParamBuilder, rms_norm, rope)
 from repro_torch.models.transformer import (RuntimeFlags, _layer_remat,
                                             _pick, _remat, chunked_ce,
-                                            compute_logits, dtype_of,
-                                            tp_devices)
+                                            compute_logits, dtype_of)
 
 
 def _init_attn(b: ParamBuilder, path: str, cfg: ModelConfig, stacked: int):
@@ -203,11 +202,12 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
 def train_loss(params, cfg: ModelConfig, flags: RuntimeFlags, batch: dict):
     """``batch["frames"]`` (B, Se, d), ``batch["dec_tokens"]`` (B, St),
     ``batch["labels"]`` (B, St) -> (cross-entropy, dict(ce=, aux=)), with
-    the graph kept for autograd; ``aux`` is a float32 zero (no MoE)."""
-    if tp_devices(flags) is not None:
-        raise NotImplementedError(
-            "training over a mesh of more than one device is ROADMAP A10b "
-            "(FSDP x TP under the single controller); train on one device")
+    the graph kept for autograd; ``aux`` is a float32 zero (no MoE).
+    With a mesh of more than one device in ``flags`` it runs over the
+    mesh's data rows (:func:`repro_torch.models.sharded.train_loss`)."""
+    if flags.mesh is not None and len(flags.mesh.devices) > 1:
+        from repro_torch.models import sharded
+        return sharded.train_loss(params, cfg, flags, batch)
     memory = encode(params, cfg, flags, batch["frames"])
     x = _embed(params, batch["dec_tokens"])
     x, _ = _decoder(params, cfg, flags, x, memory=memory, mode="train")

@@ -61,6 +61,26 @@ def _lb_loss(probs: torch.Tensor, ids: torch.Tensor,
     return n_exp * torch.sum(me * assign)
 
 
+def route_stats(p, x: torch.Tensor, k: int):
+    """The sums :func:`_lb_loss` takes its means of, over the tokens of
+    ``x``: (router probs summed per expert (E,), assignments counted per
+    expert (E,), both float32; the token count; the assignment count).
+    Added over slices of a batch, they give :func:`lb_from_stats` the
+    whole batch's loss."""
+    n_exp = p["router"].shape[-1]
+    _, ids, probs = _route(p, x, k)
+    return (probs.reshape(-1, n_exp).sum(dim=0),
+            F.one_hot(ids.reshape(-1), n_exp).float().sum(dim=0),
+            probs.numel() // n_exp, ids.numel())
+
+
+def lb_from_stats(prob_sum: torch.Tensor, assign_sum: torch.Tensor,
+                  tokens: int, assignments: int) -> torch.Tensor:
+    """:func:`_lb_loss` from :func:`route_stats`' sums."""
+    n_exp = prob_sum.shape[-1]
+    return n_exp * torch.sum((prob_sum / tokens) * (assign_sum / assignments))
+
+
 def _expert_ffn(p, h: torch.Tensor, activation: str) -> torch.Tensor:
     """h: (G, E, C, d), a batched per-expert FFN."""
     act = _ACT[activation]

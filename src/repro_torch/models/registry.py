@@ -8,7 +8,10 @@ raises.  ``flags`` (:class:`~repro_torch.models.transformer.RuntimeFlags`)
 picks prefill's attention (the default is the reference's, ``chunked``)
 and the MoE dispatch.  An encoder-decoder config
 (:mod:`~repro_torch.models.encdec`) dispatches ``init``, ``train_loss``,
-``prefill``, ``decode_step`` and ``init_cache`` to its own stack."""
+``prefill``, ``decode_step`` and ``init_cache`` to its own stack.
+``input_specs(cell)`` and ``cache_specs(cell)`` describe a shape cell's
+inputs and decode cache as meta tensors (shapes and dtypes, no memory),
+which the step builders and the dry-run read."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -17,9 +20,20 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import PREFILL, TRAIN, ModelConfig, ShapeCell
 from repro_torch.models import encdec, transformer
-from repro_torch.models.transformer import RuntimeFlags
+from repro_torch.models.transformer import RuntimeFlags, dtype_of
+
+
+def stack_of(cfg: ModelConfig):
+    """The module of a config's dense entry points."""
+    return encdec if cfg.enc_dec else transformer
+
+
+def param_build(cfg: ModelConfig):
+    """The config's param builder on the meta device (paths, shapes,
+    dtypes and logical axes; no memory)."""
+    return stack_of(cfg).build_params(cfg, None, "meta")
 
 
 @dataclass
@@ -31,7 +45,7 @@ class ModelBundle:
     @property
     def _stack(self):
         """The module of the config's dense entry points."""
-        return encdec if self.cfg.enc_dec else transformer
+        return stack_of(self.cfg)
 
     def init(self, generator: torch.Generator) -> dict:
         """Fresh weights drawn from ``generator`` (a generator on the
@@ -42,7 +56,7 @@ class ModelBundle:
         """(the params on the meta device: paths, shapes and dtypes with
         no memory, their logical-axes tree), the reference's
         ``abstract_params()``."""
-        b = self._stack.build_params(self.cfg, None, "meta")
+        b = param_build(self.cfg)
         return b.params, b.specs
 
     def param_specs(self) -> dict:
@@ -50,7 +64,7 @@ class ModelBundle:
         per dimension of each leaf), built on the meta device: the
         counterpart of the reference's ``abstract_params()[1]``, which
         :mod:`repro_torch.dist.sharding` maps onto mesh axes."""
-        return self._stack.build_params(self.cfg, None, "meta").specs
+        return param_build(self.cfg).specs
 
     def train_loss(self, params, batch: dict):
         """(loss, dict(ce=, aux=)) of a training batch, differentiable
@@ -66,6 +80,43 @@ class ModelBundle:
             return encdec.init_cache(self.cfg, batch, max_len,
                                      enc_len or max_len, self.device)
         return transformer.init_cache(self.cfg, batch, max_len, self.device,
+                                      kv_dtype=self.flags.kv_dtype)
+
+    def input_specs(self, cell: ShapeCell) -> dict:
+        """Meta stand-ins for every data input of ``cell``, the
+        reference's shapes and dtypes: a train or prefill cell's tokens
+        (and labels; an encoder-decoder's frames and decoder tokens; a
+        frontend's patch embeddings, at most half the sequence), a decode
+        cell's one token per slot and a scalar position."""
+        cfg = self.cfg
+        b, s = cell.global_batch, cell.seq_len
+        meta = lambda shape, dt=torch.int32: torch.empty(shape, dtype=dt,
+                                                         device="meta")
+        cdt = dtype_of(cfg.compute_dtype)
+        if cell.kind in (TRAIN, PREFILL):
+            if cfg.enc_dec:
+                d = dict(frames=meta((b, s, cfg.d_model), cdt),
+                         dec_tokens=meta((b, s)))
+            elif cfg.frontend:
+                p = min(cfg.num_frontend_tokens, s // 2)
+                d = dict(patch_embeds=meta((b, p, cfg.d_model), cdt),
+                         tokens=meta((b, s - p)))
+            else:
+                d = dict(tokens=meta((b, s)))
+            if cell.kind == TRAIN:
+                d["labels"] = meta((b, s))
+            return d
+        return dict(tokens=meta((b, 1)), pos=meta(()))
+
+    def cache_specs(self, cell: ShapeCell) -> dict:
+        """The decode cache of ``cell`` (batch ``global_batch``, length
+        ``seq_len``; an encoder-decoder's cross rows too) on the meta
+        device."""
+        if self.cfg.enc_dec:
+            return encdec.init_cache(self.cfg, cell.global_batch,
+                                     cell.seq_len, cell.seq_len, "meta")
+        return transformer.init_cache(self.cfg, cell.global_batch,
+                                      cell.seq_len, "meta",
                                       kv_dtype=self.flags.kv_dtype)
 
     def prefill(self, params, batch: dict):

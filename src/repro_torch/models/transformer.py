@@ -111,7 +111,11 @@ class RuntimeFlags:
     with a float32 scale per token.  ``mesh`` (a :class:`~repro_torch.launch.
     mesh.Mesh`, set by :meth:`~repro_torch.dist.serve.ServeMesh.bind`)
     with more than one device along ``tp_axis`` runs every entry point
-    tensor-parallel over per-shard params and caches."""
+    tensor-parallel over per-shard params and caches.  ``policy`` (a
+    :class:`~repro_torch.dist.sharding.ShardingPolicy`, set by the step
+    builders of :mod:`repro_torch.dist.steps`) runs training and the
+    prefill/decode steps over every device of ``mesh``
+    (:mod:`repro_torch.models.sharded`)."""
 
     attn_impl: str = "chunked"
     attn_bq: Optional[int] = None
@@ -123,6 +127,7 @@ class RuntimeFlags:
     kv_dtype: str = "native"         # native | int8
     mesh: Any = None
     tp_axis: str = "model"
+    policy: Any = None
 
 
 KV_DTYPES = ("native", "int8")
@@ -665,10 +670,13 @@ def _apply_recurrent(spec: LayerSpec, p, h, cfg: ModelConfig, mode, cache,
 
 def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
                  mode, cache, pos, table, chunk_valid, slot=None,
-                 active=None):
+                 active=None, stats=None):
     """Returns (x, the layer's cache: the one given, written in place, the
     prompt's new k/v or state in prefill, None in training; the MoE
-    load-balance loss, float32, or None without a MoE)."""
+    load-balance loss, float32, or None without a MoE).  ``stats`` (a
+    list) collects a MoE layer's routing sums
+    (:func:`~repro_torch.models.moe.route_stats`), from which a mesh of
+    data rows forms the whole batch's load-balance loss."""
     h = rms_norm(x, p["ln1"])
     if spec.mixer == ATTN:
         mix, cache = _apply_attn(p["attn"], h, cfg, spec, flags, mode, cache,
@@ -686,6 +694,9 @@ def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
         out, aux = moe_mod.apply(p["moe"], h, cfg.num_experts_per_tok,
                                  cfg.activation, impl=flags.moe_impl,
                                  capacity_factor=cfg.moe_capacity_factor)
+        if stats is not None:
+            stats.append(moe_mod.route_stats(p["moe"], h,
+                                             cfg.num_experts_per_tok))
         x = x + out
     return x, cache, aux
 
@@ -947,10 +958,6 @@ def _forward_train(params, cfg: ModelConfig, flags: RuntimeFlags, tokens,
     the MoE load-balance losses summed over the layers, float32).  Each
     pattern block runs under ``flags.remat``; the remainder layers under
     :func:`_layer_remat`."""
-    if tp_devices(flags) is not None:
-        raise NotImplementedError(
-            "training over a mesh of more than one device is ROADMAP A10b "
-            "(FSDP x TP under the single controller); train on one device")
     x = embed_tokens(params, cfg, tokens)
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
@@ -1033,7 +1040,12 @@ def train_loss(params, cfg: ModelConfig, flags: RuntimeFlags, batch: dict):
     """``batch["tokens"]`` (B, S), ``batch["labels"]`` (B, S + P) (labels
     below 0 are left out), ``batch["patch_embeds"]`` (B, P, d, optional).
     Returns (cross-entropy + ``aux_loss_weight`` x the MoE load-balance
-    loss, dict(ce=, aux=)), with the graph kept for autograd."""
+    loss, dict(ce=, aux=)), with the graph kept for autograd.  With a
+    mesh of more than one device in ``flags`` it runs over the mesh
+    (:func:`repro_torch.models.sharded.train_loss`)."""
+    if flags.mesh is not None and len(flags.mesh.devices) > 1:
+        from repro_torch.models import sharded
+        return sharded.train_loss(params, cfg, flags, batch)
     x, aux = forward(params, cfg, flags, batch["tokens"], "train",
                      patch_embeds=batch.get("patch_embeds"))
     loss = chunked_ce(params, cfg, x, batch["labels"], flags)

@@ -8,6 +8,12 @@ place for the same reason); it still returns ``(params, state,
 metrics)``.  Every scalar (the bias corrections, the clip scale, the
 learning rate and its schedule) is a float32 tensor computed as the
 reference computes it, so the update rounds as the reference's does.
+
+A leaf stored over a mesh (:class:`~repro_torch.dist.sharding.Sharded`)
+is updated block by block, each on its own device, with its moments
+stored in the same blocks (ZeRO-3 falls out of the layout); the global
+norm adds each leaf's blocks' sums of squares in block order, the leaves
+in the one-device order.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import Sharded
 from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 
@@ -37,12 +44,19 @@ class AdamWState(NamedTuple):
     v: dict
 
 
+def _blocks(x) -> list:
+    return x.blocks if isinstance(x, Sharded) else [x]
+
+
 def init(params) -> AdamWState:
-    """Zero moments in float32 beside each param, step 0 on the first
-    leaf's device."""
-    first = leaves(params)[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    """Zero moments in float32 beside each param (in its blocks, for a
+    leaf stored over a mesh), step 0 on the first leaf's device."""
+    first = _blocks(leaves(params)[0])[0]
+
+    def zeros(p):
+        z = lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                  device=t.device)
+        return p.map_blocks(z) if isinstance(p, Sharded) else z(p)
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=first.device),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
@@ -50,10 +64,14 @@ def init(params) -> AdamWState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, the leaves
-    added in the reference's order (dict keys sorted)."""
+    added in the reference's order (dict keys sorted), a leaf's blocks in
+    block order; on the first leaf's device."""
     total = 0
+    home = None
     for x in leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+        for b in _blocks(x):
+            home = b.device if home is None else home
+            total = total + torch.sum(torch.square(b.float())).to(home)
     return torch.sqrt(total)
 
 
@@ -85,12 +103,13 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig
     g_of = dict(leaves_with_paths(grads))
     m_of = dict(leaves_with_paths(state.m))
     v_of = dict(leaves_with_paths(state.v))
-    for path, p in leaves_with_paths(params):
-        g = g_of[path]
+    for p, g, m, v in (
+            blocks for path, leaf in leaves_with_paths(params)
+            for blocks in zip(_blocks(leaf), _blocks(g_of[path]),
+                              _blocks(m_of[path]), _blocks(v_of[path]))):
         if scale is not None:
-            g = g * scale.to(g.dtype)
+            g = g * scale.to(g.device, g.dtype)
         g32 = g.float()
-        m, v = m_of[path], v_of[path]
         # in place where the reference's expression rounds the same:
         # b1 m + (1 - b1) g, b2 v + (1 - b2) g^2, (m / c1) / (sqrt(v / c2)
         # + eps) [+ wd p], p - lr delta

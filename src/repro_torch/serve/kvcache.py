@@ -25,6 +25,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 class PoolExhausted(MemoryError):
     """No free pages left.  The engine catches this and keeps the request
@@ -387,7 +389,8 @@ class PagedKVCache(PageAllocator):
     """One layer's page pool on a device, with its allocator: the
     self-contained variant that kernels and tests drive directly (the
     engine keeps one :class:`PageAllocator` per kind of layer and the model
-    holds every layer's pools)."""
+    holds every layer's pools).  The pool sits on the card unless
+    ``device`` names another, like every entry point of the port."""
     num_pages: int
     page_size: int
     num_kv_heads: int
@@ -395,9 +398,10 @@ class PagedKVCache(PageAllocator):
     dtype: str = "float32"
     reserved: int = 0
     window: Optional[int] = None
-    device: str = "cpu"
+    device: Optional[str] = None      # None: the card (resolve_device)
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         PageAllocator.__init__(self, self.num_pages, self.page_size,
                                self.reserved, window=self.window)
         shape = (self.num_pages, self.page_size, self.num_kv_heads,

@@ -14,6 +14,13 @@ uint16 bits and listed under the manifest's added ``dtypes`` key (which
 the reference ignores), and restores exactly.  Saves snapshot to host
 memory at once and write on a background thread; the last ``keep`` steps
 stay.
+
+A leaf stored over a mesh (:class:`~repro_torch.dist.sharding.Sharded`)
+is saved whole, its blocks assembled on the host, so the files are the
+same whatever the mesh; :meth:`CheckpointManager.restore` with
+``shardings`` (the per-leaf specs) and ``mesh`` cuts each leaf onto that
+mesh, which may have another shape than the one that saved it (the
+elastic restore).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import Sharded, assemble, cut, is_spec
 from repro_torch.tree import leaves_with_paths, unflatten_like
 
 
@@ -38,6 +46,8 @@ def _to_numpy(t: torch.Tensor) -> tuple:
     """(numpy array, dtype name to record or None)."""
     # a copy, never a view: the trainer updates params and moments in
     # place while a save may still be writing
+    if isinstance(t, Sharded):
+        t = assemble(t.map_blocks(lambda b: b.detach()), "cpu")
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -116,11 +126,14 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     def restore(self, step: Optional[int], tree_like: Any,
-                device=None) -> Any:
+                device=None, shardings: Any = None, mesh=None) -> Any:
         """The checkpoint of ``step`` (None: the latest) in the structure
         of ``tree_like`` (its leaves may be meta tensors), each leaf a
         tensor on ``device`` (default the CPU) in the dtype it was saved
-        in."""
+        in.  With ``shardings`` (a tree of specs parallel to
+        ``tree_like``, the reference's argument) and ``mesh``, each leaf
+        of a spec with entries is cut into its blocks on ``mesh``
+        (a scalar stays one tensor on the mesh's first device)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -138,4 +151,10 @@ class CheckpointManager:
                 raise KeyError(f"checkpoint missing {key}")
             arr = np.load(os.path.join(d, key.replace("/", "__") + ".npy"))
             values[path] = _from_numpy(arr, dtypes.get(key), device)
+        if shardings is not None:
+            spec_of = dict(leaves_with_paths(shardings, is_leaf=is_spec))
+            for path, t in values.items():
+                spec = spec_of[path]
+                values[path] = (cut(t, spec, mesh) if len(spec)
+                                else t.to(mesh.devices[0]))
         return unflatten_like(tree_like, values)

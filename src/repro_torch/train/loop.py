@@ -4,8 +4,13 @@ restarts, straggler monitoring (the port of ``repro.train.loop``).
 Data is keyed by step, so a run restored from a checkpoint continues
 exactly as an uninterrupted one would.  The trainer runs on its bundle's
 device (the card unless the bundle was built for another); params are
-drawn there from a ``torch.Generator`` seeded with ``TrainConfig.seed``,
-so no second copy of them is ever made.
+drawn there from a ``torch.Generator`` seeded with ``TrainConfig.seed``.
+Over a mesh of more than one device the whole tree is drawn on the
+mesh's first device and then cut into the policy's blocks
+(:class:`~repro_torch.dist.sharding.Sharded`), so a mesh run starts from
+the one-device run's weights; each step's batch is placed as each data
+row's slice, and a checkpoint restores onto the trainer's mesh, whatever
+the mesh that wrote it (the elastic restore).
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.dist import sharding as sh
-from repro_torch.dist.steps import make_train_step
+from repro_torch.dist.steps import make_train_step, shard_state
 from repro_torch.models.registry import ModelBundle, build
 from repro_torch.optim import adamw
 from repro_torch.train.checkpoint import CheckpointManager
@@ -70,20 +75,25 @@ class Trainer:
         self.history: list = []
 
     def init_state(self, generator: Optional[torch.Generator] = None):
-        """(params drawn on the trainer's device, fresh AdamW state, 0)."""
+        """(params drawn on the trainer's device, fresh AdamW state, 0);
+        over a mesh both cut into the policy's blocks."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(
                 self.tcfg.seed)
         params = self.bundle.init(generator)
-        return params, adamw.init(params), 0
+        return shard_state(params, self.p_shard, self.mesh) + (0,)
 
     def restore_state(self, step: Optional[int] = None):
         """(params, optimizer state, step) of a checkpoint (None: the
-        latest), onto the trainer's device."""
+        latest), onto the trainer's device, or cut onto its mesh."""
         abs_params, _ = self.bundle.abstract_params()
         opt_like = adamw.AdamWState(step=None, m=abs_params, v=abs_params)
+        shardings = None
+        if len(self.mesh.devices) > 1:
+            shardings = dict(params=self.p_shard, opt=self.o_shard)
         restored = self.ckpt.restore(
-            step, dict(params=abs_params, opt=opt_like), self.device)
+            step, dict(params=abs_params, opt=opt_like), self.device,
+            shardings=shardings, mesh=self.mesh)
         opt = restored["opt"]
         start = int(opt.step)
         return restored["params"], opt, start
@@ -127,9 +137,17 @@ class Trainer:
         return step
 
     def _put(self, batch: dict) -> dict:
-        """A numpy batch onto the trainer's device."""
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
+        """A numpy batch onto the trainer's device; over a mesh, each data
+        row's slice onto the row's first device
+        (:func:`~repro_torch.models.sharded.place_batch`)."""
+        whole = {k: torch.from_numpy(np.ascontiguousarray(v))
+                 for k, v in batch.items()}
+        if len(self.mesh.devices) > 1:
+            from repro_torch.dist.steps import with_policy
+            from repro_torch.models.sharded import place_batch
+            flags = with_policy(self.bundle, self.mesh, self.policy).flags
+            return place_batch(whole, flags)
+        return {k: v.to(self.device) for k, v in whole.items()}
 
 
 def quick_train(cfg: ModelConfig, cell: ShapeCell, mesh, steps: int = 5,

@@ -9,25 +9,31 @@ names them (:mod:`repro_torch.train.checkpoint`).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def leaves_with_paths(tree, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+def leaves_with_paths(tree, path: Tuple = (),
+                      is_leaf: Optional[Callable] = None
+                      ) -> List[Tuple[Tuple, Any]]:
     """[(path, leaf)] in the reference's order; a path is a tuple of dict
-    keys, NamedTuple field names and sequence indices."""
+    keys, NamedTuple field names and sequence indices.  ``is_leaf(x)``
+    true stops the descent at ``x`` (a spec tuple in a tree of specs)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(path, tree)]
     if isinstance(tree, dict):
         return [lp for k in sorted(tree)
-                for lp in leaves_with_paths(tree[k], path + (k,))]
+                for lp in leaves_with_paths(tree[k], path + (k,), is_leaf)]
     if _is_namedtuple(tree):
         return [lp for k in tree._fields
-                for lp in leaves_with_paths(getattr(tree, k), path + (k,))]
+                for lp in leaves_with_paths(getattr(tree, k), path + (k,),
+                                            is_leaf)]
     if isinstance(tree, (list, tuple)):
         return [lp for i, v in enumerate(tree)
-                for lp in leaves_with_paths(v, path + (i,))]
+                for lp in leaves_with_paths(v, path + (i,), is_leaf)]
     return [(path, tree)]
 
 

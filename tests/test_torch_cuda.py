@@ -1509,3 +1509,55 @@ def test_smoke_train_step_card_equals_cpu(cuda, no_tf32):
             float(a.abs().max()) or 1.0)
     for a, b in zip(p_cpu, p_card):
         assert float((a - b).abs().max()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fsdp_tp", "fsdp_tp_sp"])
+def test_smoke_mesh_train_step_card_equals_cpu(cuda, no_tf32, policy):
+    """One step of smoke gemma2-27b (the launcher's flags, float32) on a
+    (2, 2) mesh whose four devices are the card, against the same step on
+    a (2, 2) mesh of the CPU: loss and ``grad_norm`` within 1e-5
+    relative, AdamW's first moment per leaf within 1e-4 of its largest,
+    the blocks on the card, no kernel of the port launched."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.dist import POLICIES
+    from repro_torch.dist.sharding import assemble
+    from repro_torch.dist.steps import make_train_step, shard_state
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import FLAGS
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import leaves
+
+    cfg = smoke_config(ARCHS["gemma2-27b"])
+    rng = np.random.default_rng(13)
+    tok = rng.integers(0, cfg.vocab_size, (4, 33)).astype(np.int32)
+    mods = (pa, fa, da, mm, sc, st, rg, pc)
+    before = [m.LAUNCHES for m in mods]
+    init = build(cfg, FLAGS, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    out = []
+    for dev in ("cpu", cuda):
+        dev = torch.device(dev)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = Mesh(("data", "model"), (2, 2), (dev,) * 4)
+        bundle = build(cfg, FLAGS, device=dev)
+        step, p_sh, _, _ = make_train_step(bundle, mesh, POLICIES[policy],
+                                           AdamWConfig(lr=1e-3))
+        params, opt = shard_state(
+            {k: v for k, v in init.items()}, p_sh, mesh)
+        b = {k: torch.from_numpy(x) for k, x in (("tokens", tok[:, :-1]),
+                                                  ("labels", tok[:, 1:]))}
+        params, opt, m = step(params, opt, b)
+        assert all(blk.device == dev for x in leaves(params)
+                   for blk in x.blocks)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    [assemble(x, "cpu") for x in leaves(opt.m)]))
+    assert [m.LAUNCHES for m in mods] == before
+    (l_cpu, gn_cpu, m_cpu), (l_card, gn_card, m_card) = out
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert abs(gn_card - gn_cpu) <= 1e-5 * gn_cpu
+    for a, b in zip(m_cpu, m_card):
+        assert float((a - b).abs().max()) <= 1e-4 * (
+            float(a.abs().max()) or 1.0)

@@ -76,11 +76,17 @@ def test_importing_every_module_loads_neither_jax_nor_reference():
                                     "repro_torch.train.checkpoint",
                                     "repro_torch.train.fault",
                                     "repro_torch.train.loop",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.dist.fsdp",
+                                    "repro_torch.models.sharded",
+                                    "repro_torch.core.roofline",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.bench.sweeps.roofline"])
 def test_new_module_alone_loads_neither_jax_nor_reference(module):
     """Each module of the MoE and encoder-decoder slice, of the
-    distribution slice and of the training slice, imported by itself in
-    a fresh interpreter."""
+    distribution slice, of the training slice and of the sharded
+    training and dry-run slice, imported by itself in a fresh
+    interpreter."""
     code = (f"import sys, {module}\n"
             "bad = sorted(n for n in sys.modules\n"
             "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -119,6 +125,9 @@ def test_training_raises_without_a_card(no_card):
                 POLICIES["fsdp_tp"], AdamWConfig(), TrainConfig(steps=1))
     with pytest.raises(RuntimeError, match="no CUDA card"):
         launch_train.main(["--arch", "gemma-2b", "--smoke", "--steps", "1"])
+    with pytest.raises(SystemExit, match="needs 2 devices, have 0"):
+        launch_train.main(["--arch", "gemma-2b", "--smoke", "--steps", "1",
+                           "--mesh-model", "2"])
 
 
 def test_launcher_serves_on_an_explicit_cpu(capsys):

@@ -255,7 +255,9 @@ def test_allocator_sequence_matches_reference(name, kw, ops):
     pools = []
     for mod in (j_kv, t_kv):
         if any(op[0] == "append" for op in ops):
-            pools.append(mod.PagedKVCache(num_kv_heads=1, head_dim=4, **kw))
+            dev = dict(device="cpu") if mod is t_kv else {}
+            pools.append(mod.PagedKVCache(num_kv_heads=1, head_dim=4, **kw,
+                                          **dev))
         else:
             pools.append(mod.PageAllocator(**kw))
     ja, ta = pools

@@ -1,6 +1,6 @@
 """Data-parallel training of the port on the CPU, one process driving
-every shard (``repro_torch.dist.dp_shardmap``), and the refusals of
-sharded training, which waits for ROADMAP A10b.
+every shard (``repro_torch.dist.dp_shardmap``), and the entry points of
+sharded training that waited for ROADMAP A10b.
 
 - uncompressed DP over ``["cpu", "cpu"]`` equals the one-device step on
   the full batch (smoke gemma-2b: loss within 1e-6, the gradient norm
@@ -14,9 +14,13 @@ sharded training, which waits for ROADMAP A10b.
 - the reference's ``scenario_dp_compression`` (tests/_md_scenarios.py)
   over ``["cpu"] * 8``: both runs converge by more than 100x and the
   compressed one ends within 5x of the uncompressed one;
-- the refusals of ``tests/test_sharding.py``, and ``make_train_step``,
-  ``train_loss`` under a TP mesh and the launcher refusing more than one
-  device with a message naming A10b.
+- the refusals of ``tests/test_sharding.py``;
+- ``make_train_step`` on a (1, 2) mesh, ``train_loss`` under a TP=2
+  bundle and the launcher with ``--mesh-model 2 --devices cpu,cpu``,
+  which refused with a message naming A10b, train: the mesh's loss and
+  ``grad_norm`` equal the one-device step's, and the TP bundle's
+  gradients reach its whole params (tests/test_torch_train_mesh.py
+  holds the mesh against the reference).
 """
 import jax
 import jax.numpy as jnp
@@ -32,7 +36,7 @@ from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.dist import POLICIES
 from repro_torch.dist.dp_shardmap import (init_error_feedback,
                                           make_dp_train_step)
-from repro_torch.dist.steps import make_train_step
+from repro_torch.dist.steps import make_train_step, shard_state
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import RuntimeFlags, build
@@ -176,18 +180,36 @@ def test_dp_refuses_a_mesh_without_the_axis_and_wrong_residuals():
 
 
 def test_sharded_training_waits_for_a10b():
+    """The three entry points that refused before A10b now train."""
     cfg = smoke_config(ARCHS["phi4-mini-3.8b"])
-    mesh = Mesh(("data", "model"), (1, 2), ("cpu", "cpu"))
-    with pytest.raises(NotImplementedError, match="A10b"):
-        make_train_step(build(cfg, FLAGS, device="cpu"), mesh,
-                        POLICIES["fsdp_tp"], AdamWConfig())
+    bundle = build(cfg, FLAGS, device="cpu")
+    rng = np.random.default_rng(2)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)
+                                        ).astype(np.int32))
+    batch = dict(tokens=tok, labels=tok)
+    got = {}
+    for shape in ((1, 1), (1, 2)):
+        mesh = Mesh(("data", "model"), shape, ("cpu",) * shape[1])
+        step, p_sh, _, _ = make_train_step(bundle, mesh, POLICIES["fsdp_tp"],
+                                           AdamWConfig())
+        params, opt = shard_state(
+            bundle.init(torch.Generator().manual_seed(0)), p_sh, mesh)
+        _, _, got[shape] = step(params, opt, batch)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(got[1, 2][k]), float(got[1, 1][k]),
+                                   rtol=1e-5)
     from repro_torch.dist.serve import ServeMesh
-    bundle = ServeMesh.tp(2, devices=["cpu", "cpu"]).bind(
-        build(cfg, FLAGS, device="cpu"))
-    params = bundle.init(torch.Generator().manual_seed(0))
-    tok = torch.zeros((2, 16), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        bundle.train_loss(params, dict(tokens=tok, labels=tok))
-    with pytest.raises(SystemExit, match="A10b"):
-        launch_train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
-                           "--mesh-model", "2"])
+    tp = ServeMesh.tp(2, devices=["cpu", "cpu"]).bind(bundle)
+    params = tp.init(torch.Generator().manual_seed(0))
+    for t in (params["embed"]["tok"], params["final_norm"]):
+        t.requires_grad_(True)
+    loss, _ = tp.train_loss(params, batch)
+    np.testing.assert_allclose(float(loss.detach()), float(got[1, 1]["loss"]),
+                               rtol=1e-5)
+    grads = torch.autograd.grad(loss, [params["embed"]["tok"],
+                                       params["final_norm"]])
+    assert all(float(g.abs().sum()) > 0 for g in grads)
+    assert launch_train.main(["--arch", "gemma-2b", "--smoke", "--device",
+                              "cpu", "--mesh-model", "2", "--devices",
+                              "cpu,cpu", "--steps", "2", "--seq", "16",
+                              "--batch", "2"]) == 0

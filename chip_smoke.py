@@ -4136,151 +4136,236 @@ def _first_divergence(got, want):
     return same / max(1, total), first
 
 
-def tp_serve_phase(torch, np, card):
-    """Full-width phi4-mini-3.8b at TP=2 on the one card, then TP=1 on the
-    same weights; returns K1's launches on both paths."""
-    from repro_torch.configs import ARCHS
+def _copies_line(copies, ticks):
+    """The bytes the shards copied between them, by kind, per decode tick
+    (the drain's prefill chunks included)."""
+    return " ".join(f"{k.replace(' ', '_')}_KiB_per_tick="
+                    f"{v / max(1, ticks) / 1024:.1f}"
+                    for k, v in sorted(copies.items()))
+
+
+def _shard_state_equal(torch, eng):
+    """Every shard's copy of every recurrent state leaf is the first
+    shard's (the pools and their scale lanes split, and are skipped)."""
+    first = eng.cache[0]
+    for c in eng.cache[1:]:
+        for part in ("blocks", "rem"):
+            for name, layer in first[part].items():
+                for n, leaf in layer.items():
+                    if n in ("k_pages", "v_pages", "k_scale", "v_scale"):
+                        continue
+                    if not torch.equal(leaf, c[part][name][n].to(
+                            leaf.device)):
+                        return False
+    return True
+
+
+def tp_family_serve(torch, np, card, cfg, flags, tag, reqs, extra):
+    """``cfg`` at TP=2 with both shards on the one card, then TP=1 on the
+    same weights: the same requests drained warm by each; K1's launches
+    = shards x attention layers x ticks, every budget met.  ``extra(tp2,
+    tp1)`` adds the family's checks and returns words for the summary
+    line.  Returns (K1 launches of the TP=2 drain, the runs)."""
     from repro_torch.dist import ServeMesh
+    from repro_torch.dist import tp as tpc
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = ARCHS["phi4-mini-3.8b"]
-    bundle, params = load_model(torch, cfg)
-    reqs = make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
-                         (0, 9, 12, 15), TP_NEW)[:8]
+    bundle, params = load_model(torch, cfg, flags)
     Timed = timed_engine_class(torch, ServeEngine)
     mesh = ServeMesh.tp(2, devices=tp_devices(torch))
-    runs, launches = {}, {}
-    for tag, kw in (("tp2", dict(dist=mesh)), ("tp1", {})):
+    n_attn = attention_layers(cfg)
+    runs = {}
+    for label, kw in (("tp2", dict(dist=mesh)), ("tp1", {})):
         eng = Timed(bundle, params, 8, 1024, prefill_chunk=256, **kw)
-        # a short drain first meets the layout's shapes (GEMMs, K1 at the
-        # shard's heads), so both layouts are timed warm
+        # a short drain first meets the layout's shapes, so both layouts
+        # are timed warm
         drain(torch, eng, [Request(rid=r.rid, prompt=r.prompt,
                                    max_new_tokens=2) for r in reqs[:2]])
         pa.reset_launches()
+        tpc.reset_copies()
         dt = drain(torch, eng, reqs)
         st = eng.stats
-        n_attn = eng.tp * cfg.num_layers
-        launches[f"{tag} serve"] = pa.LAUNCHES
+        launches = pa.LAUNCHES
         check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
-              f"tp serve {tag}: a request missed its budget")
+              f"{tag} {label}: a request missed its budget")
         check(all(0 <= t < cfg.vocab_size for r in reqs
-                  for t in r.out_tokens), f"tp serve {tag}: token out of "
+                  for t in r.out_tokens), f"{tag} {label}: token out of "
               "range")
-        check(pa.LAUNCHES == n_attn * st.decode_steps > 0,
-              f"tp serve {tag}: K1 launches {pa.LAUNCHES} != {eng.tp} "
-              f"shards x {cfg.num_layers} layers x {st.decode_steps} ticks")
-        runs[tag] = dict(eng=eng, tokens=[list(r.out_tokens) for r in reqs],
-                         tick_ms=1e3 * eng.decode_s / st.decode_steps,
-                         chunk_ms=1e3 * eng.prefill_s / st.prefill_chunks,
-                         tok_s=st.tokens_out / dt, seconds=dt)
+        check(launches == eng.tp * n_attn * st.decode_steps
+              and st.decode_steps > 0,
+              f"{tag} {label}: K1 launches {launches} != {eng.tp} shards x "
+              f"{n_attn} attention layers x {st.decode_steps} ticks")
+        runs[label] = dict(eng=eng, tokens=[list(r.out_tokens) for r in reqs],
+                           tick_ms=1e3 * eng.decode_s / st.decode_steps,
+                           chunk_ms=1e3 * eng.prefill_s / st.prefill_chunks,
+                           tok_s=st.tokens_out / dt, seconds=dt,
+                           launches=launches, copies=dict(tpc.COPIES))
     tp2, tp1 = runs["tp2"]["eng"], runs["tp1"]["eng"]
-    # each shard: 12 query heads over a stripe of 4 kv heads, the same
-    # page ids (the tables are one tensor copied per shard)
-    heads = [(s["blocks"]["p0"]["attn"]["wq"].shape[-1] // 128,
-              c["blocks"]["p0"]["k_pages"].shape[-2])
-             for s, c in zip(tp2.params, tp2.cache)]
-    check(heads == [(12, 4), (12, 4)], f"tp serve: shard heads {heads}, "
-          "not Hq 12 / Hkv 4")
-    check(all(torch.equal(t["full"], tp2._table[0]["full"])
-              for t in tp2._table), "tp serve: the shards' tables differ")
-    pool = sum(c["blocks"]["p0"][n].numel() * c["blocks"]["p0"][n]
-               .element_size() for c in tp2.cache[:1]
-               for n in ("k_pages", "v_pages"))
-    check(2 * pool == tp1.kv_bytes() == tp2.kv_bytes(),
-          f"tp serve: a shard's pools hold {pool} bytes, TP=1's "
-          f"{tp1.kv_bytes()}")
-    live = tp2.live_kv_bytes_peak(per_shard=True)
-    check(2 * live == tp1.live_kv_bytes_peak(),
-          f"tp serve: a shard's live bytes {live} are not half of TP=1's "
-          f"{tp1.live_kv_bytes_peak()}")
+    words = extra(tp2, tp1)
     share, first = _first_divergence(runs["tp2"]["tokens"],
                                      runs["tp1"]["tokens"])
-    for tag, r in runs.items():
+    for label, r in runs.items():
         e = r["eng"]
-        print(f"[tp serve] layout={tag} card='{card}' arch={cfg.name} "
+        print(f"[{tag}] layout={label} card='{card}' arch={cfg.name} "
               f"requests={len(reqs)} batch={e.bsz} max_len={e.max_len} "
               f"page={e.page} prefill_chunk={e.prefill_chunk} "
               f"shards={e.tp} shard_heads=Hq{cfg.num_heads // e.tp}/"
-              f"Hkv{cfg.num_kv_heads // e.tp} tokens_out={e.stats.tokens_out} "
-              f"seconds={r['seconds']:.3f} tok_s={r['tok_s']:.1f} "
-              f"decode_steps={e.stats.decode_steps} "
+              f"Hkv{cfg.num_kv_heads // e.tp} "
+              f"moe_impl={e.bundle.flags.moe_impl} "
+              f"tokens_out={e.stats.tokens_out} seconds={r['seconds']:.3f} "
+              f"tok_s={r['tok_s']:.1f} decode_steps={e.stats.decode_steps} "
+              f"prefill_chunks={e.stats.prefill_chunks} "
               f"ms_per_decode_tick={r['tick_ms']:.3f} "
               f"ms_per_prefill_chunk={r['chunk_ms']:.3f} "
-              f"k1_launches={launches[f'{tag} serve']} "
+              f"k1_launches={r['launches']} "
               f"live_kv_bytes_per_shard="
               f"{e.live_kv_bytes_peak(per_shard=True)} "
-              f"kv_pool_GiB_per_shard={e.kv_bytes() / e.tp / 2**30:.3f}",
+              f"kv_pool_GiB_per_shard={e.kv_bytes() / e.tp / 2**30:.3f} "
+              f"{_copies_line(r['copies'], e.stats.decode_steps)}",
               flush=True)
-    print(f"[tp serve] tokens_equal_to_tp1={share:.4f} "
-          f"first_divergence={first} (request, token; not gated: the "
-          "shards' two bf16 partial sums round otherwise than one bf16 "
-          "product, and the reference's token contract is float32 on the "
-          f"CPU) tick_ratio_tp2_to_tp1="
-          f"{runs['tp2']['tick_ms'] / runs['tp1']['tick_ms']:.3f} "
+    print(f"[{tag}] tokens_equal_to_tp1={share:.4f} first_divergence="
+          f"{first} (request, token; not gated: bf16 partial sums) "
+          f"tick_ratio_tp2_to_tp1="
+          f"{runs['tp2']['tick_ms'] / runs['tp1']['tick_ms']:.3f} {words} "
           f"card='{card}'", flush=True)
-    return launches
+    return runs["tp2"]["launches"], runs
+
+
+def tp_serve_phase(torch, np, card):
+    """Full-width phi4-mini-3.8b at TP=2 on the one card, then TP=1 on the
+    same weights (:func:`tp_family_serve`); returns K1's launches on both
+    paths."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.serve import Request
+
+    cfg = ARCHS["phi4-mini-3.8b"]
+
+    def extra(tp2, tp1):
+        # each shard: 12 query heads over a stripe of 4 kv heads, the same
+        # page ids (the tables are one tensor copied per shard)
+        heads = [(s["blocks"]["p0"]["attn"]["wq"].shape[-1] // 128,
+                  c["blocks"]["p0"]["k_pages"].shape[-2])
+                 for s, c in zip(tp2.params, tp2.cache)]
+        check(heads == [(12, 4), (12, 4)], f"tp serve: shard heads {heads}, "
+              "not Hq 12 / Hkv 4")
+        check(all(torch.equal(t["full"], tp2._table[0]["full"])
+                  for t in tp2._table), "tp serve: the shards' tables differ")
+        pool = sum(c["blocks"]["p0"][n].numel() * c["blocks"]["p0"][n]
+                   .element_size() for c in tp2.cache[:1]
+                   for n in ("k_pages", "v_pages"))
+        check(2 * pool == tp1.kv_bytes() == tp2.kv_bytes(),
+              f"tp serve: a shard's pools hold {pool} bytes, TP=1's "
+              f"{tp1.kv_bytes()}")
+        live = tp2.live_kv_bytes_peak(per_shard=True)
+        check(2 * live == tp1.live_kv_bytes_peak(),
+              f"tp serve: a shard's live bytes {live} are not half of "
+              f"TP=1's {tp1.live_kv_bytes_peak()}")
+        return "shard_heads=Hq12/Hkv4"
+
+    _, runs = tp_family_serve(
+        torch, np, card, cfg, None, "tp serve",
+        make_requests(np, Request, cfg.vocab_size, 0, 16, (64, 513), 256,
+                      (0, 9, 12, 15), TP_NEW)[:8], extra)
+    return {f"{label} serve": r["launches"] for label, r in runs.items()}
+
+
+def _tp_drain_parity(torch, np, cfg, flags, reqs_of, tag, desc,
+                     sampling=None, params=None):
+    """The same float32 weights drain the same requests at TP=2 on the
+    card (both shards on cuda:0), at TP=1 on the card and on the CPU:
+    tokens, final keys and every counter equal; K1 = 2 x attention
+    layers x ticks at TP=2; the shards' state copies equal.  Returns
+    (TP=2's K1 launches, the card weights)."""
+    import dataclasses
+
+    from repro_torch.dist import ServeMesh
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card_bundle = build(cfg, flags, device="cuda")
+    card_params = params or card_bundle.init(
+        torch.Generator(device="cuda").manual_seed(1))
+    mesh = ServeMesh.tp(2, devices=tp_devices(torch))
+    layouts = (("card tp2", card_bundle, card_params, dict(dist=mesh)),
+               ("card tp1", card_bundle, card_params, dict(device="cuda")),
+               ("cpu tp1", build(cfg, flags, device="cpu"),
+                _to(card_params, "cpu"), dict(device="cpu")))
+    n_attn = attention_layers(cfg)
+    outs, keys, stats = {}, {}, {}
+    launches, same_state, reused = 0, True, {}
+    for label, bundle, params_l, kw in layouts:
+        eng = ServeEngine(bundle, params_l, 4, 128, sampling=sampling,
+                          seed=3, prefill_chunk=32, **kw)
+        reqs = reqs_of()
+        pa.reset_launches()
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_to_completion()
+        if label == "card tp2":
+            launches = pa.LAUNCHES
+            check(launches == 2 * n_attn * eng.stats.decode_steps
+                  and eng.stats.decode_steps > 0,
+                  f"{tag}: K1 launches {launches} != 2 shards x {n_attn} "
+                  f"x {eng.stats.decode_steps} ticks")
+            same_state = _shard_state_equal(torch, eng)
+        outs[label] = [list(r.out_tokens) for r in reqs]
+        keys[label] = eng.keys.cpu()
+        stats[label] = dataclasses.asdict(eng.stats)
+        reused[label] = eng.stats.ring_pages_reused
+        check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+              f"{tag} {label}: budget missed")
+        del eng
+    if any(s.sliding_window for s in cfg.layer_pattern):
+        check(all(v > 0 for v in reused.values()),
+              f"{tag}: the ring never turned: {reused}")
+    want = "cpu tp1"
+    same = all(o == outs[want] for o in outs.values())
+    same_keys = all(torch.equal(k, keys[want]) for k in keys.values())
+    same_stats = all(s == stats[want] for s in stats.values())
+    mode = "greedy" if sampling is None else "sampled"
+    print(f"[{tag}] {desc} mode={mode} layouts={sorted(outs)} "
+          f"requests={len(outs[want])} tokens_equal={same} "
+          f"keys_equal={same_keys} stats_equal={same_stats} "
+          f"shard_state_equal={same_state} ring_pages_reused="
+          f"{reused['card tp2']} k1_launches_tp2={launches}", flush=True)
+    check(same, f"{tag} {mode}: tokens differ: {outs}")
+    check(same_keys, f"{tag} {mode}: final keys differ")
+    check(same_stats, f"{tag} {mode}: counters differ")
+    check(same_state, f"{tag} {mode}: the shards' state copies differ")
+    return launches, card_params
 
 
 def tp_parity_phase(torch, np):
     """phi4-mini-3.8b at published widths cut to 2 layers, float32: TP=2
-    on the card against TP=1 on the card and on the CPU."""
-    import dataclasses
-
+    on the card against TP=1 on the card and on the CPU, greedy and
+    sampled (:func:`_tp_drain_parity`); then logits of a paged chunk and
+    3 ticks."""
     from repro_torch.configs import ARCHS, override
     from repro_torch.dist import ServeMesh
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import build
-    from repro_torch.serve import Request, SamplingParams, ServeEngine
+    from repro_torch.serve import Request, SamplingParams
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = override(ARCHS["phi4-mini-3.8b"], num_layers=2,
                    param_dtype="float32", compute_dtype="float32")
+
+    def reqs_of():
+        return make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40), 17,
+                             (0, 4), 8)
+
+    desc = "arch=phi4-mini-3.8b full width, 2 layers, float32"
+    launches, card_params = _tp_drain_parity(torch, np, cfg, None, reqs_of,
+                                             "tp parity", desc)
+    n, _ = _tp_drain_parity(torch, np, cfg, None, reqs_of, "tp parity", desc,
+                            sampling=SamplingParams(temperature=0.9,
+                                                    top_k=11),
+                            params=card_params)
+    launches += n
     card_bundle = build(cfg, device="cuda")
-    card_params = card_bundle.init(
-        torch.Generator(device="cuda").manual_seed(1))
-    cpu_bundle = build(cfg, device="cpu")
-    cpu_params = _to(card_params, "cpu")
     mesh = ServeMesh.tp(2, devices=tp_devices(torch))
-    layouts = (("card tp2", card_bundle, card_params, dict(dist=mesh)),
-               ("card tp1", card_bundle, card_params, dict(device="cuda")),
-               ("cpu tp1", cpu_bundle, cpu_params, dict(device="cpu")))
-    launches = 0
-    for sampling in (None, SamplingParams(temperature=0.9, top_k=11)):
-        outs, keys, stats = {}, {}, {}
-        for label, bundle, params, kw in layouts:
-            if sampling is not None and label == "card tp1":
-                continue
-            eng = ServeEngine(bundle, params, 4, 128, sampling=sampling,
-                              seed=3, **kw)
-            reqs = make_requests(np, Request, cfg.vocab_size, 2, 6, (5, 40),
-                                 17, (0, 4), 8)
-            pa.reset_launches()
-            for r in reqs:
-                eng.add_request(r)
-            eng.run_to_completion()
-            if label == "card tp2":
-                launches += pa.LAUNCHES
-                check(pa.LAUNCHES == 2 * 2 * eng.stats.decode_steps > 0,
-                      f"tp parity: K1 launches {pa.LAUNCHES} != 2 shards x "
-                      f"2 layers x {eng.stats.decode_steps} ticks")
-            outs[label] = [list(r.out_tokens) for r in reqs]
-            keys[label] = eng.keys.cpu()
-            stats[label] = dataclasses.asdict(eng.stats)
-            del eng
-        mode = "greedy" if sampling is None else "sampled"
-        same = all(o == outs["cpu tp1"] for o in outs.values())
-        same_keys = all(torch.equal(k, keys["cpu tp1"])
-                        for k in keys.values())
-        same_stats = all(st == stats["cpu tp1"] for st in stats.values())
-        print(f"[tp parity] arch={cfg.name} full width, 2 layers, float32 "
-              f"mode={mode} layouts={sorted(outs)} requests=6 "
-              f"tokens_equal={same} keys_equal={same_keys} "
-              f"stats_equal={same_stats}", flush=True)
-        check(same, f"tp parity {mode}: tokens differ: {outs}")
-        check(same_keys, f"tp parity {mode}: final keys differ")
-        check(same_stats, f"tp parity {mode}: counters differ")
     # logits of a paged chunk and 3 decode ticks, TP=2 against TP=1
     tb, tparams = mesh.bind(card_bundle), mesh.shard_params(card_bundle,
                                                             card_params)
@@ -5109,6 +5194,306 @@ def dryrun_phase(torch, np, card, train_info, fsdp_info):
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism over the MoE, recurrent and encoder-decoder stacks
+# ---------------------------------------------------------------------------
+
+A9B_TRAIN_BATCH = 2                # [a9b parity]'s train step: B 2 x S 32
+A9B_WINDOW = 32                    # recurrentgemma-9b's window in [a9b parity]
+
+
+def moe_tp_serve_phase(torch, np, card):
+    """Full-width granite-moe-3b-a800m (32 layers of 40 experts, top 8)
+    at TP=2 then TP=1 under the launcher's dense dispatch: each shard
+    holds 20 experts of every layer and runs K1 at Hq 12 / Hkv 4, D 64."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import RuntimeFlags
+
+    cfg = ARCHS["granite-moe-3b-a800m"]
+
+    def experts(eng):
+        """(experts of layer 0 on each shard, expert bytes of each)."""
+        trees = eng.params if isinstance(eng.params, list) else [eng.params]
+        return ([t["blocks"]["p0"]["moe"]["w_up"].shape[1] for t in trees],
+                [sum(t["blocks"]["p0"]["moe"][n].numel()
+                     * t["blocks"]["p0"]["moe"][n].element_size()
+                     for n in ("w_gate", "w_up", "w_down")) for t in trees])
+
+    def extra(tp2, tp1):
+        n2, b2 = experts(tp2)
+        n1, b1 = experts(tp1)
+        check(n2 == [20, 20] and n1 == [40] and all(2 * b == b1[0]
+                                                    for b in b2),
+              f"moe tp serve: experts per shard {n2} ({b2} bytes), TP=1 "
+              f"{n1} ({b1})")
+        heads = [(s["blocks"]["p0"]["attn"]["wq"].shape[-1] // 64,
+                  c["blocks"]["p0"]["k_pages"].shape[-2])
+                 for s, c in zip(tp2.params, tp2.cache)]
+        check(heads == [(12, 4), (12, 4)], f"moe tp serve: shard heads "
+              f"{heads}, not Hq 12 / Hkv 4")
+        live2 = tp2.live_kv_bytes_peak(per_shard=True)
+        live1 = tp1.live_kv_bytes_peak()
+        check(2 * live2 == live1, f"moe tp serve: a shard's live KV bytes "
+              f"{live2} are not half of TP=1's {live1}")
+        return (f"experts_per_shard={n2} expert_bytes_per_shard={b2} "
+                f"tp1_expert_bytes={b1[0]} shard_heads=Hq12/Hkv4 group=3 D=64")
+
+    launches, _ = tp_family_serve(
+        torch, np, card, cfg, RuntimeFlags(moe_impl="dense"), "moe tp serve",
+        moe_requests(np, cfg.vocab_size)[:8], extra)
+    return {"moe tp serve": launches}
+
+
+def ssm_tp_serve_phase(torch, np, card):
+    """Full-width mamba2-130m (24 SSD layers, 24 heads: 12 a shard) at
+    TP=2 then TP=1: no pool, no K1; the SSM state replicated on both
+    shards and equal there after the drain."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS["mamba2-130m"]
+
+    def extra(tp2, tp1):
+        same = _shard_state_equal(torch, tp2)
+        check(same, "ssm tp serve: the shards' state copies differ after "
+              "the drain")
+        live2 = tp2.live_kv_bytes_peak(per_shard=True)
+        live1 = tp1.live_kv_bytes_peak(per_shard=True)
+        check(live2 == live1 and tp2.kv_bytes() == tp1.kv_bytes(),
+              f"ssm tp serve: per-shard live bytes {live2} != TP=1's "
+              f"{live1} (no pools: the state counted once)")
+        heads = [t["blocks"]["p0"]["ssd"]["a_log"].shape[-1]
+                 for t in tp2.params]
+        check(heads == [12, 12], f"ssm tp serve: SSD heads per shard {heads}")
+        return (f"ssd_heads_per_shard={heads} state_copies_equal={same} "
+                f"live_kv_bytes_per_shard={live2}")
+
+    tp_family_serve(torch, np, card, cfg, None, "ssm tp serve",
+                    moe_requests(np, cfg.vocab_size)[:8], extra)
+
+
+def a9b_parity_phase(torch, np):
+    """TP=2 on the card == TP=1 on the card == the CPU, float32, for
+    granite-moe-3b-a800m at 2 layers (dense dispatch, greedy and
+    sampled; then one sorted apply_tp call against apply_sorted at a
+    capacity that drops rows), mamba2-130m at full depth, and
+    recurrentgemma-9b's widths with 2 kv heads at one pattern block
+    (window narrowed 2048 -> 32 so the ring turns)."""
+    from repro_torch.configs import ARCHS, LayerSpec, override
+    from repro_torch.configs.base import ATTN, RGLRU
+    from repro_torch.dist import tp as tpc
+    from repro_torch.models import RuntimeFlags
+    from repro_torch.models import moe
+    from repro_torch.serve import Request, SamplingParams
+
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    launches = 0
+
+    def reqs_of(cfg):
+        return lambda: make_requests(np, Request, cfg.vocab_size, 2, 6,
+                                     (20, 72), 17, (0, 4), 8)
+
+    cfg = override(ARCHS["granite-moe-3b-a800m"], num_layers=2, **f32)
+    flags = RuntimeFlags(moe_impl="dense")
+    n, params = _tp_drain_parity(
+        torch, np, cfg, flags, reqs_of(cfg), "a9b parity",
+        "arch=granite-moe-3b-a800m full width, 2 layers, float32, dense")
+    launches += n
+    n, _ = _tp_drain_parity(
+        torch, np, cfg, flags, reqs_of(cfg), "a9b parity",
+        "arch=granite-moe-3b-a800m full width, 2 layers, float32, dense",
+        sampling=SamplingParams(temperature=0.9, top_k=11), params=params)
+    launches += n
+    # the sorted dispatch over two shards of layer 0 against the plain
+    # version on the same input, at a capacity factor that drops rows
+    p = {k: v[0] for k, v in params["blocks"]["p0"]["moe"].items()}
+    e = cfg.num_experts
+    ps = [{k: (v if k == "router" else v[i * e // 2:(i + 1) * e // 2])
+           for k, v in p.items()} for i in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 256, cfg.d_model), generator=gen, device="cuda")
+    k, cf = cfg.num_experts_per_tok, 0.5
+    tpc.reset_copies()
+    got, aux = moe.apply_tp(ps, x, k, cfg.activation,
+                            tpc.DeviceGroup(tp_devices(torch)), impl="sorted",
+                            group_size=256, capacity_factor=cf, d_ff=cfg.d_ff)
+    want, aux1 = moe.apply_sorted(p, x, k, cfg.activation, group_size=256,
+                                  capacity_factor=cf)
+    _, ids, _ = moe._route(p, x, k)
+    cap = moe.capacity(k, 256, cf, e)
+    dropped = int((~moe.dispatch(ids, k, 256, cap, e)[2]).sum())
+    err = float((got - want).abs().max())
+    print(f"[a9b parity] apply_tp sorted, 2 shards of 20 experts, x (2, 256, "
+          f"1536) float32, capacity_factor={cf} cap={cap} "
+          f"dropped_assignments={dropped} max_abs_err={err:.3e} "
+          f"aux_equal={bool(aux == aux1)} tol={MOE_TOL} "
+          f"{_copies_line(tpc.COPIES, 1)}", flush=True)
+    check(dropped > 0, "a9b parity: the sorted call dropped no row")
+    check(err <= MOE_TOL and bool(aux == aux1),
+          f"a9b parity: sorted apply_tp {err:.3e} from apply_sorted")
+    del params, p, ps
+
+    cfg = override(ARCHS["mamba2-130m"], **f32)
+    n, _ = _tp_drain_parity(torch, np, cfg, None, reqs_of(cfg),
+                            "a9b parity",
+                            "arch=mamba2-130m full width and depth, float32")
+    launches += n
+    cfg = override(ARCHS["recurrentgemma-9b"], num_layers=3, num_kv_heads=2,
+                   layer_pattern=(LayerSpec(mixer=RGLRU),
+                                  LayerSpec(mixer=RGLRU),
+                                  LayerSpec(mixer=ATTN,
+                                            sliding_window=A9B_WINDOW)),
+                   **f32)
+    n, _ = _tp_drain_parity(
+        torch, np, cfg, None, reqs_of(cfg), "a9b parity",
+        f"arch=recurrentgemma-9b full width, one block, num_kv_heads=2, "
+        f"window narrowed 2048->{A9B_WINDOW}, float32")
+    launches += n
+    return {"a9b parity": launches}
+
+
+def _a9b_train_cases(np, torch):
+    """[a9b parity]'s train cases: (config, batch on the host) of
+    granite-moe-3b-a800m (2 layers), recurrentgemma-9b (one block, its
+    one kv head), mamba2-130m (2 layers) and seamless-m4t-medium (2 + 2
+    layers), float32 at published widths, B 2 x S 32."""
+    from repro_torch.configs import ARCHS, override
+
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    cfgs = (override(ARCHS["granite-moe-3b-a800m"], num_layers=2, **f32),
+            override(ARCHS["recurrentgemma-9b"], num_layers=3, **f32),
+            override(ARCHS["mamba2-130m"], num_layers=2, **f32),
+            override(ARCHS["seamless-m4t-medium"], num_layers=2,
+                     num_encoder_layers=2, **f32))
+    out = []
+    for i, cfg in enumerate(cfgs):
+        rng = np.random.default_rng(30 + i)
+        tok = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (A9B_TRAIN_BATCH, 33)).astype(np.int32))
+        batch = dict(labels=tok[:, 1:])
+        if cfg.enc_dec:
+            batch.update(dec_tokens=tok[:, :-1], frames=torch.from_numpy(
+                rng.standard_normal((A9B_TRAIN_BATCH, 32, cfg.d_model))
+                .astype(np.float32)))
+        else:
+            batch.update(tokens=tok[:, :-1])
+        out.append((cfg, batch))
+    return out
+
+
+def _a9b_train_pair(torch, cfg, batch, meshes):
+    """One train step (the launcher's flags, AdamW at lr 1e-3) from the
+    same weights on each of the two ``meshes`` (1x1, then (1, 2)):
+    ((loss, grad_norm) of each, the first moments' worst leaf gap, the
+    leaves the (1, 2) mesh splits over model).  The weights are drawn on
+    the card, so the CPU's are the card's."""
+    from repro_torch.dist import POLICIES
+    from repro_torch.dist.sharding import Sharded, assemble_tree
+    from repro_torch.dist.steps import make_train_step, shard_state
+    from repro_torch.launch.train import FLAGS
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import leaves
+
+    init = build(cfg, FLAGS, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(6))
+    dev = meshes[0].devices[0]
+    if dev.type != "cuda":
+        init = _copy(init, dev)
+    out, moments, split = [], [], 0
+    for mesh in meshes:
+        step, p_sh, _, _ = make_train_step(build(cfg, FLAGS, device=dev),
+                                           mesh, POLICIES["fsdp_tp"],
+                                           AdamWConfig(lr=1e-3))
+        params, opt = shard_state(_copy(init, dev), p_sh, mesh)
+        split = sum(isinstance(x, Sharded) and len(x.blocks) == 2
+                    for x in leaves(params))
+        _, opt, m = step(params, opt, {k: v.to(dev)
+                                       for k, v in batch.items()})
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+        moments.append(assemble_tree(opt.m) if len(mesh.devices) > 1
+                       else opt.m)
+        del params, opt, step
+    gap = _leaf_gap(moments[1], moments[0])
+    del init, moments
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, gap, split
+
+
+def _a9b_mesh_gates(tag, cfg, where, pair, gap, split):
+    """[fsdp tp parity]'s gates: the (1, 2) step's loss within 1e-6 and
+    grad_norm within 1e-5 of 1x1's (relative), the first moment within
+    1e-4 of each leaf's largest."""
+    (l1, g1), (l2, g2) = pair
+    loss_rel, gn_rel = abs(l2 - l1) / abs(l1), abs(g2 - g1) / g1
+    check(split > 0, f"{tag} {cfg.name} {where}: no leaf split over model")
+    check(loss_rel <= 1e-6 and gn_rel <= 1e-5 and gap <= 1e-4,
+          f"{tag} {cfg.name} {where}: the (1, 2) step is loss "
+          f"{loss_rel:.3e}, grad_norm {gn_rel:.3e}, moment {gap:.3e} from "
+          "1x1's")
+    return (f"{where}: loss_1x1={l1:.8f} loss_1x2={l2:.8f} loss_rel="
+            f"{loss_rel:.3e} grad_norm_rel={gn_rel:.3e} moment={gap:.3e} "
+            f"leaves_split_over_model={split}")
+
+
+A9B_CPU_STEPS = os.path.join(ROOT, "build", "smoke_lanes",
+                             "a9b_train_cpu.json")
+
+
+def a9b_train_cpu_phase(torch, np):
+    """[a9b parity]'s train cases on the CPU (a queued phase: the card
+    holds none of it): a (1, 2) mesh of the CPU against 1x1, at [fsdp tp
+    parity]'s gates; the 1x1 steps' loss and grad_norm are left for
+    :func:`a9b_train_parity_phase` to hold the card's against."""
+    from repro_torch.launch.mesh import Mesh
+
+    cpu = torch.device("cpu")
+    meshes = (Mesh(("data", "model"), (1, 1), (cpu,)),
+              Mesh(("data", "model"), (1, 2), (cpu, cpu)))
+    record = {}
+    for cfg, batch in _a9b_train_cases(np, torch):
+        t0 = time.perf_counter()
+        pair, gap, split = _a9b_train_pair(torch, cfg, batch, meshes)
+        words = _a9b_mesh_gates("a9b parity train", cfg, "cpu", pair, gap,
+                                split)
+        print(f"[a9b parity] train arch={cfg.name} layers={cfg.num_layers}"
+              f"{' + %d' % cfg.num_encoder_layers if cfg.enc_dec else ''} "
+              f"float32 batch={A9B_TRAIN_BATCH} seq=32 {words} "
+              f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+        record[cfg.name] = pair[0]
+    with open(A9B_CPU_STEPS, "w") as f:
+        json.dump(record, f)
+
+
+def a9b_train_parity_phase(torch, np):
+    """[a9b parity]'s train cases on the card, after the lanes (the
+    recurrentgemma step's state takes about 40 GiB): a (1, 2) mesh of
+    cuda:0 against the 1x1 step at [fsdp tp parity]'s gates, and the 1x1
+    step's loss and grad_norm against the CPU's (written by
+    :func:`a9b_train_cpu_phase`) at [train parity]'s, 1e-5 relative."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "a9b train parity: TF32 is on")
+    with open(A9B_CPU_STEPS) as f:
+        cpu = json.load(f)
+    meshes = (_card_mesh(torch, (1, 1)), _card_mesh(torch, (1, 2)))
+    for cfg, batch in _a9b_train_cases(np, torch):
+        t0 = time.perf_counter()
+        pair, gap, split = _a9b_train_pair(torch, cfg, batch, meshes)
+        words = _a9b_mesh_gates("a9b parity train", cfg, "card", pair, gap,
+                                split)
+        (l1, g1), (l0, g0) = pair[0], cpu[cfg.name]
+        loss_rel, gn_rel = abs(l1 - l0) / abs(l0), abs(g1 - g0) / g0
+        print(f"[a9b parity] train arch={cfg.name} layers={cfg.num_layers}"
+              f"{' + %d' % cfg.num_encoder_layers if cfg.enc_dec else ''} "
+              f"float32 batch={A9B_TRAIN_BATCH} seq=32 (1, 2) mesh of "
+              f"cuda:0 {words} card_1x1_vs_cpu_1x1: loss_cpu={l0:.8f} "
+              f"loss_rel={loss_rel:.3e} grad_norm_rel={gn_rel:.3e} "
+              f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+        check(loss_rel <= 1e-5 and gn_rel <= 1e-5,
+              f"a9b parity train {cfg.name}: the card's 1x1 step is loss "
+              f"{loss_rel:.3e}, grad_norm {gn_rel:.3e} from the CPU's")
+
+
+# ---------------------------------------------------------------------------
 # lanes: phases that need no result of another phase, run in processes of
 # their own beside the main one
 # ---------------------------------------------------------------------------
@@ -5129,7 +5514,10 @@ def _without_card(phase):
 
 
 LANES = {
-    "parity": (),
+    "parity": (
+        ("moe tp serve", moe_tp_serve_phase),
+        ("ssm tp serve", ssm_tp_serve_phase),
+    ),
     "bench": (
         ("bench serve",
          lambda torch, np, card: bench_serve_phase(torch, card)),
@@ -5137,6 +5525,8 @@ LANES = {
     ),
 }
 QUEUE = (
+    ("a9b parity", _without_card(a9b_parity_phase)),
+    ("a9b train cpu", _without_card(a9b_train_cpu_phase)),
     ("hybrid parity", _without_card(hybrid_parity_phase)),
     ("ring parity", _without_card(ring_parity_phase)),
     ("preempt parity", _without_card(preempt_parity_phase)),
@@ -5532,6 +5922,10 @@ def main():
         torch.cuda.empty_cache()
         dryrun_phase(torch, np, card, train_info, fsdp_info)
         lap("fsdp tp parity, fsdp tp train, sharded decode, dryrun")
+        a9b_train_parity_phase(torch, np)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("a9b train parity")
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1

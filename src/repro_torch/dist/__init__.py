@@ -9,9 +9,11 @@ collectives written out as device-to-device copies.
 :func:`~repro_torch.dist.steps.make_train_step` builds the train step
 over a one-device mesh, and :mod:`~repro_torch.dist.dp_shardmap` trains
 data-parallel with explicit collectives (int8 + error-feedback
-gradients optional), one process driving every shard.  Sharded FSDP x TP
-training, the elastic restore onto another mesh and the prefill/decode
-step builders wait for ROADMAP A10b.
+gradients optional), one process driving every shard; over a mesh of
+more devices the train, prefill and decode steps run FSDP x TP
+(:mod:`~repro_torch.dist.fsdp`, :mod:`repro_torch.models.sharded`).
+:mod:`~repro_torch.dist.tp` holds the copies between the shards of the
+layer forms that split experts, a recurrence's width or its heads.
 """
 from repro_torch.dist.sharding import (  # noqa: F401
     ACT_RULES_SP, ACT_RULES_TP, BATCH_RULES, PARAM_RULES_FSDP, PARAM_RULES_TP,

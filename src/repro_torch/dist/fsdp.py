@@ -351,19 +351,6 @@ class Row:
     def move(self, t, src_c: int, dst_c: int) -> torch.Tensor:
         return move(t, self.plan.mesh, self.cols[src_c], self.cols[dst_c])
 
-    def broadcast(self, t, src_c: int = 0) -> list:
-        """``t`` on every column (the input of a column-parallel
-        projection)."""
-        return [self.move(t, src_c, c) for c in range(self.plan.cols)]
-
-    def reduce_sum(self, parts, dst_c: int = 0) -> torch.Tensor:
-        """The columns' partials added on column ``dst_c`` in column
-        order (a row-parallel projection's output)."""
-        out = self.move(parts[0], 0, dst_c)
-        for c, p in enumerate(parts[1:], 1):
-            out = out + self.move(p, c, dst_c)
-        return out
-
 
 # ---------------------------------------------------------------------------
 # accounting

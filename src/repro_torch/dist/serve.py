@@ -14,21 +14,25 @@ the collectives.  Here one process drives every shard: each shard's
 tensors sit on the shard's own ``torch.device`` (devices may repeat: two
 shards on one card, or on the CPU), the layer code runs every shard's ops
 in turn (:mod:`repro_torch.models.transformer`), and the collectives are
-written out below as device-to-device copies, always reduced in shard
-order:
+written out as device-to-device copies, always reduced in shard order.
+Those of a step (the inputs of column-parallel projections, the sums of
+row-parallel partials, the vocab-split embedding and logits, the int8
+KV amax, the MoE dispatch and combine, the recurrent mixers' copies) are
+in :mod:`repro_torch.dist.tp`, which counts their bytes; the recurrent
+state stays replicated in the cache, as in the reference's layout, and
+every shard writes it whole after a step.  Here:
 
-- :func:`reduce_sum`, the sum of row-parallel partials (o-projection,
-  MLP down-projection, the vocab-split embedding's masked lookups);
-- :func:`gather`, the concatenation of vocab slices (logits) and of head
-  stripes (a swapped page assembled on the host);
-- :func:`broadcast`, replicated state (activations entering a
-  column-parallel projection, tables, positions);
-- :func:`reduce_max`, the per-token amax of an int8 KV scale, which spans
-  every kv head.
+- :func:`broadcast`, a tree copied to every shard (the replicated params,
+  tables and positions);
+- :func:`gather`, the concatenation of head stripes (a swapped page
+  assembled on the host);
+- :func:`reduce_sum`, a sum in shard order (the DP replicas' gradients,
+  :mod:`repro_torch.dist.dp_shardmap`).
 
 The order is fixed, so a drain is deterministic, and it is the same code
-on the CPU and on the card.  Determinism contract: shards partition only
-the head dimension, logits are gathered once a step before token
+on the CPU and on the card.  Determinism contract: shards partition the
+head, ff, expert and recurrence-width dimensions, logits are gathered
+once a step before token
 selection, and the per-slot key chains never see the mesh, so a TP=N
 drain gives the single-device engine's tokens wherever the two partial
 sums round as the one product does (float32 on the CPU; PERF.md reports
@@ -46,7 +50,6 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from repro_torch.configs.base import ATTN, MOE
 from repro_torch.dist.sharding import POLICIES, ShardingPolicy, spec_for
 from repro_torch.launch.mesh import Mesh, visible_devices
 
@@ -77,16 +80,6 @@ def reduce_sum(parts: Sequence[torch.Tensor],
     out = parts[0].to(device)
     for p in parts[1:]:
         out = out + p.to(device)
-    return out
-
-
-def reduce_max(parts: Sequence[torch.Tensor],
-               device: torch.device) -> torch.Tensor:
-    """The elementwise maximum of ``parts`` on ``device`` (exact in any
-    order; taken in shard order)."""
-    out = parts[0].to(device)
-    for p in parts[1:]:
-        out = torch.maximum(out, p.to(device))
     return out
 
 
@@ -135,9 +128,11 @@ def _map_path(fn, tree, path=()):
 
 def check_tp(cfg, tp: int) -> None:
     """Shards need contiguous head blocks: tp must divide both head counts
-    (the GQA group stays shard-invariant).  Past that, TP > 1 serves
-    decoders of attention layers with a dense MLP (or none); the MoE,
-    recurrent and encoder-decoder stacks wait for ROADMAP A9b."""
+    (the GQA group stays shard-invariant), the reference's one check.
+    Past it every decoder serves at TP > 1: a MoE layer over the shards'
+    experts, a recurrent mixer over their slices of its width or heads
+    (:mod:`repro_torch.dist.tp`); an encoder-decoder or frontend stack is
+    refused by the engine, which needs the paged backend under a mesh."""
     for name, val in (("num_heads", cfg.num_heads),
                       ("num_kv_heads", cfg.num_kv_heads)):
         if val % tp:
@@ -145,18 +140,6 @@ def check_tp(cfg, tp: int) -> None:
                 f"{cfg.name}: {name}={val} not divisible by tp={tp} — "
                 "the paged shard_map islands partition heads in "
                 "contiguous blocks (pad heads or lower tp)")
-    if tp == 1:
-        return
-    specs = tuple(cfg.layer_pattern) + tuple(cfg.remainder_specs)
-    kinds = {"recurrent" for s in specs if s.mixer != ATTN}
-    kinds |= {"MoE" for s in specs if s.mlp == MOE}
-    if cfg.enc_dec:
-        kinds.add("encoder-decoder")
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over {'/'.join(sorted(kinds))} "
-            f"layers is not ported yet (ROADMAP A9b); tp={tp} serves "
-            "attention decoders with a dense MLP")
 
 
 def _split_tree(tree, specs, axis: str, devices) -> list:

@@ -112,9 +112,6 @@ def make_train_step(bundle, mesh, policy: ShardingPolicy,
     (each data row's slice of it) into m equal slices along axis 0."""
     many = len(mesh.devices) > 1
     if many:
-        from repro_torch.dist.fsdp import MeshPlan
-        from repro_torch.models.sharded import check_mesh
-        check_mesh(bundle.cfg, MeshPlan(mesh, bundle.flags.tp_axis).cols)
         bundle = with_policy(bundle, mesh, policy)
     abs_params, specs = bundle.abstract_params()
     p_shard = policy.param_shardings(mesh, abs_params, specs)

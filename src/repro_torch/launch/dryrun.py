@@ -27,9 +27,8 @@ roofline terms come from the single-pod mesh's counts (``--roofline``:
 from two traces at one and two pattern blocks with the loss in one
 shot, extrapolated, as the reference does), over the H100's rates.
 
-MoE, recurrent and encoder-decoder stacks over a model axis wider than
-one wait for ROADMAP A9b; their cells record ``status: "fail"`` with the
-reason, as a compile failure is recorded in the reference.
+A cell that fails to trace records ``status: "fail"`` with the reason,
+as a compile failure is recorded in the reference.
 
 Records go to ``runs/dryrun_torch.json`` (the port's ``roofline`` sweep
 reads it when it exists); the JAX package's ``runs/dryrun*.json`` are

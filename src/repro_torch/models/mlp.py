@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.serve import reduce_sum
+from repro_torch.dist import tp
 from repro_torch.models.common import EMBED, FF, LAYERS, ParamBuilder
 
 # GELU is the tanh approximation, as the reference's
@@ -35,15 +35,15 @@ def apply(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
     return h @ p["w_down"]
 
 
-def apply_tp(ps, hs, activation: str, d_ff: int,
-             device: torch.device) -> torch.Tensor:
+def apply_tp(ps, hs, activation: str, d_ff: int, g) -> torch.Tensor:
     """The FFN over TP shards: each shard holds a contiguous ff block of
     gate/up (column-parallel) and the matching rows of down
     (row-parallel), so its :func:`apply` on its copy of the input is a
-    partial of the output; the partials sum on ``device`` in shard order.
+    partial of the output; the partials sum on the first shard of the
+    group ``g`` (:mod:`repro_torch.dist.tp`) in shard order.
     Where the policy left ff whole (d_ff does not divide by tp) the FFN
     runs once, on the first shard."""
     if ps[0]["w_down"].shape[-2] == d_ff:
         return apply(ps[0], hs[0], activation)
-    return reduce_sum([apply(p, h, activation) for p, h in zip(ps, hs)],
-                      device)
+    return tp.reduce_sum(g, [apply(p, h, activation) for p, h in zip(ps, hs)],
+                         "mlp out")

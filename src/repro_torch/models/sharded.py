@@ -42,8 +42,15 @@ summed negative log-likelihoods and counts add on the mesh's first
 device, so the loss is the whole batch's mean; a MoE layer's
 load-balance loss is formed from the rows' routing sums
 (:func:`~repro_torch.models.moe.route_stats`), the whole batch's.
-At more than one column the MoE, recurrent and encoder-decoder stacks
-raise ``NotImplementedError`` (ROADMAP A9b), as serving does.
+At more than one column a MoE layer runs over the columns' experts and
+a recurrent mixer over their slices of its width or heads (the serving
+forms, :func:`~repro_torch.models.moe.apply_tp`,
+:func:`~repro_torch.models.rglru.forward_tp`,
+:func:`~repro_torch.models.ssm.forward_tp`, with the copies made by
+:func:`~repro_torch.dist.fsdp.move`), the whole state of a prefill or
+decode step kept on the row's first column; an encoder-decoder keeps its
+blocks stored by the policy and runs on each row's first device over the
+gathered tree, as the reference cannot tensor-parallel serve it.
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ import torch
 
 from repro_torch.configs.base import ATTN, DENSE, MOE, ModelConfig
 from repro_torch.dist import fsdp
+from repro_torch.dist import tp
 from repro_torch.dist.sharding import (POLICIES, Sharded, cut_tree,
                                        is_spec, spec_axes)
 from repro_torch.models import attention as attn_mod
@@ -62,25 +70,6 @@ from repro_torch.models import transformer as tr
 from repro_torch.models.common import BATCH, EMBED, SEQ, nll_sum, rms_norm, \
     softcap
 from repro_torch.tree import leaves, tree_map
-
-
-def check_mesh(cfg: ModelConfig, cols: int) -> None:
-    """Raise unless the stack runs over ``cols`` tensor-parallel columns:
-    one column runs every family; more run decoders of attention layers
-    with a dense MLP (or none)."""
-    if cols == 1:
-        return
-    specs = tuple(cfg.layer_pattern) + tuple(cfg.remainder_specs)
-    kinds = {"recurrent" for s in specs if s.mixer != ATTN}
-    kinds |= {"MoE" for s in specs if s.mlp == MOE}
-    if cfg.enc_dec:
-        kinds.add("encoder-decoder")
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over {'/'.join(sorted(kinds))} "
-            f"layers is not ported yet (ROADMAP A9b); a mesh with model="
-            f"{cols} trains and serves attention decoders with a dense MLP, "
-            "and every family over the data axis (model=1)")
 
 
 def policy_of(flags):
@@ -161,7 +150,13 @@ class _RowRun:
         self.flags = dataclasses.replace(flags, mesh=None, policy=None)
         self.axis = row.plan.tp_axis
         self.n = row.plan.cols
+        self.g = tp.RowGroup(row)
         self.sp = False
+
+    def move(self, t, src: int, dst: int, kind: str):
+        """``t`` from column ``src`` to column ``dst``
+        (:func:`~repro_torch.dist.tp.move`: counted by kind)."""
+        return tp.move(self.g, t, src, dst, kind)
 
     # -- residual stream layout ------------------------------------------
     def _sl(self, j, s):
@@ -174,14 +169,14 @@ class _RowRun:
         if not self.sp:
             return x
         s = x.shape[1]
-        return [self.row.move(x[:, self._sl(j, s)], 0, j)
+        return [self.move(x[:, self._sl(j, s)], 0, j, "seq")
                 for j in range(self.n)]
 
     def whole(self, x):
         if not self.sp:
             return x
-        return torch.cat([self.row.move(xj, j, 0) for j, xj in enumerate(x)],
-                         dim=1)
+        return torch.cat([self.move(xj, j, 0, "seq")
+                          for j, xj in enumerate(x)], dim=1)
 
     def norm(self, x, leaf, i):
         if not self.sp:
@@ -189,25 +184,26 @@ class _RowRun:
         return [rms_norm(xj, self.row.gather(leaf, j, False, i))
                 for j, xj in enumerate(x)]
 
-    def col_inputs(self, h):
+    def col_inputs(self, h, kind):
         """What each column's column-parallel projection reads: the
         normed stream, whole, on every column (the SP all-gather)."""
         if not self.sp:
-            return self.row.broadcast(h)
-        return [torch.cat([self.row.move(hj, j, c) for j, hj in enumerate(h)],
-                          dim=1) for c in range(self.n)]
+            return tp.broadcast(self.g, h, kind)
+        return [torch.cat([self.move(hj, j, c, kind)
+                           for j, hj in enumerate(h)], dim=1)
+                for c in range(self.n)]
 
-    def reduce(self, parts):
+    def reduce(self, parts, kind):
         """The row-parallel partials added in column order: on the first
         column, or (SP) each seq chunk on its own column."""
         if not self.sp:
-            return self.row.reduce_sum(parts, 0)
+            return tp.reduce_sum(self.g, parts, kind)
         s = parts[0].shape[1]
         out = []
         for j in range(self.n):
-            acc = self.row.move(parts[0][:, self._sl(j, s)], 0, j)
+            acc = self.move(parts[0][:, self._sl(j, s)], 0, j, kind)
             for c, p in enumerate(parts[1:], 1):
-                acc = acc + self.row.move(p[:, self._sl(j, s)], c, j)
+                acc = acc + self.move(p[:, self._sl(j, s)], c, j, kind)
             out.append(acc)
         return out
 
@@ -226,12 +222,13 @@ class _RowRun:
             with fsdp.on(self.row.cols[c]):
                 w = self.row.gather(emb, c, True)
                 rows = w.shape[0]
-                t = self.row.move(tokens, 0, c).long() - c * rows
+                t = self.move(tokens, 0, c, "embed").long() - c * rows
                 inside = ((t >= 0) & (t < rows))[..., None]
                 got = w[t.clamp(0, rows - 1)]
                 parts.append(torch.where(inside, got, torch.zeros(
                     (), dtype=got.dtype, device=got.device)))
-        return tr._scale_embedding(self.cfg, self.row.reduce_sum(parts, 0))
+        return tr._scale_embedding(self.cfg,
+                                   tp.reduce_sum(self.g, parts, "embed"))
 
     def head_logits(self, x):
         """Softcapped logits of ``x`` (on the first column), the columns'
@@ -247,9 +244,9 @@ class _RowRun:
         for c in range(self.n):
             with fsdp.on(self.row.cols[c]):
                 w = self.row.gather(leaf, c, True)
-                parts.append(softcap(self.row.move(x, 0, c)
+                parts.append(softcap(self.move(x, 0, c, "head in")
                                      @ (w.T if tied else w), cap))
-        return torch.cat([self.row.move(p, c, 0) for c, p in
+        return torch.cat([self.move(p, c, 0, "logits") for c, p in
                           enumerate(parts)], dim=-1)
 
     def _chunk_nll(self, xb, lb):
@@ -285,28 +282,78 @@ class _RowRun:
                                               self.flags, self.mode, cache,
                                               pos, None, None, stats=stats)
             return x, cache
-        mix, cache = self.attention(lp["attn"], i,
-                                    self.norm(x, lp["ln1"], i), spec, cache,
-                                    pos)
+        h = self.norm(x, lp["ln1"], i)
+        if spec.mixer == ATTN:
+            mix, cache = self.attention(lp["attn"], i, h, spec, cache, pos)
+        else:
+            mix, cache = self.recurrent(lp, i, h, spec, cache)
         x = self.add(x, mix)
         if spec.mlp == DENSE:
             x = self.add(x, self.mlp(lp["mlp"], i,
                                      self.norm(x, lp["ln2"], i)))
+        elif spec.mlp == MOE:
+            x = self.add(x, self.moe(lp["moe"], i,
+                                     self.norm(x, lp["ln2"], i), stats))
         return x, cache
+
+    def _col_params(self, leaves, i):
+        """Each column's blocks of a layer's leaves, gathered on it."""
+        out = []
+        for c in range(self.n):
+            with fsdp.on(self.row.cols[c]):
+                out.append(tree_map(
+                    lambda leaf: self.row.gather(leaf, c, True, i), leaves))
+        return out
+
+    def moe(self, mp, i, h, stats):
+        """The MoE layer over the columns' experts (routed once, on the
+        first column); its load-balance loss from the routing sums."""
+        cfg, x = self.cfg, self.whole(h)
+        ps = self._col_params(mp, i)
+        with fsdp.on(self.row.home):
+            out, _ = moe_mod.apply_tp(
+                ps, x, cfg.num_experts_per_tok, cfg.activation,
+                self.g, impl=self.flags.moe_impl,
+                capacity_factor=cfg.moe_capacity_factor, d_ff=cfg.d_ff,
+                stats=stats)
+        return self.split_seq(out)
+
+    def recurrent(self, lp, i, h, spec, cache):
+        """A recurrent mixer over the columns' slices of its width or
+        heads; a prefill or decode step's state (the row's cache, on its
+        first column) is sent to each column in its slices and comes back
+        whole."""
+        name, mod, state_type = tr.RECURRENT[spec.mixer]
+        g = self.g
+        ps = self._col_params(lp[name], i)
+        hs = tp.broadcast(g, self.whole(h), "mixer in")
+        if self.mode == "train":
+            out, _ = mod.forward_tp(ps, hs, self.cfg, g)
+        elif self.mode == "prefill":
+            out, new = mod.forward_tp(ps, hs, self.cfg, g,
+                                      return_state=True, to=(0,))
+            cache = new[0]._asdict()
+        else:
+            states = [state_type(**cache)] + [None] * (self.n - 1)
+            out, new = mod.decode_step_tp(ps, hs, states, self.cfg, g,
+                                          to=(0,))
+            for n, v in new[0]._asdict().items():
+                cache[n].copy_(v)
+        return self.split_seq(out), cache
 
     def mlp(self, mp, i, h):
         act = self.cfg.activation
         if not _splits(mp["w_up"], self.axis, -1):
             p = tree_map(lambda leaf: self.row.gather(leaf, 0, False, i), mp)
             return self.split_seq(mlp_mod.apply(p, self.whole(h), act))
-        hs = self.col_inputs(h)
+        hs = self.col_inputs(h, "mlp in")
         parts = []
         for c in range(self.n):
             with fsdp.on(self.row.cols[c]):
                 p = tree_map(lambda leaf: self.row.gather(leaf, c, True, i),
                              mp)
                 parts.append(mlp_mod.apply(p, hs[c], act))
-        return self.reduce(parts)
+        return self.reduce(parts, "mlp out")
 
     def attention(self, ap_leaves, i, h, spec, cache, pos):
         cfg, row = self.cfg, self.row
@@ -323,7 +370,7 @@ class _RowRun:
             return self.split_seq(o), cache
         kv_keep = (cfg.num_kv_heads % self.n == 0
                    and _splits(ap_leaves["wk"], self.axis, -1))
-        hs = self.col_inputs(h)
+        hs = self.col_inputs(h, "attn in")
         group = cfg.num_heads // cfg.num_kv_heads
         cols = []
         for c in range(self.n):
@@ -334,7 +381,7 @@ class _RowRun:
                 hq = w["wq"].shape[-1] // hd
                 hkv = w["wk"].shape[-1] // hd
                 pos_c = (pos if not isinstance(pos, torch.Tensor)
-                         else row.move(pos, 0, c))
+                         else self.move(pos, 0, c, "positions"))
                 q, k, v, posv, _ = tr._qkv(w, hs[c], cfg, hq, hkv, self.mode,
                                           pos_c)
                 cols.append((w, q, k, v, posv, hq))
@@ -347,16 +394,16 @@ class _RowRun:
                         k, v = _kv_for(k, v, c, hq, group)
                     o = attn_mod.attention(q, k, v, ap)
                     parts.append(o.reshape(bsz, s, hq * hd) @ w["wo"])
-            return self.reduce(parts), None
+            return self.reduce(parts, "attn out"), None
         # prefill/decode: the row's cache holds every head on its first
         # column, which attends over all of them
-        q = torch.cat([row.move(t[1], c, 0) for c, t in enumerate(cols)],
-                      dim=2)
+        def heads(j):
+            return torch.cat([self.move(t[j], c, 0, "attn heads")
+                              for c, t in enumerate(cols)], dim=2)
+
+        q = heads(1)
         if kv_keep:
-            k = torch.cat([row.move(t[2], c, 0) for c, t in enumerate(cols)],
-                          dim=2)
-            v = torch.cat([row.move(t[3], c, 0) for c, t in enumerate(cols)],
-                          dim=2)
+            k, v = heads(2), heads(3)
         else:
             k, v = cols[0][2], cols[0][3]
         with fsdp.on(row.home):
@@ -366,9 +413,10 @@ class _RowRun:
         parts = []
         for c, (w, _, _, _, _, hq) in enumerate(cols):
             with fsdp.on(row.cols[c]):
-                oc = row.move(o[:, :, c * hq:(c + 1) * hq], 0, c)
+                oc = self.move(o[:, :, c * hq:(c + 1) * hq], 0, c,
+                               "attn heads")
                 parts.append(oc.reshape(bsz, s, hq * hd) @ w["wo"])
-        return self.reduce(parts), cache
+        return self.reduce(parts, "attn out"), cache
 
     # -- the stack ----------------------------------------------------------
     def stack(self, x, cache=None, pos=None, stats=None):
@@ -461,8 +509,6 @@ def train_loss(params, cfg: ModelConfig, flags, batch: dict):
     """The mesh's :func:`~repro_torch.models.transformer.train_loss`:
     (loss on the mesh's first device, dict(ce=, aux=)), with the graph
     kept for autograd; ``batch`` whole or placed (:func:`place_batch`)."""
-    plan = fsdp.MeshPlan(flags.mesh, flags.tp_axis)
-    check_mesh(cfg, plan.cols)
     params = stored(params, cfg, flags)
     regather = fsdp.Regather()
     sums, stats, homes = [], [], []
@@ -522,12 +568,11 @@ def prefill(params, cfg: ModelConfig, flags, batch: dict):
     dim over the rows, as :class:`~repro_torch.dist.sharding.Sharded`;
     the last logits (B, V) on the mesh's first device)."""
     plan = fsdp.MeshPlan(flags.mesh, flags.tp_axis)
-    check_mesh(cfg, plan.cols)
     params = stored(params, cfg, flags)
     caches, logits, rows = [], [], []
     f1 = dataclasses.replace(flags, mesh=None, policy=None)
     for row, b, _ in row_batches(batch, flags):
-        if plan.cols == 1:
+        if plan.cols == 1 or cfg.enc_dec:
             from repro_torch.models.registry import stack_of
             with fsdp.on(row.home):
                 c, lg = stack_of(cfg).prefill(_gather_tree(row, params), cfg,
@@ -591,7 +636,6 @@ def decode_step(params, cfg: ModelConfig, flags, cache, tokens, pos):
     per-slot (B,) vector.  Returns (logits (B, V) on the mesh's first
     device, cache)."""
     plan = fsdp.MeshPlan(flags.mesh, flags.tp_axis)
-    check_mesh(cfg, plan.cols)
     params = stored(params, cfg, flags)
     vec = isinstance(pos, torch.Tensor) and pos.dim() > 0
     batch = dict(tokens=tokens)
@@ -603,7 +647,7 @@ def decode_step(params, cfg: ModelConfig, flags, cache, tokens, pos):
         c = _row_cache(cache, bi)
         p_r = b["pos"] if vec else (
             pos.to(row.devs[0]) if isinstance(pos, torch.Tensor) else pos)
-        if plan.cols == 1:
+        if plan.cols == 1 or cfg.enc_dec:
             from repro_torch.models.registry import stack_of
             with fsdp.on(row.home):
                 lg, _ = stack_of(cfg).decode_step(

@@ -66,7 +66,11 @@ first shard, q/k/v and the MLP's gate/up are column-parallel, the
 o-projection and the MLP's down row-parallel (partials summed in shard
 order), the embedding and the head split on vocab (logits come back as
 the shards' vocab slices), and each shard's attention reads its own
-stripe of the pools.
+stripe of the pools; a MoE layer runs each shard's experts
+(:func:`~repro_torch.models.moe.apply_tp`) and a recurrent mixer each
+shard's slice of its width or heads (:func:`~repro_torch.models.rglru.
+forward_tp`, :func:`~repro_torch.models.ssm.forward_tp`), its state kept
+whole on every shard.
 Caches are updated in place (the reference returns a new cache; here the
 decode modes return the same dict, mutated), which keeps the cache's
 memory at one copy.
@@ -81,8 +85,8 @@ import torch
 
 from repro_torch.configs.base import (ATTN, DENSE, MOE, NONE, RGLRU, SSD,
                                       LayerSpec, ModelConfig)
-from repro_torch.dist.serve import (broadcast, check_tp, reduce_max,
-                                    reduce_sum)
+from repro_torch.dist import tp
+from repro_torch.dist.serve import broadcast, check_tp
 from repro_torch.kernels import ops as kops
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -608,24 +612,34 @@ def _apply_attn(p, x, cfg: ModelConfig, spec: LayerSpec, flags: RuntimeFlags,
     return o.reshape(bsz, s, cfg.num_heads * hd) @ p["wo"], cache
 
 
-def _recurrent_chunk(mod, state_type, p, h, cache: dict, cfg: ModelConfig,
-                     pos, slot: int):
-    """A paged prefill chunk through a recurrent mixer: the chunk (batch 1)
-    continues slot ``slot``'s state row, which is written back in place.
-    At offset 0 (a freshly admitted request) the row restarts from zeros:
-    the slot may hold its previous occupant's state, or what masked decode
-    ticks left.  The test is made on the device, so the chunk needs no
-    host sync."""
+def _slot_state(state_type, cache: dict, pos, slot: int):
+    """Slot ``slot``'s state row (batch 1) as a paged prefill chunk
+    continues it: at offset 0 (a freshly admitted request) from zeros,
+    since the slot may hold its previous occupant's state, or what masked
+    decode ticks left.  The test is made on the device, so the chunk
+    needs no host sync."""
     fresh = pos.reshape(-1)[:1] == 0
     st = {}
     for n, leaf in cache.items():
         row = leaf[slot:slot + 1]
         st[n] = torch.where(fresh.reshape((1,) * row.dim()),
                             torch.zeros_like(row), row)
-    mix, st1 = mod.forward(p, h, cfg, return_state=True,
-                           state=state_type(**st))
-    for n, leaf in st1._asdict().items():
+    return state_type(**st)
+
+
+def _write_slot(cache: dict, st, slot: int) -> None:
+    for n, leaf in st._asdict().items():
         cache[n][slot:slot + 1] = leaf.to(cache[n].dtype)
+
+
+def _recurrent_chunk(mod, state_type, p, h, cache: dict, cfg: ModelConfig,
+                     pos, slot: int):
+    """A paged prefill chunk through a recurrent mixer: the chunk (batch 1)
+    continues slot ``slot``'s state row (:func:`_slot_state`), which is
+    written back in place."""
+    mix, st1 = mod.forward(p, h, cfg, return_state=True,
+                           state=_slot_state(state_type, cache, pos, slot))
+    _write_slot(cache, st1, slot)
     return mix
 
 
@@ -802,7 +816,8 @@ def _embed_tp(params, cfg: ModelConfig, tokens, devs) -> torch.Tensor:
         got = p["embed"]["tok"][t.clamp(0, rows - 1)]
         parts.append(torch.where(inside, got, torch.zeros((), dtype=got.dtype,
                                                           device=dev)))
-    return _scale_embedding(cfg, reduce_sum(parts, devs[0]))
+    return _scale_embedding(cfg, tp.reduce_sum(tp.DeviceGroup(devs), parts,
+                                               "embed"))
 
 
 def _apply_attn_tp(ps, hs, cfg: ModelConfig, spec: LayerSpec,
@@ -813,14 +828,15 @@ def _apply_attn_tp(ps, hs, cfg: ModelConfig, spec: LayerSpec,
     partials summed on the first shard.  int8 KV quantizes each token with
     the amax of all its heads (the shards' maxima reduced, then
     broadcast), so the shards store what one device would."""
-    n = len(devs)
+    n, g = len(devs), tp.DeviceGroup(devs)
     bsz, s, _ = hs[0].shape
     hq, hkv = cfg.num_heads // n, cfg.num_kv_heads // n
     qkv = [_qkv(p, h, cfg, hq, hkv, mode, pos)
            for p, h, pos in zip(ps, hs, poss)]
     if flags.kv_dtype == "int8":
-        amax = [broadcast(reduce_max([t[j].float().abs().amax(dim=(2, 3))
-                                      for t in qkv], devs[0]), devs)
+        amax = [tp.broadcast(g, tp.reduce_max(
+                    g, [t[j].float().abs().amax(dim=(2, 3)) for t in qkv],
+                    "kv amax"), "kv amax")
                 for j in (1, 2)]
         quants = [_quantize(t[1], t[2], flags, am)
                   for t, am in zip(qkv, zip(*amax))]
@@ -838,30 +854,84 @@ def _apply_attn_tp(ps, hs, cfg: ModelConfig, spec: LayerSpec,
         outs, caches = [o for o, _ in done], [c for _, c in done]
     hd = cfg.resolved_head_dim
     parts = [o.reshape(bsz, s, hq * hd) @ p["wo"] for o, p in zip(outs, ps)]
-    return reduce_sum(parts, devs[0]), caches
+    return tp.reduce_sum(g, parts, "attn out"), caches
+
+
+def _apply_recurrent_tp(spec: LayerSpec, ps, h, cfg: ModelConfig, mode,
+                        caches, poss, slot, actives, g):
+    """A recurrent mixer over the shards (:func:`_apply_recurrent`'s
+    modes): each shard computes its slice of the width or of the heads
+    (:func:`~repro_torch.models.rglru.forward_tp`,
+    :func:`~repro_torch.models.ssm.forward_tp`) and every shard's cache
+    holds the whole state, replicated as the reference's paged cache
+    layout keeps it, so each shard writes the whole new state after the
+    step; a paged chunk restarts a fresh slot's row and a paged decode
+    keeps the rows of inactive slots on every shard."""
+    name, mod, state_type = RECURRENT[spec.mixer]
+    pl = [p[name] for p in ps]
+    hs = tp.broadcast(g, h, "mixer in")
+    if mode in ("decode", "paged_decode"):
+        mix, new = mod.decode_step_tp(pl, hs, [state_type(**c)
+                                               for c in caches], cfg, g)
+        for c, st, act in zip(caches, new, actives):
+            st = st._asdict()
+            if mode == "paged_decode":
+                st = _freeze_inactive(st, c, act)
+            for n, v in st.items():
+                c[n].copy_(v)
+        return mix, caches
+    if mode == "paged_extend":
+        if slot is None:
+            raise ValueError(f"{cfg.name}: a paged prefill chunk through a "
+                             "recurrent layer needs the slot it continues")
+        mix, new = mod.forward_tp(
+            pl, hs, cfg, g, return_state=True,
+            states=[_slot_state(state_type, c, pos, slot)
+                    for c, pos in zip(caches, poss)])
+        for c, st in zip(caches, new):
+            _write_slot(c, st, slot)
+        return mix, caches
+    mix, new = mod.forward_tp(pl, hs, cfg, g, return_state=True)
+    return mix, [st._asdict() for st in new]
 
 
 def _apply_layer_tp(ps, x, cfg: ModelConfig, spec: LayerSpec,
                     flags: RuntimeFlags, mode, caches, poss, tables, cvs,
-                    devs):
+                    devs, slot=None, actives=None):
     """One layer over the shards; the residual stream and the norms stay
     on the first shard, whose normed activations are broadcast into each
-    column-parallel projection."""
+    column-parallel projection (a MoE layer sends each shard only its
+    experts' rows, :func:`~repro_torch.models.moe.apply_tp`)."""
+    g = tp.DeviceGroup(devs)
     h = rms_norm(x, ps[0]["ln1"])
-    mix, caches = _apply_attn_tp([p["attn"] for p in ps], broadcast(h, devs),
-                                 cfg, spec, flags, mode, caches, poss, tables,
-                                 cvs, devs)
+    if spec.mixer == ATTN:
+        mix, caches = _apply_attn_tp([p["attn"] for p in ps],
+                                     tp.broadcast(g, h, "attn in"), cfg, spec,
+                                     flags, mode, caches, poss, tables, cvs,
+                                     devs)
+    else:
+        mix, caches = _apply_recurrent_tp(spec, ps, h, cfg, mode, caches,
+                                          poss, slot, actives, g)
     x = x + mix
     if spec.mlp == DENSE:
         h = rms_norm(x, ps[0]["ln2"])
-        x = x + mlp_mod.apply_tp([p["mlp"] for p in ps], broadcast(h, devs),
-                                 cfg.activation, cfg.d_ff, devs[0])
+        x = x + mlp_mod.apply_tp([p["mlp"] for p in ps],
+                                 tp.broadcast(g, h, "mlp in"),
+                                 cfg.activation, cfg.d_ff, g)
+    elif spec.mlp == MOE:
+        h = rms_norm(x, ps[0]["ln2"])
+        out, _ = moe_mod.apply_tp([p["moe"] for p in ps], h,
+                                  cfg.num_experts_per_tok, cfg.activation, g,
+                                  impl=flags.moe_impl,
+                                  capacity_factor=cfg.moe_capacity_factor,
+                                  d_ff=cfg.d_ff)
+        x = x + out
     return x, caches
 
 
 def _forward_tp(params, cfg: ModelConfig, flags: RuntimeFlags, tokens,
-                mode: str, cache, pos, table, chunk_valid, patch_embeds,
-                devs):
+                mode: str, cache, pos, table, chunk_valid, slot, active,
+                patch_embeds, devs):
     """:func:`forward` over the shards: ``params`` and ``cache`` are lists
     of per-shard trees (``cache`` None in prefill, whose new per-shard
     caches come back as a list).  ``table`` may already be a per-shard
@@ -881,8 +951,8 @@ def _forward_tp(params, cfg: ModelConfig, flags: RuntimeFlags, tokens,
     x = _embed_tp(params, cfg, tokens.to(home), devs)
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(home, x.dtype), x], dim=1)
-    poss, tables, cvs = (per_shard(pos), per_shard(table),
-                         per_shard(chunk_valid))
+    poss, tables, cvs, acts = (per_shard(pos), per_shard(table),
+                               per_shard(chunk_valid), per_shard(active))
     n = len(devs)
     blocks = {f"p{j}": [] for j, _ in enumerate(cfg.layer_pattern)}
     for i in range(cfg.num_pattern_blocks):
@@ -891,7 +961,7 @@ def _forward_tp(params, cfg: ModelConfig, flags: RuntimeFlags, tokens,
                   else [_pick(c["blocks"][f"p{j}"], i) for c in cache])
             x, cs = _apply_layer_tp(
                 [_pick(p["blocks"][f"p{j}"], i) for p in params], x, cfg,
-                spec, flags, mode, cs, poss, tables, cvs, devs)
+                spec, flags, mode, cs, poss, tables, cvs, devs, slot, acts)
             blocks[f"p{j}"].append(cs)
     rem = {}
     for j, spec in enumerate(cfg.remainder_specs):
@@ -899,7 +969,7 @@ def _forward_tp(params, cfg: ModelConfig, flags: RuntimeFlags, tokens,
                                                for c in cache]
         x, rem[f"r{j}"] = _apply_layer_tp(
             [p["rem"][f"r{j}"] for p in params], x, cfg, spec, flags, mode,
-            cs, poss, tables, cvs, devs)
+            cs, poss, tables, cvs, devs, slot, acts)
     if mode == "prefill":
         cache = [dict(blocks={name: {k: torch.stack([c[i][k] for c in cs])
                                      for k in cs[0][i]}
@@ -1009,7 +1079,8 @@ def forward(params, cfg: ModelConfig, flags: RuntimeFlags, tokens, mode: str,
     devs = tp_devices(flags)
     if devs is not None:
         return _forward_tp(params, cfg, flags, tokens, mode, cache, pos,
-                           table, chunk_valid, patch_embeds, devs)
+                           table, chunk_valid, slot, active, patch_embeds,
+                           devs)
     x = embed_tokens(params, cfg, tokens)
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)

@@ -108,6 +108,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN
+from repro_torch.dist import tp
 from repro_torch.dist.serve import as_indexed, gather, shard_dim
 from repro_torch.models.registry import ModelBundle
 from repro_torch.models.transformer import SENTINEL
@@ -1569,5 +1570,6 @@ def _gather_logits(eng: ServeEngine, logits):
     selection and the per-slot key chains never see the mesh.  Logits of
     one tensor pass through."""
     if isinstance(logits, list):
-        return gather(logits, -1, eng.device)
+        return tp.all_gather(tp.DeviceGroup(eng.dist.devices), logits, -1,
+                             "logits", to=(0,))[0]
     return logits

@@ -10,7 +10,7 @@
   ``abstract_params()[1]``;
 - meshes, the shard-order collectives, ``ServeMesh``'s param and pool
   slicing, its refusals and ``validate``'s messages (the reference's),
-  the stacks that wait for ROADMAP A9b;
+  what the MoE, recurrent and encoder-decoder stacks do at TP=2;
 - the launcher's ``--tp``/``--dp`` at smoke width on CPU devices against
   the reference launcher's counters, and its refusal of a device group it
   does not have;
@@ -29,6 +29,7 @@ from jax.sharding import PartitionSpec as P
 
 import repro.dist as JD
 from repro.configs import ARCHS as J_ARCHS
+from repro.configs import override as j_override
 from repro.configs import smoke_config as j_smoke
 from repro.models import build as j_build
 import repro_torch.dist as TD
@@ -37,6 +38,7 @@ from repro_torch.configs import override as t_override
 from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.dist import ServeMesh
 from repro_torch.dist import serve as dserve
+from repro_torch.dist import tp as tp_mod
 from repro_torch.launch.mesh import Mesh, make_test_mesh
 from repro_torch.models import build as t_build
 from repro_torch.serve import ServeEngine
@@ -182,8 +184,13 @@ def test_collectives_run_in_shard_order():
                torch.tensor([1.0, 1e-8]))
     # float32: (a + b) + c != a + (b + c), so the order shows
     assert torch.equal(dserve.reduce_sum([a, b, c], CPU), (a + b) + c)
-    assert torch.equal(dserve.reduce_max([a, b, c], CPU),
+    g = tp_mod.DeviceGroup([CPU] * 3)
+    tp_mod.reset_copies()
+    assert torch.equal(tp_mod.reduce_sum(g, [a, b, c], "sum"), (a + b) + c)
+    assert torch.equal(tp_mod.reduce_max(g, [a, b, c], "max"),
                        torch.tensor([1e8, 1.0]))
+    # each part from another shard counted: what distinct cards move
+    assert tp_mod.COPIES == {"sum": 16, "max": 16}
     x = torch.arange(12.0).reshape(3, 4)
     parts = dserve.split(x, 1, [CPU, CPU])
     assert [p.shape for p in parts] == [(3, 2), (3, 2)]
@@ -291,16 +298,34 @@ A9B = {"granite-moe-3b-a800m": {}, "mamba2-130m": {},
 
 @pytest.mark.parametrize("arch", sorted(A9B))
 def test_moe_recurrent_and_encdec_stacks_wait_for_a9b(arch):
+    """What each of these stacks does at TP=2, as the reference does: the
+    decoders validate and build an engine (recurrentgemma-9b at its native
+    one kv head still fails the heads check, word for word);
+    seamless-m4t-medium validates, and the engine refuses it, since a
+    mesh needs the paged backend."""
+    from repro.dist import ServeMesh as JServeMesh
     cfg = t_override(t_smoke(T_ARCHS[arch]), **A9B[arch])
     sm = ServeMesh.tp(2, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A9b"):
-        sm.validate(cfg)
-    ServeMesh.tp(1, devices=["cpu"]).validate(cfg)     # TP=1 serves them
-    if not cfg.enc_dec:
-        bundle = t_build(cfg, device="cpu")
-        params = bundle.init(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="A9b"):
+    sm.validate(cfg)
+    JServeMesh(mesh=FakeTPMesh(2)).validate(
+        j_override(j_smoke(J_ARCHS[arch]), **A9B[arch]))
+    bundle = t_build(cfg, device="cpu")
+    params = bundle.init(torch.Generator().manual_seed(0))
+    if cfg.enc_dec:
+        with pytest.raises(ValueError,
+                           match="cache_backend='paged' is required"):
             ServeEngine(bundle, params, 2, 32, dist=sm)
+    else:
+        eng = ServeEngine(bundle, params, 2, 32, dist=sm)
+        assert eng.tp == 2 and len(eng.params) == 2
+    if arch == "recurrentgemma-9b":
+        native = t_smoke(T_ARCHS[arch])
+        with pytest.raises(ValueError) as want:
+            JServeMesh(mesh=FakeTPMesh(2)).validate(
+                j_smoke(J_ARCHS[arch]))
+        with pytest.raises(ValueError) as got:
+            sm.validate(native)
+        assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------

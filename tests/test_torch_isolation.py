@@ -81,12 +81,13 @@ def test_importing_every_module_loads_neither_jax_nor_reference():
                                     "repro_torch.models.sharded",
                                     "repro_torch.core.roofline",
                                     "repro_torch.launch.dryrun",
-                                    "repro_torch.bench.sweeps.roofline"])
+                                    "repro_torch.bench.sweeps.roofline",
+                                    "repro_torch.dist.tp"])
 def test_new_module_alone_loads_neither_jax_nor_reference(module):
     """Each module of the MoE and encoder-decoder slice, of the
-    distribution slice, of the training slice and of the sharded
-    training and dry-run slice, imported by itself in a fresh
-    interpreter."""
+    distribution slice, of the training slice, of the sharded
+    training and dry-run slice and of the tensor-parallel families'
+    copies, imported by itself in a fresh interpreter."""
     code = (f"import sys, {module}\n"
             "bad = sorted(n for n in sys.modules\n"
             "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -14,8 +14,7 @@ are the CPU repeated).
   loss fall;
 - FSDP and DP on (4, 1) for smoke granite-moe-3b-a800m (its load-balance
   loss over the whole batch), recurrentgemma-9b and seamless-m4t-medium
-  against the reference the same way, and their refusal at model 2
-  (A9b);
+  against the reference the same way, and a (2, 2) step of each;
 - ``fsdp_tp_sp`` gives ``fsdp_tp``'s numbers, and two microbatches one
   microbatch's, on the mesh;
 - ``scenario_elastic_reshard``: a (4, 2) checkpoint restores onto (2, 2)
@@ -202,11 +201,10 @@ def test_fsdp_and_dp_over_the_data_axis_match_reference(arch):
         _holds(m, opt, loss, gnorm, m_ref)
         if arch == "granite-moe-3b-a800m":
             assert float(m["aux"]) > 0
-    bundle = build(smoke_config(ARCHS[arch]), RuntimeFlags(**FLAGS),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        make_train_step(bundle, _mesh(2, 2), POLICIES["fsdp_tp"],
-                        AdamWConfig())
+    # and at model 2 (tests/test_torch_tp_families.py holds it against
+    # the reference's step across both meshes)
+    _, opt, m, _ = _port_step(arch, p0, batch, _mesh(2, 2))
+    _holds(m, opt, loss, gnorm, m_ref)
 
 
 def test_sequence_parallel_and_microbatches_keep_the_numbers():

@@ -265,8 +265,11 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    and ``disagg_serve`` sweeps once at card scale (full-width gemma-2b in
    float32, the reference's larger mixes; ``dist_serve`` at the
    reference's config, smoke gemma-2b with 2 kv heads in float32, over
-   two shards and two replicas on the one card), their gates in the
-   sweeps and every row printed;
+   two shards and two replicas on the one card; ``disagg_serve``'s TP=2
+   row, a TP=2 prefill engine shipping to a TP=2 decode engine on the
+   same config, both with two shards on the one card, must be there with
+   at least one transfer), their gates in the sweeps and every row
+   printed;
 40. moe serve: full-width granite-moe-3b-a800m (32 layers of 40 experts,
    top 8, d_ff 512; 24/8 heads at D 64; 6.6 GB of bf16 weights drawn on
    the card) through the paged engine under ``moe_impl="sorted"``, batch
@@ -355,7 +358,17 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    more than 100x and the compressed run within 5x of the uncompressed
    one; an uncompressed DP=2 step of smoke gemma-2b against the
    one-device step on the full batch (loss within 1e-5, params within
-   2 lr).
+   2 lr);
+53. ckpt serve (in the parity lane): full-width gemma-2b (bf16, 5.0 GB)
+   drawn on the card as the serving launcher draws it, saved by the
+   port's ``CheckpointManager`` under ``build/ckpt_serve`` as the
+   trainer's ``dict(params=...)``, then ``launch.serve.main`` twice at
+   the same ``--seed`` (batch 8, max_len 1024, 16 requests, 32 new
+   tokens), with ``--ckpt`` and without: every leaf the launcher
+   restored equals the drawn one bit for bit, the two summaries agree in
+   every count, and K1 = 18 x decode_steps in the ``--ckpt`` drain; save
+   and restore seconds and GB/s and ms per tick printed; the directory
+   is deleted.
 
 Kernel times are CUDA-event times over back-to-back calls behind a spin
 of the card, so they time the card's work, not the host's enqueueing.
@@ -2782,6 +2795,10 @@ def bench_serve_phase(torch, card):
                 extras = {k: v for k, v in r.extras.items() if k != "metric"}
                 print(f"[bench serve] row={r.name} us={r.us_per_call:.1f} "
                       f"value={r.gbps_measured:.6g} {extras}", flush=True)
+            tp2 = run.by_name().get("disagg_serve_tp2_bitwise")
+            check(tp2 is not None and tp2.extras["transfers"] >= 1,
+                  "bench serve run 3: no disagg_serve_tp2_bitwise row with "
+                  "a transfer over the two shards")
         del run
         gc.collect()
         torch.cuda.empty_cache()
@@ -5508,6 +5525,127 @@ def a9b_train_parity_phase(torch, np):
 # each log when it joins the lanes, fails if a lane failed or a queued
 # phase never finished, then runs [train parity] (30 GiB of the card),
 # [train] (whose step times need the card to itself) and [dp train].
+CKPT_SERVE_DIR = os.path.join(ROOT, "build", "ckpt_serve")
+CKPT_SERVE_ARGS = ["--arch", "gemma-2b", "--device", "cuda", "--batch", "8",
+                   "--max-len", "1024", "--requests", "16", "--max-new",
+                   "32", "--seed", "0"]
+
+
+def _summary_counts(line):
+    """Every count of the launcher's one-engine summary line: the tokens
+    and each ``key=value`` but the seconds and tok/s."""
+    import re
+    counts = dict(re.findall(r"(\w+)=(\w+)", line))
+    counts["tokens_out"] = re.search(r"(\d+) tokens in ", line).group(1)
+    return counts
+
+
+def ckpt_serve_phase(torch, np, card):
+    """Full-width gemma-2b drawn on the card as the serving launcher draws
+    it (seed 0), saved by the port's CheckpointManager as the trainer's
+    ``dict(params=...)``, then served twice through ``launch.serve.main``
+    at the same seed: with ``--ckpt`` (every restored leaf bit-equal to
+    the drawn one) and without; both summaries agree in every count, and
+    the ``--ckpt`` drain runs K1 once a layer a tick."""
+    import contextlib
+    import io
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = ARCHS["gemma-2b"]
+    bundle, drawn = load_model(torch, cfg)
+    nbytes = _tree_bytes(drawn)
+    real_restore = launch_serve.restore_params
+    restored = {}
+
+    def checked_restore(b, directory):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = real_restore(b, directory)
+        torch.cuda.synchronize()
+        restored["seconds"] = time.perf_counter() - t0
+        want = dict(leaves_with_paths(drawn))
+        got = dict(leaves_with_paths(tree))
+        check(got.keys() == want.keys(), "ckpt serve: restored paths differ")
+        restored["apart"] = [
+            path for path, t in got.items()
+            if t.dtype != want[path].dtype or t.device != want[path].device
+            or not torch.equal(t.contiguous().view(torch.uint8),
+                               want[path].contiguous().view(torch.uint8))]
+        restored["leaves"] = len(got)
+        return tree
+
+    shutil.rmtree(CKPT_SERVE_DIR, ignore_errors=True)
+    runs = {}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CheckpointManager(CKPT_SERVE_DIR, async_save=False).save(
+            0, dict(params=drawn))
+        save_s = time.perf_counter() - t0
+        launch_serve.restore_params = checked_restore
+        Timed = timed_engine_class(torch, ServeEngine)
+        for label, extra in (("ckpt", ["--ckpt", CKPT_SERVE_DIR]),
+                             ("drawn", [])):
+            if label == "drawn":
+                del drawn                # the launcher draws its own
+                gc.collect()
+                torch.cuda.empty_cache()
+            engines = []
+
+            class Recorded(Timed):
+                def __init__(self, *a, **kw):
+                    super().__init__(*a, **kw)
+                    engines.append(self)
+
+            launch_serve.ServeEngine = Recorded
+            pa.reset_launches()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = launch_serve.main(CKPT_SERVE_ARGS + extra)
+            line = out.getvalue().strip().splitlines()[-1]
+            print(f"[ckpt serve] run={label} {line}", flush=True)
+            check(rc == 0, f"ckpt serve {label}: the launcher exited {rc}")
+            eng = engines[0]
+            runs[label] = dict(counts=_summary_counts(line),
+                               launches=pa.LAUNCHES,
+                               tick_ms=1e3 * eng.decode_s
+                               / max(1, eng.stats.decode_steps))
+            del engines, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        launch_serve.restore_params = real_restore
+        launch_serve.ServeEngine = ServeEngine
+        shutil.rmtree(CKPT_SERVE_DIR, ignore_errors=True)
+    check(restored.get("leaves", 0) > 0 and not restored["apart"],
+          f"ckpt serve: restored leaves differ from the drawn ones: "
+          f"{restored.get('apart')}")
+    ck, dr = runs["ckpt"], runs["drawn"]
+    check(ck["counts"] == dr["counts"], f"ckpt serve: the summaries' "
+          f"counts differ: {ck['counts']} != {dr['counts']}")
+    steps = int(ck["counts"]["decode_steps"])
+    check(steps > 0 and ck["launches"] == cfg.num_layers * steps,
+          f"ckpt serve: K1 launches {ck['launches']} != {cfg.num_layers} "
+          f"layers x {steps} ticks")
+    print(f"[ckpt serve] card='{card}' arch={cfg.name} "
+          f"leaves={restored['leaves']} bytes={nbytes} "
+          f"restored_equal_drawn=bitwise save_s={save_s:.2f} "
+          f"save_GB_s={nbytes / save_s / 1e9:.2f} "
+          f"restore_s={restored['seconds']:.2f} "
+          f"restore_GB_s={nbytes / restored['seconds'] / 1e9:.2f} "
+          f"(warm file cache) tokens_out={ck['counts']['tokens_out']} "
+          f"decode_steps={steps} k1_launches={ck['launches']} "
+          f"ms_per_decode_tick_ckpt={ck['tick_ms']:.3f} "
+          f"ms_per_decode_tick_drawn={dr['tick_ms']:.3f} counts_equal=True",
+          flush=True)
+    return {"ckpt serve": ck["launches"]}
+
+
 def _without_card(phase):
     """``phase(torch, np)`` called as ``phase(torch, np, card)``."""
     return lambda torch, np, card: phase(torch, np)
@@ -5517,6 +5655,7 @@ LANES = {
     "parity": (
         ("moe tp serve", moe_tp_serve_phase),
         ("ssm tp serve", ssm_tp_serve_phase),
+        ("ckpt serve", ckpt_serve_phase),
     ),
     "bench": (
         ("bench serve",

@@ -10,7 +10,10 @@ and gates that the move costs no correctness:
   through the prefill -> decode hand-off (advisory: wall clock);
 - deterministic rows the comparator's structural gate trusts: the
   disaggregated drain gives the colocated drain's tokens for greedy,
-  sampled and int8 pages (1.0, or the sweep raises); the transfer ledger
+  sampled and int8 pages (1.0, or the sweep raises), and over a device
+  group of two a TP=2 prefill engine shipping to a TP=2 decode engine
+  gives the TP=2 colocated engine's (per-shard gathers assembling whole
+  pages, per-shard scatters landing the stripes); the transfer ledger
   equals the page geometry; TTFT/TPOT percentiles in virtual rounds; a
   drain whose every transfer is corrupted in transit recovers by
   decode-side recompute with the same tokens; and the
@@ -26,9 +29,12 @@ gemma-2b in float32 at the reference's larger mix (8 requests, 16 new
 tokens) with two trials, not three: float32 because the recompute after
 a corrupted transfer is held bitwise (``preempt_serve``'s rule).  The
 int8 drains serve the same weight tree through an int8-page bundle.  The
-reference's TP=2 row needs two devices a pool and waits for the port of
-its ``ServeMesh``.  Walls are the host's clock around a drain that ends
-in a device synchronise.
+TP=2 row takes the device group as ``dist_serve`` does (the context's,
+else the visible cards; a group may repeat a device, two shards on one
+card) and is emitted only when it has two devices, as the reference's on
+one device; it runs the reference's config at every scale (smoke
+gemma-2b with 2 kv heads in float32).  Walls are the host's clock around
+a drain that ends in a device synchronise.
 """
 import time
 
@@ -36,7 +42,8 @@ import numpy as np
 
 from repro_torch.bench.registry import SweepContext, register
 from repro_torch.bench.schema import Timing
-from repro_torch.bench.sweeps.serve import _sync, float32_gemma
+from repro_torch.bench.sweeps.dist_serve import group
+from repro_torch.bench.sweeps.serve import _sync, float32_gemma, model_for
 from repro_torch.tune.plan import next_pow2
 
 
@@ -232,3 +239,35 @@ def run_disagg_serve(ctx: SweepContext) -> None:
              reprefill_ms=cm_fast.recompute_s(long_ctx) * 1e3,
              metric="router ships on a healthy link, colocates on a "
                     "bottleneck link at ctx=8192 (1.0 or the sweep raises)")
+
+    # -- TP=2: per-shard gathers assemble whole pages --------------------
+    devs = group(ctx)
+    if len(devs) < 2:
+        return  # one device: no TP group to shard over
+    from repro_torch.configs import ARCHS, override, smoke_config
+    from repro_torch.dist import ServeMesh
+
+    # gemma-2b smoke is MQA; TP=2 needs both head counts divisible by 2
+    cfg2, bundle2, params2 = model_for(
+        ctx, override(smoke_config(ARCHS["gemma-2b"]), num_kv_heads=2))
+    kw2 = {k: v for k, v in kw.items() if k != "device"}
+
+    def tp2():
+        return ServeEngine(bundle2, params2, **kw2,
+                           dist=ServeMesh.tp(2, devices=devs[:2]))
+
+    want_tp, _, _ = _drain(tp2(), cfg2, n_req, max_new)
+    pool_tp = DisaggPool([tp2()], [tp2()], DisaggConfig(force="disagg"))
+    got_tp, tstats, _ = _drain(pool_tp, cfg2, n_req, max_new)
+    if got_tp != want_tp:
+        raise AssertionError(
+            "TP=2 disaggregated drain diverged from the TP=2 colocated "
+            f"engine: {got_tp} != {want_tp}")
+    if tstats.prefill_imports < 1:
+        raise AssertionError("TP=2 disagg drain shipped no prefill")
+    ctx.emit("disagg_serve_tp2_bitwise",
+             gbps_measured=1.0, gbps_predicted=1.0, deterministic=True,
+             transfers=tstats.prefill_imports,
+             metric="TP=2 prefill mesh -> TP=2 decode mesh drain == TP=2 "
+                    "colocated drain (per-shard gathers and scatters of "
+                    "the hand-off; 1.0 or the sweep raises)")

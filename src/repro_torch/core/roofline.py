@@ -19,7 +19,13 @@ which attributes every op to the mesh device it runs for:
   and the backward's splits and sums);
 - memory: argument bytes exact from the blocks' shapes (params,
   optimizer state, the batch or cache slice), and the peak of the live
-  tensors on the device while the step runs, on top of them.
+  tensors on the device while the step runs, on top of them;
+- the bytes of the ops issued inside a ``flash_inner``
+  :func:`named_scope` (the unrolled attention's inner loop, the
+  reference's ``jax.named_scope``): what a fused attention kernel would
+  keep on chip.  The backward's ops are counted apart only where a remat
+  recomputes the forward inside the scope; the reference's HLO also tags
+  the transposed ops.
 
 The reference's HLO parsers (``collective_stats``, ``fused_bytes*``)
 read XLA's text, which the port never produces, and are not ported.
@@ -29,8 +35,10 @@ HopperSpec`.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from repro_torch.core.memmodel import H100, HopperSpec, RooflineTerms, \
     roofline
@@ -42,8 +50,9 @@ class CellCost:
     bytes_raw: float      # every op's inputs and outputs (no fusion)
     bytes_fused: float    # the memory term's source (the same, eager)
     collective: float
-    bytes_flash_inner: float = 0.0  # bytes a fused attention kernel would
-    #                                 keep on chip (none: not traced apart)
+    bytes_flash_inner: float = 0.0  # of bytes_raw, the ops inside a
+    #                                 flash_inner scope (recorded, never
+    #                                 taken off the memory term)
 
     def __add__(self, other):
         return CellCost(self.flops + other.flops,
@@ -58,6 +67,27 @@ class CellCost:
                         self.bytes_flash_inner * k)
 
 
+FLASH_INNER = "flash_inner"
+_SCOPE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_scope",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def named_scope(name: str):
+    """Ops issued inside run under ``name`` (the innermost scope wins):
+    :class:`~repro_torch.dist.fsdp.Accounting` counts the bytes of those
+    under :data:`FLASH_INNER` apart."""
+    token = _SCOPE.set(name)
+    try:
+        yield
+    finally:
+        _SCOPE.reset(token)
+
+
+def current_scope() -> Optional[str]:
+    return _SCOPE.get()
+
+
 @dataclass
 class Trace:
     """Per-device counts of one traced step (lists indexed by the mesh's
@@ -67,6 +97,7 @@ class Trace:
     recv: List[int]
     args: List[int]
     peak: List[int]            # argument bytes + the live tensors' peak
+    flash_inner: List[int]     # of ``bytes``, the ops in a flash_inner scope
     total_flops: int
     seconds: float = 0.0
 
@@ -101,6 +132,7 @@ def trace_step(fn, arguments, shards: int, counter: bool = True) -> Trace:
     return Trace(flops=list(acct.flops), bytes=list(acct.bytes),
                  recv=list(acct.recv), args=args,
                  peak=[a + p for a, p in zip(args, acct.peak)],
+                 flash_inner=list(acct.flash_inner),
                  total_flops=int(fc.get_total_flops() if counter
                                  else sum(acct.flops)),
                  seconds=time.perf_counter() - t0)
@@ -108,11 +140,14 @@ def trace_step(fn, arguments, shards: int, counter: bool = True) -> Trace:
 
 def cost_of(trace: Trace) -> CellCost:
     """The busiest device's counts (a step lasts as long as its slowest
-    device): the reference's per-device ``cost_of``."""
+    device): the reference's per-device ``cost_of``.  The memory term
+    stays every op's bytes; the flash_inner share is recorded beside
+    it, as the reference records its scope's bytes."""
     k = max(range(len(trace.flops)),
             key=lambda i: (trace.flops[i], trace.bytes[i]))
     return CellCost(float(trace.flops[k]), float(trace.bytes[k]),
-                    float(trace.bytes[k]), float(max(trace.recv)))
+                    float(trace.bytes[k]), float(max(trace.recv)),
+                    float(trace.flash_inner[k]))
 
 
 def affine_extrapolate(c_a: CellCost, c_b: CellCost, nb_a: int, nb_b: int,

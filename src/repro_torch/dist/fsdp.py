@@ -41,6 +41,7 @@ from typing import Dict, List, Optional
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.core.roofline import FLASH_INNER, current_scope
 from repro_torch.dist.sharding import (Sharded, mesh_coords, mesh_index,
                                        spec_axes)
 
@@ -364,7 +365,9 @@ class Accounting(TorchDispatchMode):
     to the shard :func:`on` names; a :func:`move`'s copy belongs to its
     destination.  Tensors that exist
     before the trace (the step's arguments) are :meth:`register`-ed with
-    their shard; their bytes are the caller's baseline."""
+    their shard; their bytes are the caller's baseline.  ``flash_inner``
+    is the share of ``bytes`` of the ops issued inside a
+    :func:`~repro_torch.core.roofline.named_scope` of that name."""
 
     def __init__(self, shards: int):
         super().__init__()
@@ -375,6 +378,7 @@ class Accounting(TorchDispatchMode):
         self.recv = [0] * shards
         self.live = [0] * shards
         self.peak = [0] * shards
+        self.flash_inner = [0] * shards
         self._owner: Dict[int, int] = {}
         self._forced: Optional[int] = None
         self.current = 0            # the shard of ops with no known input
@@ -434,8 +438,10 @@ class Accounting(TorchDispatchMode):
         for o in outs:
             self._track(o, shard, count=not aliasing)
         if not aliasing:
-            self.bytes[shard] += sum(t.numel() * t.element_size()
-                                     for t in ins + outs)
+            moved = sum(t.numel() * t.element_size() for t in ins + outs)
+            self.bytes[shard] += moved
+            if current_scope() == FLASH_INNER:
+                self.flash_inner[shard] += moved
         return out
 
 

@@ -24,8 +24,9 @@ params, state, FLOPs, bytes and the layer-boundary activations are
 affine in their count; one trace of 256 devices takes about 25 s a
 layer on one host core, most of it in PyTorch's meta kernels).  The
 roofline terms come from the single-pod mesh's counts (``--roofline``:
-from two traces at one and two pattern blocks with the loss in one
-shot, extrapolated, as the reference does), over the H100's rates.
+from two traces at one and two pattern blocks under the reference's
+roofline flags, :func:`default_flags`, extrapolated, as the reference
+does), over the H100's rates.
 
 A cell that fails to trace records ``status: "fail"`` with the reason,
 as a compile failure is recorded in the reference.
@@ -64,11 +65,20 @@ FULL_DEPTH_DEVICES = 16      # larger meshes are traced at 1 and 2 blocks
 def default_flags(roofline: bool = False) -> RuntimeFlags:
     """The reference's deployed flags (chunked attention at 2048-token
     blocks, the sorted MoE dispatch, remat ``full``, loss chunks of 512);
-    ``roofline`` takes the loss in one shot, as the reference's roofline
-    compile does."""
-    flags = RuntimeFlags(attn_impl="chunked", attn_bq=2048, attn_bkv=2048,
-                         moe_impl="sorted", loss_chunk=512, remat="full")
-    return dataclasses.replace(flags, loss_chunk=0) if roofline else flags
+    ``roofline`` gives the reference's roofline flags: the loss in one
+    shot and the ``unrolled`` attention at the same blocks, which skips
+    the blocks wholly in the future or out of the window and counts the
+    rest's bytes apart (``bytes_flash_inner``).  So a roofline record of
+    a causal or windowed cell counts fewer FLOPs and bytes than the
+    ``chunked`` trace, which visits every block, and its
+    ``bytes_flash_inner`` is not 0.  The reference's ``unroll_layers``
+    has no counterpart: the port's block loops are Python loops."""
+    if roofline:
+        return RuntimeFlags(attn_impl="unrolled", attn_bq=2048,
+                            attn_bkv=2048, moe_impl="sorted", loss_chunk=0,
+                            remat="full")
+    return RuntimeFlags(attn_impl="chunked", attn_bq=2048, attn_bkv=2048,
+                        moe_impl="sorted", loss_chunk=512, remat="full")
 
 
 # the reference's optimized-preset microbatch counts
@@ -160,6 +170,7 @@ def trace_mesh(cfg: ModelConfig, cell: ShapeCell, mesh, policy,
         recv=_affine(one.recv, two.recv, nb),
         args=_affine(one.args, two.args, nb),
         peak=_affine(one.peak, two.peak, nb),
+        flash_inner=_affine(one.flash_inner, two.flash_inner, nb),
         total_flops=one.total_flops + (two.total_flops - one.total_flops)
         * (nb - 1),
         seconds=one.seconds + two.seconds)

@@ -1,8 +1,19 @@
 """Serving launcher: the continuous-batching engine over fresh weights
-drawn from a seeded generator, on the card.
+drawn from a seeded generator, or over a checkpoint, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
         --requests 16 --batch 8 --max-len 1024 --max-new 32
+
+``--ckpt DIR`` serves the params of the latest step under ``DIR`` (a
+:class:`~repro_torch.train.checkpoint.CheckpointManager` directory that
+either package's trainer wrote, ``params/...`` keys) instead of drawing
+them; each leaf keeps the dtype it was saved in, as the reference's
+restore does, and ``--seed`` then drives only the traffic and sampling:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
+        --smoke --device cpu --steps 10 --ckpt /tmp/run1
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+        --smoke --device cpu --ckpt /tmp/run1
 
 ``--cache`` picks the KV backend (``auto`` lets the engine pick: paged);
 ``--kv-int8`` stores the KV cache as int8 with a float32 scale per token;
@@ -19,6 +30,9 @@ frames.  ``--smoke`` serves the same architecture at smoke width;
 host with no card is an error).  ``--priority`` gives the requests
 scheduler classes (``mixed``: odd rids high), which admit high first and
 let a high request preempt a low one when slots or pages run out.
+Every colocated layout, one engine included, drains through a
+:class:`ReplicaPool`, one decode tick a step, as the reference's launcher
+does; ``--window`` is the disaggregated pools' decode window.
 
 ``--topology disagg`` serves through a
 :class:`~repro_torch.serve.cluster.DisaggPool`: ``--prefill-replicas``
@@ -51,6 +65,7 @@ host-side arbiter between them.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import List, Optional, Sequence
@@ -64,12 +79,25 @@ from repro_torch.launch.mesh import visible_devices
 from repro_torch.models import RuntimeFlags, build
 from repro_torch.serve import (DisaggConfig, DisaggPool, Request,
                                ServeEngine, ServeStats, aggregate_stats)
+from repro_torch.train.checkpoint import CheckpointManager
 
 # request i's scheduler class under each --priority mix (the reference
 # launcher's)
 _PRIORITY_MIX = {"off": lambda i: 0, "low": lambda i: 0,
                  "high": lambda i: 1, "mixed": lambda i: i % 2}
 
+
+def restore_params(bundle, directory: str) -> dict:
+    """The params tree of the latest step under ``directory``, in the
+    structure of the bundle's meta-device ``abstract_params()``, each
+    leaf on the bundle's device in its saved dtype (the sharded engines
+    cut it as they cut a drawn tree).  A missing directory, or one
+    without a step, raises FileNotFoundError."""
+    if not os.path.isdir(directory):
+        raise FileNotFoundError(f"no checkpoint directory {directory}")
+    abstract, _ = bundle.abstract_params()
+    return CheckpointManager(directory).restore(
+        None, dict(params=abstract), device=bundle.device)["params"]
 
 
 def device_groups(tp: int, dp: int,
@@ -201,16 +229,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the latest step's params under this "
+                         "checkpoint directory instead of drawing them")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--window", type=int, default=8,
-                    help="decode ticks per host sync")
+                    help="decode ticks per host sync under --topology "
+                         "disagg (colocated layouts drain one tick a step, "
+                         "as the reference's launcher does)")
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 KV cache with per-token float32 scales")
     ap.add_argument("--seed", type=int, default=0,
-                    help="weights + traffic seed")
+                    help="traffic and sampling seed; also the weights' "
+                         "without --ckpt")
     ap.add_argument("--priority", default="off",
                     choices=sorted(_PRIORITY_MIX),
                     help="scheduler priority classes for the request mix")
@@ -253,13 +287,18 @@ def main(argv=None) -> int:
                else [args.device] if args.device else None)
     home = args.device or (devices[0] if devices else None)
     bundle = build(cfg, flags, device=home)
-    gen = torch.Generator(device=bundle.device).manual_seed(args.seed)
-    params = bundle.init(gen)
+    if args.ckpt:
+        try:
+            params = restore_params(bundle, args.ckpt)
+        except FileNotFoundError as e:
+            raise SystemExit(f"error: {e}") from e
+    else:
+        gen = torch.Generator(device=bundle.device).manual_seed(args.seed)
+        params = bundle.init(gen)
     engine_kw = dict(batch_size=args.batch, max_len=args.max_len,
                      window=args.window, seed=args.seed, device=home)
     if args.cache != "auto":
         engine_kw["cache_backend"] = args.cache
-    colocated_pool = args.topology == "colocated" and args.tp * args.dp > 1
     try:
         if args.topology == "disagg":
             pool = build_disagg_pool(
@@ -270,14 +309,9 @@ def main(argv=None) -> int:
                     link_bw=args.link_bw,
                     force=None if args.route == "auto" else args.route),
                 **engine_kw)
-            submit = pool.submit
-        elif colocated_pool:
+        else:
             pool = build_pool(bundle, params, tp=args.tp, dp=args.dp,
                               devices=devices, **engine_kw)
-            submit = pool.submit
-        else:
-            eng = ServeEngine(bundle, params, **engine_kw)
-            submit = eng.add_request
     except ValueError as e:
         raise SystemExit(f"error: {e}") from e
     rng = np.random.default_rng(args.seed)
@@ -285,47 +319,49 @@ def main(argv=None) -> int:
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size,
                               size=int(rng.integers(4, 24))).astype(np.int32)
-        submit(Request(rid=i, prompt=prompt, max_new_tokens=args.max_new,
-                       priority=mix(i)))
+        pool.submit(Request(rid=i, prompt=prompt,
+                            max_new_tokens=args.max_new,
+                            priority=mix(i)))
     t0 = time.perf_counter()
-    if args.topology == "disagg" or colocated_pool:
-        stats = pool.run() if args.topology == "disagg" else pool.drain()
-        for e in pool.engines:
-            if e.device.type == "cuda":
-                torch.cuda.synchronize(e.device)
-        dt = time.perf_counter() - t0
-        print(f"{stats.tokens_out} tokens in {dt:.2f}s "
-              f"({stats.tokens_out / dt:.1f} tok/s) across "
-              f"{len(pool.engines)} replica(s) x tp={args.tp}, "
-              f"prefills={stats.prefills}, decode_steps={stats.decode_steps}, "
-              f"decode_dispatches={stats.decode_dispatches}")
-        if colocated_pool:
-            print("per-replica requests: "
-                  + ", ".join(f"r{i}={n}" for i, n in enumerate(pool.routed)))
-            return 0
-        d = pool.dstats
-        print(f"disagg: {d.disagg_routed} shipped / {d.colocated_routed} "
-              f"colocated, {d.transfers} transfers "
-              f"({stats.transfer_bytes} bytes), "
-              f"{stats.transfer_fallbacks} recompute fallbacks, "
-              f"{d.rounds} rounds")
-        return 0
-    stats = eng.run_to_completion()
+    # colocated layouts drain one tick a step, as the reference's launcher
+    stats = pool.run() if args.topology == "disagg" else pool.drain()
+    for e in pool.engines:
+        if e.device.type == "cuda":
+            torch.cuda.synchronize(e.device)
     dt = time.perf_counter() - t0
-    where = (torch.cuda.get_device_name(bundle.device)
-             if bundle.device.type == "cuda" else str(bundle.device))
-    print(f"{cfg.name}{' (smoke)' if args.smoke else ''} on {where}, "
-          f"{eng.backend} cache{' (int8)' if args.kv_int8 else ''}: "
-          f"{stats.tokens_out} tokens in {dt:.2f}s "
-          f"({stats.tokens_out / dt:.1f} tok/s), prefills={stats.prefills}, "
-          f"prefill_retraces={stats.prefill_retraces}, "
-          f"prefill_chunks={stats.prefill_chunks}, "
-          f"decode_steps={stats.decode_steps}, "
-          f"decode_dispatches={stats.decode_dispatches}, "
-          f"prefix_hit_tokens={stats.prefix_hit_tokens}, "
-          f"pages_peak={stats.pages_peak}, "
-          f"ring_pages_peak={stats.ring_pages_peak}, "
-          f"priority={args.priority}, preemptions={stats.preemptions}")
+    if args.topology == "colocated" and args.tp * args.dp == 1:
+        eng = pool.engines[0]
+        where = (torch.cuda.get_device_name(bundle.device)
+                 if bundle.device.type == "cuda" else str(bundle.device))
+        print(f"{cfg.name}{' (smoke)' if args.smoke else ''} on {where}, "
+              f"{eng.backend} cache{' (int8)' if args.kv_int8 else ''}: "
+              f"{stats.tokens_out} tokens in {dt:.2f}s "
+              f"({stats.tokens_out / dt:.1f} tok/s), "
+              f"prefills={stats.prefills}, "
+              f"prefill_retraces={stats.prefill_retraces}, "
+              f"prefill_chunks={stats.prefill_chunks}, "
+              f"decode_steps={stats.decode_steps}, "
+              f"decode_dispatches={stats.decode_dispatches}, "
+              f"prefix_hit_tokens={stats.prefix_hit_tokens}, "
+              f"pages_peak={stats.pages_peak}, "
+              f"ring_pages_peak={stats.ring_pages_peak}, "
+              f"priority={args.priority}, preemptions={stats.preemptions}")
+        return 0
+    print(f"{stats.tokens_out} tokens in {dt:.2f}s "
+          f"({stats.tokens_out / dt:.1f} tok/s) across "
+          f"{len(pool.engines)} replica(s) x tp={args.tp}, "
+          f"prefills={stats.prefills}, decode_steps={stats.decode_steps}, "
+          f"decode_dispatches={stats.decode_dispatches}")
+    if args.topology == "colocated":
+        print("per-replica requests: "
+              + ", ".join(f"r{i}={n}" for i, n in enumerate(pool.routed)))
+        return 0
+    d = pool.dstats
+    print(f"disagg: {d.disagg_routed} shipped / {d.colocated_routed} "
+          f"colocated, {d.transfers} transfers "
+          f"({stats.transfer_bytes} bytes), "
+          f"{stats.transfer_fallbacks} recompute fallbacks, "
+          f"{d.rounds} rounds")
     return 0
 
 

@@ -8,6 +8,9 @@
                 plain PyTorch, with the reference's blockwise backward
                 (:class:`_Flash`, an autograd function: training's
                 attention);
+- ``unrolled`` — the same blocks with the wholly masked ones skipped, the
+                inner loop in a ``flash_inner`` scope: the dry-run's
+                roofline mode;
 - ``pallas``  — the ``flash_attention`` kernel (K2): CUDA on the card, its
                 plain version on the CPU (:mod:`repro_torch.kernels.ops`).
 
@@ -21,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.roofline import FLASH_INNER, named_scope
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.tune.cache import plan_for
@@ -30,7 +34,7 @@ NEG_INF = -1e30
 
 
 class AttnParams(NamedTuple):
-    impl: str = "chunked"          # naive | chunked | pallas
+    impl: str = "chunked"          # naive | chunked | unrolled | pallas
     causal: bool = True
     window: Optional[int] = None
     softcap: Optional[float] = None
@@ -176,15 +180,10 @@ def tp_paged_gather_attention(q, k_pages, v_pages, page_table,
         for s in range(len(q))]
 
 
-def chunked_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
-    """Online-softmax double loop over (bq, bkv) blocks with the
-    reference's flash-style backward (:class:`_Flash`): the backward
-    recomputes each score block from (q, k, v, out, lse) instead of
-    keeping every block's accumulators.  q: (B,Sq,Hq,D); k/v:
-    (B,Skv,Hkv,D) -> (B,Sq,Hq,D).  ``q_offset``/``kv_valid_len`` are
-    scalars.  Non-divisible lengths are padded and masked; every kv block
-    is visited, as in the reference (a block masked for a whole row adds
-    p = 1 terms that the row's first live block wipes with alpha = 0)."""
+def _padded(q, k, v, p: AttnParams, q_offset, kv_valid_len):
+    """(q, k, v padded to whole blocks, their :class:`_FlashMeta`), the
+    reference's blocking: blocks no longer than the sequences, padded kv
+    rows masked through ``kv_valid_len``."""
     orig_sq, orig_skv = q.shape[1], k.shape[1]
     bq, bkv = resolve_blocks(p, q, k)
     bq, bkv = min(bq, orig_sq), min(bkv, orig_skv)
@@ -201,10 +200,70 @@ def chunked_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
         scale=p.scale if p.scale is not None else q.shape[-1] ** -0.5,
         bq=bq, bkv=bkv, q_offset=int(q_offset),
         kv_valid_len=None if kv_valid_len is None else int(kv_valid_len))
+    return q, k, v, meta
+
+
+def chunked_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
+    """Online-softmax double loop over (bq, bkv) blocks with the
+    reference's flash-style backward (:class:`_Flash`): the backward
+    recomputes each score block from (q, k, v, out, lse) instead of
+    keeping every block's accumulators.  q: (B,Sq,Hq,D); k/v:
+    (B,Skv,Hkv,D) -> (B,Sq,Hq,D).  ``q_offset``/``kv_valid_len`` are
+    scalars.  Non-divisible lengths are padded and masked; every kv block
+    is visited, as in the reference (a block masked for a whole row adds
+    p = 1 terms that the row's first live block wipes with alpha = 0)."""
+    orig_sq = q.shape[1]
+    q, k, v, meta = _padded(q, k, v, p, q_offset, kv_valid_len)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _Flash.apply(meta, q, k, v)[:, :orig_sq]
     # serving: the forward alone, with no lse for a backward
     return _flash_fwd_impl(meta, q, k, v, with_lse=False)[0][:, :orig_sq]
+
+
+def unrolled_attention(q, k, v, p: AttnParams, q_offset=0,
+                       kv_valid_len=None):
+    """The roofline mode's attention: ``chunked``'s blocks and math, but
+    a block wholly in the future, wholly out of the window or wholly past
+    ``kv_valid_len`` is skipped, as a production kernel's grid skips it,
+    so a traced step counts only the blocks computed.  Each block's work
+    runs in a ``flash_inner`` :func:`~repro_torch.core.roofline.
+    named_scope`, whose bytes the accounting counts apart.  Autograd
+    differentiates the loop op by op (the reference has no custom VJP
+    here).  Rows come back in q's dtype."""
+    orig_sq = q.shape[1]
+    q, k, v, meta = _padded(q, k, v, p, q_offset, kv_valid_len)
+    qb, kb, vb, (b, sq, hq, d, skv, hkv, g, nq, nkv) = _blocks(meta, q, k, v)
+    bq, bkv, dev = meta.bq, meta.bkv, q.device
+    outs = []
+    for i in range(nq):
+        q_lo = meta.q_offset + i * bq
+        q_hi = q_lo + bq - 1
+        m = torch.full((b, bq, hkv, g), NEG_INF, device=dev)
+        l = torch.zeros((b, bq, hkv, g), device=dev)
+        acc = torch.zeros((b, bq, hkv, g, d), device=dev)
+        q_pos = _q_pos(meta, i, dev)
+        for j in range(nkv):
+            k_lo, k_hi = j * bkv, (j + 1) * bkv - 1
+            if meta.causal and k_lo > q_hi:
+                continue                   # wholly in the future
+            if meta.window is not None and q_lo - k_hi >= meta.window:
+                continue                   # wholly out of the window
+            if meta.kv_valid_len is not None and k_lo >= meta.kv_valid_len:
+                continue                   # wholly past the valid rows
+            with named_scope(FLASH_INNER):
+                s_c, _, msk = _block_scores(meta, qb[:, i], kb[:, j], q_pos,
+                                            j)
+                s_c = torch.where(msk, s_c, NEG_INF)
+                m_n = torch.maximum(m, s_c.amax(dim=-1))
+                pr = torch.exp(s_c - m_n[..., None])
+                alpha = torch.exp(m - m_n)
+                l = l * alpha + pr.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bqhgk,bkhd->bqhgd", pr, vb[:, j])
+                m = m_n
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs, dim=1).reshape(b, sq, hq, d)
+    return out[:, :orig_sq].to(q.dtype)
 
 
 class _FlashMeta(NamedTuple):
@@ -350,6 +409,7 @@ def pallas_attention(q, k, v, p: AttnParams, q_offset=0, kv_valid_len=None):
 IMPLS = {
     "naive": naive_attention,
     "chunked": chunked_attention,
+    "unrolled": unrolled_attention,
     "pallas": pallas_attention,
 }
 

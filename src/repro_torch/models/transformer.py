@@ -103,8 +103,9 @@ from repro_torch.models.common import (EMBED, HEADS, KV_HEADS, LAYERS, VOCAB,
 class RuntimeFlags:
     """Execution knobs (never affect math, except ``kv_dtype``'s
     quantization).  ``attn_impl`` picks the attention of full-sequence
-    prefill (naive | chunked | pallas); ``attn_bq``/``attn_bkv`` pin
-    chunked's blocks (None = the tuned plan's,
+    prefill (naive | chunked | unrolled | pallas; ``unrolled`` is the
+    dry-run's roofline mode); ``attn_bq``/``attn_bkv`` pin the blocked
+    impls' blocks (None = the tuned plan's,
     :func:`repro_torch.models.attention.resolve_blocks`); the CUDA kernel
     behind ``pallas`` picks its own tiles.  ``moe_impl`` picks the MoE
     dispatch (dense | sorted).  Training reads ``remat`` (none | full |

@@ -3,9 +3,10 @@ engine (the port of ``repro.serve.kvcache``).
 
 - :class:`PageAllocator` — per-request page tables, refcounted shared
   pages, a *sorted* free list (lowest page id reused first, so tables are
-  reproducible run to run), and a typed :class:`PoolExhausted` that the
-  engine turns into admission backpressure.  With ``window`` it keeps
-  *ring* tables of ``ring_slots`` pages for sliding-window layers.
+  reproducible run to run), a typed :class:`PoolExhausted` that the
+  engine turns into admission backpressure, and ``truncate``, the
+  speculative rollback.  With ``window`` it keeps *ring* tables of
+  ``ring_slots`` pages for sliding-window layers.
 - :class:`PagedKVCache` — an allocator with one layer's page arrays on a
   device, copy-on-write ``append`` and the batch tables (``batch_view``).
 - :class:`PrefixIndex` — chain-hash -> page id map for prefix caching:
@@ -13,7 +14,7 @@ engine (the port of ``repro.serve.kvcache``).
   read-only.
 
 The engine keeps one allocator per kind of layer; the model's paged cache
-holds every layer's pools.  Speculative truncation is not ported yet.
+holds every layer's pools.
 """
 from __future__ import annotations
 

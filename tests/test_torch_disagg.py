@@ -24,11 +24,14 @@ must be equal, and the tokens equal a colocated engine's.
   or a colocated ``--dp`` > 1 on one distinct device);
 - the ``disagg_serve`` sweep at ``fast``: the reference's rows and
   deterministic columns, save the break-even row's ``reprefill_ms``,
-  priced on the H100's spec.
+  priced on the H100's spec; over ``["cpu", "cpu"]`` the reference's
+  tenth row, ``disagg_serve_tp2_bitwise``, its transfers and tokens
+  those of the reference's pool on the same weights.
 """
 import dataclasses
 import re
 import types
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -37,6 +40,7 @@ import torch
 
 import repro.serve as J
 from repro.configs import ARCHS as J_ARCHS
+from repro.configs import override as j_override
 from repro.configs import smoke_config as j_smoke
 from repro.core.memmodel import V5E
 from repro.models import RuntimeFlags as JFlags
@@ -45,6 +49,7 @@ from repro.serve.engine import ServeStats as JStats
 import repro_torch.serve as T
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import ARCHS as T_ARCHS
+from repro_torch.configs import override as t_override
 from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.core.memmodel import H100, HopperSpec
 from repro_torch.models import RuntimeFlags as TFlags
@@ -409,20 +414,23 @@ WALL_EXTRAS = ("tok_s", "mean_us")
 SPEC_PRICED = {"disagg_serve_routing_break_even": ("reprefill_ms",)}
 
 
-def test_disagg_serve_rows_equal_reference():
+@pytest.fixture(scope="module")
+def j_disagg_run():
+    """The reference's sweep at fast on tier-1's one jax device (9 rows:
+    its TP=2 row needs two)."""
     from repro.bench import run_sweeps as j_run_sweeps
-    from repro_torch.bench import run_sweeps as t_run_sweeps
 
     jrun = j_run_sweeps(names=["disagg_serve"], fast=True, echo=False)
-    trun = t_run_sweeps(names=["disagg_serve"], fast=True, echo=False,
-                        device="cpu")
-    assert not jrun.failures and not trun.failures, (jrun.failures,
-                                                     trun.failures)
-    # the reference's TP=2 row needs two devices; this host has one
+    assert not jrun.failures, jrun.failures
     assert len(jax.devices()) == 1
-    assert [r.name for r in trun.results] == [r.name for r in jrun.results]
-    assert len(trun.results) == 9
-    for j, t in zip(jrun.results, trun.results):
+    return jrun
+
+
+def _rows_equal(jrows, trows):
+    """Names, sweeps, patterns, knobs and deterministic columns equal;
+    wall-clock rows timed twice."""
+    assert [r.name for r in trows] == [r.name for r in jrows]
+    for j, t in zip(jrows, trows):
         skip = WALL_EXTRAS + SPEC_PRICED.get(t.name, ())
         assert (t.sweep, t.pattern, t.knobs) == (j.sweep, j.pattern, j.knobs)
         assert ({k: v for k, v in t.extras.items() if k not in skip}
@@ -435,9 +443,82 @@ def test_disagg_serve_rows_equal_reference():
         else:
             assert t.timing.trials == j.timing.trials == 2
             assert t.us_per_call > 0
+
+
+def test_disagg_serve_rows_equal_reference(j_disagg_run):
+    from repro_torch.bench import run_sweeps as t_run_sweeps
+
+    trun = t_run_sweeps(names=["disagg_serve"], fast=True, echo=False,
+                        device="cpu")
+    assert not trun.failures, trun.failures
+    assert len(trun.results) == 9
+    _rows_equal(j_disagg_run.results, trun.results)
     row = trun.by_name()["disagg_serve_routing_break_even"]
     cm = T.SwapCostModel(weight_bytes=5e9, kv_bytes_per_token=18_432,
                          prefill_chunk=256, host_link_bw=32e9)
     assert row.extras["reprefill_ms"] == cm.recompute_s(8192) * 1e3
     assert row.extras["ship_ms"] == cm.swap_s(8192) * 1e3
     assert row.extras["reprefill_ms"] > row.extras["ship_ms"]
+
+
+def _reference_row_order():
+    """The reference sweep's row names in the order its source emits
+    them (the three percentile rows of its loop in place)."""
+    src = (Path(__file__).resolve().parents[1]
+           / "src/repro/bench/sweeps/disagg_serve.py").read_text()
+    names = re.findall(r'"(disagg_serve_\w+)"', src)
+    assert 'f"disagg_serve_{mname}"' in src
+    i = names.index("disagg_serve_chaos_recovery")
+    return (names[:i] + [f"disagg_serve_{m}" for m in
+                         ("ttft_p50", "ttft_p99", "tpot_p50")] + names[i:])
+
+
+def test_disagg_serve_tp2_row_over_two_devices(j_disagg_run, monkeypatch):
+    """Over ``["cpu", "cpu"]`` the sweep adds the reference's last row:
+    a TP=2 prefill engine shipping to a TP=2 decode engine drains the
+    TP=2 colocated engine's tokens.  Its transfers and tokens equal the
+    reference pool's on the port's weights (at TP=1: tier-1's jax has
+    one device); the first 9 rows are the one-device run's."""
+    from repro.bench.sweeps import disagg_serve as j_sweep
+    from repro_torch.bench import run_sweeps as t_run_sweeps
+    from repro_torch.bench.sweeps import disagg_serve as t_sweep
+
+    drains = []
+    real = t_sweep._drain
+
+    def recording(*args, **kw):
+        drains.append(real(*args, **kw))
+        return drains[-1]
+
+    monkeypatch.setattr(t_sweep, "_drain", recording)
+    trun = t_run_sweeps(names=["disagg_serve"], fast=True, echo=False,
+                        device="cpu", devices=["cpu", "cpu"])
+    assert not trun.failures, trun.failures
+    assert [r.name for r in trun.results] == _reference_row_order()
+    assert len(trun.results) == 10
+    _rows_equal(j_disagg_run.results, trun.results[:9])
+    row = trun.results[-1]
+    assert row.name == "disagg_serve_tp2_bitwise"
+    assert (row.sweep, row.pattern, row.knobs) == (
+        j_disagg_run.results[-1].sweep, None, {})
+    assert row.extras["deterministic"] and row.timing is None
+    assert (row.gbps_measured, row.gbps_predicted) == (1.0, 1.0)
+    # the reference's pool on the weights the sweep drew
+    cfg = t_override(t_smoke(T_ARCHS["gemma-2b"]), num_kv_heads=2)
+    tparams = t_build(cfg, TFlags(attn_impl="chunked", attn_bq=16,
+                                  attn_bkv=16), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    jcfg = j_override(j_smoke(J_ARCHS["gemma-2b"]), num_kv_heads=2)
+    jb = j_build(jcfg, JFlags(attn_impl="chunked", attn_bq=16, attn_bkv=16,
+                              moe_impl="dense", loss_chunk=16))
+    jparams = jax.tree.map(lambda t: np.asarray(t.numpy()), tparams)
+    kw = dict(batch_size=2, max_len=64, window=4, prefill_chunk=8,
+              cache_backend="paged", seed=0)
+    jpool = J.DisaggPool([J.ServeEngine(jb, jparams, **kw)],
+                         [J.ServeEngine(jb, jparams, **kw)],
+                         J.DisaggConfig(force="disagg"))
+    want, jstats, _ = j_sweep._drain(jpool, jcfg, 4, 8)
+    got, tstats, _ = drains[-1]
+    assert got == want
+    assert row.extras["transfers"] == tstats.prefill_imports
+    assert row.extras["transfers"] == jstats.prefill_imports >= 1

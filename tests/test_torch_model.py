@@ -286,8 +286,8 @@ def test_dense_prefill_and_decode_match_reference(name, impl):
 
 def test_runtime_flags_refuse_what_is_not_ported():
     """int8 KV, sliding windows, recurrent (SSD, RG-LRU) layers, MoE
-    layers under either dispatch and encoder-decoder stacks are served;
-    unknown flags are refused."""
+    layers under either dispatch, encoder-decoder stacks and the roofline
+    mode's unrolled attention are built; unknown flags are refused."""
     from repro_torch.configs import LayerSpec
     from repro_torch.configs.base import MOE, SSD
     cfg = t_smoke(T_ARCHS["phi4-mini-3.8b"])
@@ -295,8 +295,9 @@ def test_runtime_flags_refuse_what_is_not_ported():
     t_build(t_smoke(T_ARCHS["gemma2-27b"]), device="cpu")
     with pytest.raises(ValueError, match="kv_dtype"):
         t_build(cfg, TRuntimeFlags(kv_dtype="fp8"), device="cpu")
+    t_build(cfg, TRuntimeFlags(attn_impl="unrolled"), device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
-        t_build(cfg, TRuntimeFlags(attn_impl="unrolled"), device="cpu")
+        t_build(cfg, TRuntimeFlags(attn_impl="flex"), device="cpu")
     with pytest.raises(ValueError, match="moe_impl"):
         t_build(cfg, TRuntimeFlags(moe_impl="grouped"), device="cpu")
     t_build(t_override(cfg, layer_pattern=(LayerSpec(mixer=SSD),)),

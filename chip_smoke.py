@@ -319,7 +319,14 @@ builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    shard's pools and live bytes half of TP=1's, the shards' tables
    equal, every request at its length; printed, ungated: the share of
    tokens equal to TP=1's and the first divergence (two bf16 partial sums
-   round otherwise than one product), and each layout's ms per tick;
+   round otherwise than one product), TP=1's top-2 logit gap there beside
+   the layouts' largest logit difference (the drains' own logits), the
+   error ratio over a replay of that request with the common prefix
+   forced (bf16 TP=2's largest logit error over bf16 TP=1's, each against
+   float32 TP=1 on the same weights), and each layout's ms per tick; moe
+   tp serve and ssm tp serve (granite-moe-3b-a800m, mamba2-130m, in the
+   parity lane) print the same, and ssm tp serve gates it (ROADMAP C15):
+   the ratio at most 2, the gap at most the difference;
 47. tp parity: phi4-mini-3.8b at published widths cut to 2 layers,
    float32: the greedy drain's tokens equal on the card at TP=2, on the
    card at TP=1 and on the CPU at TP=1 (K1 = 2 x 2 x ticks at TP=2); a
@@ -4177,19 +4184,198 @@ def _shard_state_equal(torch, eng):
     return True
 
 
-def tp_family_serve(torch, np, card, cfg, flags, tag, reqs, extra):
+C15_ERROR_RATIO = 2.0              # [ssm tp serve]: TP=2's logit error over
+#                                    TP=1's, both against float32 TP=1
+
+
+def logit_recording_class(torch, Base):
+    """``Base`` (an engine class) keeping the logits each emitted token
+    was chosen from, on the card: the prefill's for a request's first
+    token, each decode tick's for the rest."""
+    class Recording(Base):
+        def _init_state(self):
+            super()._init_state()
+            self._ticks = []
+            self._tick = 0
+            self._logits = {}
+
+        def _seed_token(self, slot, logits):
+            req = self.slots[slot]
+            self._logits[req.rid, len(req.out_tokens)] = logits[0].clone()
+            return super()._seed_token(slot, logits)
+
+        def decode_many(self, n):
+            self._tick = 0
+            return super().decode_many(n)
+
+        def _select_next(self, logits, act):
+            # a slot's token i of the window lands after its out_tokens
+            self._ticks.append((logits.clone(), act.clone(), [
+                (b, r.rid, len(r.out_tokens) + self._tick)
+                for b, r in enumerate(self.slots) if r is not None]))
+            self._tick += 1
+            return super()._select_next(logits, act)
+
+        def logits_of(self, rid, j):
+            """The float32 logits request ``rid``'s token ``j`` was
+            chosen from."""
+            for logits, act, keys in self._ticks:
+                on = act.cpu().tolist()
+                for b, r, i in keys:
+                    if on[b]:
+                        self._logits[r, i] = logits[b]
+            self._ticks = []
+            return self._logits[rid, j].float()
+    return Recording
+
+
+def forced_logits(torch, bundle, params, prompt, forced, max_len):
+    """float32 logits (len(forced) + 1, V) of one request replayed through
+    ``bundle``'s dense prefill of ``prompt`` and a decode tick on each
+    forced token: row t predicts token t.  A TP bundle's vocab slices are
+    concatenated in shard order; the prefill's k/v rows (full-attention
+    layers) are grown to ``max_len`` for the ticks."""
+    def whole(lg):
+        if isinstance(lg, list):
+            return torch.cat([x.float().to(lg[0].device) for x in lg], -1)
+        return lg.float()
+
+    def grown(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = grown(v)
+            elif k in ("k", "v"):             # (..., B, S, Hkv, D)
+                pad = v.new_zeros(v.shape[:-3] + (max_len - v.shape[-3],)
+                                  + v.shape[-2:])
+                out[k] = torch.cat([v, pad], dim=-3)
+            else:
+                out[k] = v
+        return out
+
+    cache, lg = bundle.prefill(params, dict(tokens=prompt[None]))
+    cache = ([grown(c) for c in cache] if isinstance(cache, list)
+             else grown(cache))
+    rows = [whole(lg)[0]]
+    for t in range(len(forced)):
+        lg, cache = bundle.decode_step(
+            params, cache, forced[None, t:t + 1],
+            torch.tensor(len(prompt) + t, device=prompt.device))
+        rows.append(whole(lg)[0])
+    return torch.stack(rows)
+
+
+def divergence_report(torch, np, cfg, runs, reqs, first, tag, card,
+                      gate):
+    """ROADMAP C15 at the first divergence (request i, token j) of the
+    TP=2 and TP=1 drains: TP=1's top-1 minus top-2 logit there and the
+    layouts' largest logit difference (the drains' own logits), and the
+    error ratio over a replay of request i with the common prefix forced
+    (:func:`forced_logits`): the largest absolute error of bf16 TP=2's
+    logits over bf16 TP=1's, each against float32 TP=1 on the same
+    weights upcast.  Beside them, over every position both drains
+    reached on the same inputs, the median gap and difference and how
+    often the gap is within the difference.  ``gate``: the ratio is at
+    most ``C15_ERROR_RATIO`` and the gap at most the difference.  Frees
+    both engines as it goes (the float32 copy replaces them)."""
+    from repro_torch.configs import override
+    from repro_torch.models import build
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    tokens = runs["tp1"]["tokens"]
+    i, j = first if first is not None else (0, len(tokens[0]) - 1)
+    rid = reqs[i].rid
+    tp2, tp1 = runs["tp2"].pop("eng"), runs["tp1"].pop("eng")
+    dev = tp1.device
+
+    def gap_and_diff(r, k):
+        """TP=1's top-1 minus top-2 logit at request r's token k, and the
+        layouts' largest logit difference there."""
+        l1, l2 = tp1.logits_of(r, k), tp2.logits_of(r, k).to(dev)
+        top = l1.topk(2).values
+        return float(top[0] - top[1]), float((l2 - l1).abs().max())
+
+    margin = diff = None
+    if first is not None:
+        margin, diff = gap_and_diff(rid, j)
+    # every position both drains reached on the same inputs: each
+    # request's tokens up to its first difference, that one included
+    seen = []
+    for r, a, b in zip(reqs, runs["tp2"]["tokens"], tokens):
+        for k, (x, y) in enumerate(zip(a, b)):
+            seen.append(gap_and_diff(r.rid, k) + (x != y,))
+            if x != y:
+                break
+    gaps, aparts, flips = (np.array(c) for c in zip(*seen))
+    prompt = torch.as_tensor(reqs[i].prompt, dtype=torch.int64, device=dev)
+    forced = torch.as_tensor(tokens[i][:j], dtype=torch.int64, device=dev)
+    rows = {"tp2": forced_logits(torch, tp2.bundle, tp2.params, prompt,
+                                 forced, tp2.max_len).to(dev)}
+    del tp2
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["tp1"] = forced_logits(torch, tp1.bundle, tp1.params, prompt,
+                                forced, tp1.max_len)
+    b32 = build(override(cfg, param_dtype="float32",
+                         compute_dtype="float32"), tp1.bundle.flags,
+                device=tp1.bundle.device)
+    p32 = tree_map(lambda t: t.float(), tp1.params)
+    max_len = tp1.max_len
+    del tp1
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["f32"] = forced_logits(torch, b32, p32, prompt, forced, max_len)
+    del p32
+    err2 = float((rows["tp2"] - rows["f32"]).abs().max())
+    err1 = float((rows["tp1"] - rows["f32"]).abs().max())
+    ratio = err2 / err1 if err1 else float("inf")
+    # the replay's own greedy tokens against the drains' on the prefix
+    picks = {k: r.argmax(-1).tolist() for k, r in rows.items()}
+    same = [sum(a == b for a, b in zip(picks[k][:j], tokens[i][:j]))
+            for k in ("tp2", "tp1", "f32")]
+    at_j = None if first is None else tuple(
+        picks[k][j] for k in ("tp2", "tp1", "f32"))
+    print(f"[{tag}] c15 first_divergence={first} rid={rid} "
+          f"prompt_len={len(prompt)} forced={j} "
+          f"tp1_margin={margin} layouts_logit_diff={diff} "
+          f"replay_max_abs_err_tp2={err2:.6f} replay_max_abs_err_tp1="
+          f"{err1:.6f} error_ratio={ratio:.4f} (limit {C15_ERROR_RATIO}"
+          f"{'' if gate else ', not gated'}) replay_prefix_tokens_equal_"
+          f"drain_tp2/tp1/f32={same}/{j} replay_tokens_at_j_tp2/tp1/f32="
+          f"{at_j} drains_same_input_positions={len(gaps)} "
+          f"drains_median_tp1_margin={np.median(gaps):.6f} "
+          f"drains_median_layouts_diff={np.median(aparts):.6f} "
+          f"drains_share_margin_within_diff={np.mean(gaps <= aparts):.4f} "
+          f"drains_flips={int(flips.sum())} "
+          f"seconds={time.perf_counter() - t0:.1f} card='{card}'",
+          flush=True)
+    if gate:
+        check(ratio <= C15_ERROR_RATIO,
+              f"{tag}: bf16 TP=2's logit error {err2:.6f} is {ratio:.3f}x "
+              f"TP=1's {err1:.6f} against float32 (limit {C15_ERROR_RATIO})")
+        check(first is None or margin <= diff,
+              f"{tag}: at the first divergence TP=1's top-2 gap {margin} "
+              f"exceeds the layouts' logit difference {diff}")
+
+
+def tp_family_serve(torch, np, card, cfg, flags, tag, reqs, extra,
+                    gate_c15=False):
     """``cfg`` at TP=2 with both shards on the one card, then TP=1 on the
     same weights: the same requests drained warm by each; K1's launches
     = shards x attention layers x ticks, every budget met.  ``extra(tp2,
     tp1)`` adds the family's checks and returns words for the summary
-    line.  Returns (K1 launches of the TP=2 drain, the runs)."""
+    line; then :func:`divergence_report` (gated where ``gate_c15``),
+    which frees the engines.  Returns (K1 launches of the TP=2 drain, the
+    runs)."""
     from repro_torch.dist import ServeMesh
     from repro_torch.dist import tp as tpc
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve import Request, ServeEngine
 
     bundle, params = load_model(torch, cfg, flags)
-    Timed = timed_engine_class(torch, ServeEngine)
+    Timed = logit_recording_class(torch, timed_engine_class(torch,
+                                                            ServeEngine))
     mesh = ServeMesh.tp(2, devices=tp_devices(torch))
     n_attn = attention_layers(cfg)
     runs = {}
@@ -4246,6 +4432,9 @@ def tp_family_serve(torch, np, card, cfg, flags, tag, reqs, extra):
           f"tick_ratio_tp2_to_tp1="
           f"{runs['tp2']['tick_ms'] / runs['tp1']['tick_ms']:.3f} {words} "
           f"card='{card}'", flush=True)
+    del tp2, tp1, e, bundle, params
+    divergence_report(torch, np, cfg, runs, reqs, first, tag, card,
+                      gate_c15)
     return runs["tp2"]["launches"], runs
 
 
@@ -5208,6 +5397,37 @@ def dryrun_phase(torch, np, card, train_info, fsdp_info):
           f"{want}")
     check(all(sum(t.flops) == t.total_flops for t in traces.values()),
           "dryrun: the per-device FLOPs do not add up to the total")
+    roofline_flash_inner(card, cfg, cell)
+
+
+def roofline_flash_inner(card, cfg, cell):
+    """The roofline mode's flash_inner bytes of ``cell`` (a train cell)
+    at 1x1: the train step's (the forward, the remat's recomputation and
+    the backward of the scope's nodes) beside the forward's alone (a
+    prefill of the same batch)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.dist import POLICIES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    t1 = time.perf_counter()
+    mesh = Mesh(("data", "model"), (1, 1), ("meta",))
+    roof = dryrun.default_flags(roofline=True)
+    train, fwd = (dryrun.trace_cell(cfg, c, mesh, POLICIES["fsdp_tp"], roof,
+                                    counter=False)
+                  for c in (cell, ShapeCell("cli", "prefill", cell.seq_len,
+                                            cell.global_batch)))
+    tf, ff = train.flash_inner[0], fwd.flash_inner[0]
+    print(f"[dryrun] roofline flags, config=[train] mesh=(1, 1) "
+          f"bytes_flash_inner={tf} forward_only={ff} (a prefill of the "
+          f"same batch) ratio={tf / max(1, ff):.3f} backward_share="
+          f"{(tf - 2 * ff) / max(1, tf):.3f} (the remat recomputes the "
+          f"forward once) bytes={train.bytes[0]} flash_share="
+          f"{tf / max(1, train.bytes[0]):.3f} seconds="
+          f"{time.perf_counter() - t1:.1f} card='{card}'", flush=True)
+    check(0 < 2 * ff < tf <= train.bytes[0],
+          f"dryrun: the roofline train step's flash_inner bytes {tf} do not "
+          f"exceed twice the forward's {ff} (the backward is not counted)")
 
 
 # ---------------------------------------------------------------------------
@@ -5280,11 +5500,67 @@ def ssm_tp_serve_phase(torch, np, card):
         heads = [t["blocks"]["p0"]["ssd"]["a_log"].shape[-1]
                  for t in tp2.params]
         check(heads == [12, 12], f"ssm tp serve: SSD heads per shard {heads}")
+        mixer_precision(tp2, tp1)
         return (f"ssd_heads_per_shard={heads} state_copies_equal={same} "
                 f"live_kv_bytes_per_shard={live2}")
 
+    def mixer_precision(tp2, tp1):
+        """Layer 0's SSD mixer, one decode tick of 8 rows from a random
+        carried state, over the two shards against TP=1: the new float32
+        state's gap (of its largest), each layout's state error against
+        the float32 mixer, the output's gap in bf16 ulps, and where the
+        layouts part first: the input projection's two column halves
+        against the whole."""
+        from repro_torch.dist import tp as tpc
+        from repro_torch.models import ssm
+
+        one = {k: v[0] for k, v in tp1.params["blocks"]["p0"]["ssd"].items()}
+        two = [{k: v[0] for k, v in t["blocks"]["p0"]["ssd"].items()}
+               for t in tp2.params]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn((8, 1, cfg.d_model), generator=gen,
+                        device="cuda").bfloat16()
+        zero = ssm.init_state(cfg, 8, torch.bfloat16, "cuda")
+        st = ssm.SSDState(
+            state=torch.randn(zero.state.shape, generator=gen, device="cuda"),
+            conv=torch.randn(zero.conv.shape, generator=gen,
+                             device="cuda").bfloat16())
+        want, new = ssm.decode_step(one, x, st, cfg)
+        got, news = ssm.decode_step_tp(two, [x, x], [st, st], cfg,
+                                       tpc.DeviceGroup(tp_devices(torch)))
+        f32 = {k: v.float() for k, v in one.items()}
+        _, exact = ssm.decode_step(f32, x.float(), ssm.SSDState(
+            state=st.state, conv=st.conv.float()), cfg)
+        gap = max(float((n.state - new.state).abs().max()) for n in news)
+        err2 = max(float((n.state - exact.state).abs().max()) for n in news)
+        err1 = float((new.state - exact.state).abs().max())
+        top = float(want.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        out = float((got.float() - want.float()).abs().max())
+        # the input projection: the shards' column halves against the
+        # whole, in bf16 ulps of the whole's largest
+        w = one["w_in"]
+        half = w.shape[-1] // 2
+        whole = x @ w
+        halves = torch.cat([x @ w[:, :half], x @ w[:, half:]], dim=-1)
+        big = float(whole.float().abs().max())
+        w_ulps = (float((halves.float() - whole.float()).abs().max())
+                  / 2.0 ** (math.floor(math.log2(big)) - 7))
+        print(f"[ssm tp serve] c15 layer-0 mixer, one tick of 8 rows: "
+              f"state_gap_of_largest="
+              f"{gap / float(new.state.abs().max()):.3e} "
+              f"state_err_vs_f32_tp2={err2:.6f} tp1={err1:.6f} "
+              f"ratio={err2 / max(err1, 1e-30):.4f} "
+              f"state_dtype={news[0].state.dtype} conv_equal="
+              f"{all(torch.equal(n.conv, new.conv) for n in news)} "
+              f"out_gap_bf16_ulps={out / ulp:.2f} w_in_halves_vs_whole_"
+              f"bf16_ulps={w_ulps:.2f} share_apart="
+              f"{float((halves != whole).float().mean()):.4f} (not gated) "
+              f"card='{card}'", flush=True)
+
     tp_family_serve(torch, np, card, cfg, None, "ssm tp serve",
-                    moe_requests(np, cfg.vocab_size)[:8], extra)
+                    moe_requests(np, cfg.vocab_size)[:8], extra,
+                    gate_c15=True)
 
 
 def a9b_parity_phase(torch, np):

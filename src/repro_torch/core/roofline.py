@@ -23,9 +23,10 @@ which attributes every op to the mesh device it runs for:
 - the bytes of the ops issued inside a ``flash_inner``
   :func:`named_scope` (the unrolled attention's inner loop, the
   reference's ``jax.named_scope``): what a fused attention kernel would
-  keep on chip.  The backward's ops are counted apart only where a remat
-  recomputes the forward inside the scope; the reference's HLO also tags
-  the transposed ops.
+  keep on chip.  The backward's ops count to the scope that the autograd
+  node running them was made in (:class:`ScopeLog`), as the reference's
+  HLO names a transposed op after the forward op it came from; a remat's
+  recomputation runs inside the scope again and counts as well.
 
 The reference's HLO parsers (``collective_stats``, ``fused_bytes*``)
 read XLA's text, which the port never produces, and are not ported.
@@ -35,10 +36,13 @@ HopperSpec`.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import contextvars
 from dataclasses import dataclass
 from typing import Dict, List, Optional
+
+import torch
 
 from repro_torch.core.memmodel import H100, HopperSpec, RooflineTerms, \
     roofline
@@ -51,8 +55,9 @@ class CellCost:
     bytes_fused: float    # the memory term's source (the same, eager)
     collective: float
     bytes_flash_inner: float = 0.0  # of bytes_raw, the ops inside a
-    #                                 flash_inner scope (recorded, never
-    #                                 taken off the memory term)
+    #                                 flash_inner scope and their
+    #                                 backward (recorded, never taken off
+    #                                 the memory term)
 
     def __add__(self, other):
         return CellCost(self.flops + other.flops,
@@ -70,22 +75,76 @@ class CellCost:
 FLASH_INNER = "flash_inner"
 _SCOPE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_scope",
                                                         default=None)
+_LOG: contextvars.ContextVar = contextvars.ContextVar("repro_torch_scope_log",
+                                                      default=None)
 
 
 @contextlib.contextmanager
 def named_scope(name: str):
-    """Ops issued inside run under ``name`` (the innermost scope wins):
+    """Ops issued inside run under ``name`` (the innermost scope wins), and
+    so does the backward of the autograd nodes they make:
     :class:`~repro_torch.dist.fsdp.Accounting` counts the bytes of those
     under :data:`FLASH_INNER` apart."""
     token = _SCOPE.set(name)
+    _mark(name)
     try:
         yield
     finally:
         _SCOPE.reset(token)
+        _mark(current_scope())
 
 
 def current_scope() -> Optional[str]:
     return _SCOPE.get()
+
+
+def _mark(name: Optional[str]) -> None:
+    log = _LOG.get()
+    if log is not None:
+        log.mark(name)
+
+
+class ScopeLog:
+    """The scope each autograd node was made in, for the ops its backward
+    runs.  Autograd numbers the nodes it makes in order
+    (``_get_sequence_nr`` reads the next number), so every entry to and
+    exit from a :func:`named_scope` while the log is open records the
+    number from which on nodes belong to the scope then current; during
+    the backward, ``torch._C._current_autograd_node()`` is the node being
+    run, and its number finds its scope.  The numbers are per thread: the
+    forward, the backward and every scope must run on the thread that
+    opened the log, as a trace on the meta device does (its backward runs
+    on the calling thread).  A remat's recomputation (non-reentrant
+    ``torch.utils.checkpoint``) runs inside the backward with grad
+    enabled, where a backward formula runs with it disabled: its ops
+    count by the scope they are issued in, as the forward's do."""
+
+    def __init__(self):
+        self._at: List[int] = [-1]
+        self._names: List[Optional[str]] = [None]
+        self._token = None
+
+    def __enter__(self) -> "ScopeLog":
+        self._names[0] = current_scope()
+        self._token = _LOG.set(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _LOG.reset(self._token)
+
+    def mark(self, name: Optional[str]) -> None:
+        """Nodes made from now on belong to ``name``."""
+        self._at.append(torch._C._autograd._get_sequence_nr())
+        self._names.append(name)
+
+    def op_scope(self) -> Optional[str]:
+        """The scope the op being dispatched counts to: a backward
+        formula's, its node's; any other op's, the one it is issued in."""
+        node = torch._C._current_autograd_node()
+        if node is None or torch.is_grad_enabled():
+            return current_scope()
+        seq = node._sequence_nr()
+        return self._names[bisect.bisect_right(self._at, seq) - 1]
 
 
 @dataclass
@@ -97,7 +156,8 @@ class Trace:
     recv: List[int]
     args: List[int]
     peak: List[int]            # argument bytes + the live tensors' peak
-    flash_inner: List[int]     # of ``bytes``, the ops in a flash_inner scope
+    flash_inner: List[int]     # of ``bytes``, a flash_inner scope's ops
+    #                            and their backward
     total_flops: int
     seconds: float = 0.0
 
@@ -111,7 +171,6 @@ def trace_step(fn, arguments, shards: int, counter: bool = True) -> Trace:
     ``FlopCounterMode`` for the total to hold the per-device FLOPs
     against (it doubles the trace's time; a production mesh's trace
     leaves it out, ``total_flops`` is then the per-device sum)."""
-    import contextlib
     import time
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.dist.fsdp import Accounting

@@ -41,7 +41,7 @@ from typing import Dict, List, Optional
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.core.roofline import FLASH_INNER, current_scope
+from repro_torch.core.roofline import FLASH_INNER, ScopeLog
 from repro_torch.dist.sharding import (Sharded, mesh_coords, mesh_index,
                                        spec_axes)
 
@@ -367,7 +367,10 @@ class Accounting(TorchDispatchMode):
     before the trace (the step's arguments) are :meth:`register`-ed with
     their shard; their bytes are the caller's baseline.  ``flash_inner``
     is the share of ``bytes`` of the ops issued inside a
-    :func:`~repro_torch.core.roofline.named_scope` of that name."""
+    :func:`~repro_torch.core.roofline.named_scope` of that name, and of
+    the backward's ops of the autograd nodes made there (``scopes``, a
+    :class:`~repro_torch.core.roofline.ScopeLog` open while the mode
+    is)."""
 
     def __init__(self, shards: int):
         super().__init__()
@@ -379,9 +382,20 @@ class Accounting(TorchDispatchMode):
         self.live = [0] * shards
         self.peak = [0] * shards
         self.flash_inner = [0] * shards
+        self.scopes = ScopeLog()
         self._owner: Dict[int, int] = {}
         self._forced: Optional[int] = None
         self.current = 0            # the shard of ops with no known input
+
+    def __enter__(self):
+        self.scopes.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self.scopes.__exit__(*exc)
 
     def register(self, t: torch.Tensor, shard: int) -> None:
         self._track(t, shard, count=False)
@@ -440,7 +454,7 @@ class Accounting(TorchDispatchMode):
         if not aliasing:
             moved = sum(t.numel() * t.element_size() for t in ins + outs)
             self.bytes[shard] += moved
-            if current_scope() == FLASH_INNER:
+            if self.scopes.op_scope() == FLASH_INNER:
                 self.flash_inner[shard] += moved
         return out
 

@@ -227,9 +227,9 @@ def unrolled_attention(q, k, v, p: AttnParams, q_offset=0,
     ``kv_valid_len`` is skipped, as a production kernel's grid skips it,
     so a traced step counts only the blocks computed.  Each block's work
     runs in a ``flash_inner`` :func:`~repro_torch.core.roofline.
-    named_scope`, whose bytes the accounting counts apart.  Autograd
-    differentiates the loop op by op (the reference has no custom VJP
-    here).  Rows come back in q's dtype."""
+    named_scope`, whose bytes the accounting counts apart, its backward's
+    included.  Autograd differentiates the loop op by op (the reference
+    has no custom VJP here).  Rows come back in q's dtype."""
     orig_sq = q.shape[1]
     q, k, v, meta = _padded(q, k, v, p, q_offset, kv_valid_len)
     qb, kb, vb, (b, sq, hq, d, skv, hkv, g, nq, nkv) = _blocks(meta, q, k, v)

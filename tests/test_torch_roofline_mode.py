@@ -9,10 +9,19 @@ float32.
 - a roofline-mode trace of a small prefill cell: its FLOPs are the
   ``chunked`` trace's less exactly the skipped blocks' two matmuls, and
   the ``flash_inner`` scope's bytes are counted apart;
+- the backward of the nodes made in the scope counts to it: a function
+  run wholly inside the scope (plain and under a remat) counts all its
+  bytes there; a train cell's scope bytes exceed its forward's and the
+  remat's recomputation's while every other count stays what a trace
+  without the scope gives, at 1x1 and (2, 2); a prefill cell's stay
+  what the forward's scope gives; the reference's HLO counts a train
+  step's transposed ops to the scope in the same way;
 - ``default_flags(roofline=True)`` is the reference's.
 """
+import contextlib
 import dataclasses
 import os
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.roofline import fused_bytes_detail
 from repro.models import RuntimeFlags as JFlags
 from repro.models import attention as j_attn
 from repro_torch.configs import ARCHS, ShapeCell, smoke_config
@@ -160,6 +170,135 @@ def test_roofline_trace_skips_masked_blocks(shape):
                           meshes={"single_pod": mesh})
     r = rec["roofline"]
     assert 0 < r["bytes_flash_inner"] <= r["hlo_bytes_raw"]
+
+
+def _forward_rule():
+    """The rule before the backward counted: an op counts to the scope it
+    is issued in (the forward's, and the remat's recomputation's)."""
+    return mock.patch.object(rl.ScopeLog, "op_scope",
+                             lambda self: rl.current_scope())
+
+
+def _no_scope():
+    """The unrolled attention without its scope."""
+    return mock.patch.object(t_attn, "named_scope",
+                             lambda name: contextlib.nullcontext())
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_scope_counts_its_backward(remat):
+    """A function whose forward runs wholly inside the scope, its backward
+    run outside it on a given gradient: every byte of the trace, the
+    backward's included, counts to the scope (under a remat too: its
+    recomputation runs in the scope again); without the scope none
+    does, and the bytes are the same."""
+    from torch.utils.checkpoint import checkpoint
+
+    def fn(x, w, scope):
+        with scope():
+            return torch.tanh(x @ w).exp() * 2
+
+    def traced(scope):
+        x, w = (torch.empty((8, 16, 16), device="meta", requires_grad=True)
+                for _ in range(2))
+        g = torch.empty((8, 16, 16), device="meta")
+
+        def step():
+            y = (checkpoint(fn, x, w, scope, use_reentrant=False) if remat
+                 else fn(x, w, scope))
+            y.backward(g)
+        return rl.trace_step(step, [(x, 0), (w, 0), (g, 0)], 1)
+
+    inside = traced(lambda: rl.named_scope(rl.FLASH_INNER))
+    outside = traced(contextlib.nullcontext)
+    assert inside.flash_inner == inside.bytes
+    assert inside.bytes == outside.bytes and inside.bytes[0] > 0
+    assert outside.flash_inner == [0]
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_roofline_train_cell_counts_the_backward(shape):
+    """Smoke gemma-2b under the roofline flags (16-token blocks, remat
+    ``full``), traced as ``run_cell`` traces it: a train cell's
+    ``flash_inner`` exceeds, on every device, what the forward and the
+    remat's recomputation give (the rule before the backward counted;
+    at 1x1 exactly twice the prefill cell's), and its bytes, FLOPs,
+    received bytes, arguments and peaks are those of a trace without
+    the scope, device by device.  A prefill cell runs no backward: its
+    counts are the forward rule's exactly.  At 1x1 the dry-run's record
+    carries the train cell's new count."""
+    cfg = smoke_config(ARCHS["gemma-2b"])
+    mesh = Mesh(("data", "model"), shape, ("meta",) * (shape[0] * shape[1]))
+    flags = dataclasses.replace(dryrun.default_flags(roofline=True),
+                                attn_bq=BLOCK, attn_bkv=BLOCK)
+    traces = {}
+    for kind in ("train", "prefill"):
+        cell = ShapeCell(f"{kind}_smoke", kind, SEQ, BATCH)
+
+        def trace():
+            return dryrun.trace_cell(cfg, cell, mesh, POLICIES["fsdp_tp"],
+                                     flags, counter=False)
+        new = trace()
+        with _forward_rule():
+            fwd = trace()
+        with _no_scope():
+            none = trace()
+        for t in (fwd, none):
+            assert (t.bytes, t.flops, t.recv, t.args, t.peak) == (
+                new.bytes, new.flops, new.recv, new.args, new.peak)
+        assert none.flash_inner == [0] * len(new.bytes)
+        assert all(f <= b for f, b in zip(new.flash_inner, new.bytes))
+        traces[kind] = new, fwd
+    new, fwd = traces["train"]
+    assert all(n > f > 0 for n, f in zip(new.flash_inner, fwd.flash_inner))
+    pre_new, pre_fwd = traces["prefill"]
+    assert pre_new.flash_inner == pre_fwd.flash_inner and any(
+        pre_new.flash_inner)
+    if shape != (1, 1):
+        return
+    # forward + recomputation: twice the forward's scope bytes
+    assert fwd.flash_inner == [2 * pre_new.flash_inner[0]]
+    rec = dryrun.run_cell(cfg, ShapeCell("train_smoke", "train", SEQ, BATCH),
+                          pods="single", roofline=True,
+                          meshes={"single_pod": mesh})
+    want = rl.affine_extrapolate(
+        *(rl.cost_of(dryrun.trace_cell(
+            dryrun.reduced_cfg(cfg, nb), ShapeCell("t", "train", SEQ, BATCH),
+            mesh, POLICIES["fsdp_tp"], dryrun.default_flags(roofline=True),
+            counter=False)) for nb in (1, 2)), 1, 2, cfg.num_pattern_blocks)
+    r = rec["roofline"]
+    assert r["bytes_flash_inner"] == want.bytes_flash_inner
+    assert r["hlo_bytes_raw"] == want.bytes_raw
+    with _forward_rule():
+        before = dryrun.run_cell(
+            cfg, ShapeCell("train_smoke", "train", SEQ, BATCH),
+            pods="single", roofline=True, meshes={"single_pod": mesh})
+    b = before["roofline"]
+    assert b["bytes_flash_inner"] < r["bytes_flash_inner"] <= r[
+        "hlo_bytes_raw"] == b["hlo_bytes_raw"]
+    assert (b["hlo_flops"], b["collective_bytes"]) == (
+        r["hlo_flops"], r["collective_bytes"])
+
+
+def test_reference_counts_the_transposed_ops_to_the_scope():
+    """The behaviour the port copies: the reference's ``fused_bytes_detail``
+    gives a train step of the unrolled attention (``jax.grad``) more
+    ``flash_inner`` bytes than its forward alone, since the transposed
+    ops keep the scope in their ``op_name``."""
+    rng = np.random.default_rng(11)
+    q, k, v = (jnp.asarray(rng.standard_normal((1, 32, 2, 16))
+                           .astype(np.float32)) for _ in range(3))
+    jp = j_attn.AttnParams(impl="unrolled", bq=16, bkv=16)
+
+    def loss(a, b, c):
+        return jnp.sum(j_attn.unrolled_attention(a, b, c, jp) ** 2)
+
+    fwd = jax.jit(loss).lower(q, k, v).compile().as_text()
+    step = jax.jit(jax.grad(loss, argnums=(0, 1, 2))).lower(
+        q, k, v).compile().as_text()
+    (f_total, f_scope), (s_total, s_scope) = (fused_bytes_detail(t)
+                                              for t in (fwd, step))
+    assert 0 < f_scope["flash_inner"] < s_scope["flash_inner"] <= s_total
 
 
 def test_roofline_flags_are_the_reference_dryruns():

@@ -25,7 +25,14 @@ in the port, held against the reference on the CPU (two shards on
   families, at ``_holds``' gates;
 - make_prefill_step/make_decode_step at model 2 for granite-moe and
   mamba2-130m against the reference's prefill and decode_step, float32
-  logits within 1e-5.
+  logits within 1e-5;
+- bfloat16 mamba2-130m at TP=2 rounds as TP=1 does: over a decode with
+  forced inputs, the TP=2 logits' error against the float32 ones (the
+  reference's) is at most twice TP=1's at every position, and where the
+  layouts' greedy tokens part, TP=1's top-2 gap is within the layouts'
+  logit difference; one layer's bfloat16 SSD mixer at TP=2 keeps TP=1's
+  float32 state to float32 rounding, and its output within two bfloat16
+  ulps.
 """
 import jax
 import jax.numpy as jnp
@@ -460,3 +467,130 @@ def test_model2_prefill_and_decode_match_reference(arch):
         for a, b in zip(got, want):
             assert a.shape == (B, cfg.vocab_size)
             np.testing.assert_allclose(a.numpy(), b, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 TP=2 against TP=1: rounding, not a lower precision
+# ---------------------------------------------------------------------------
+
+C15_LAYERS, C15_PROMPT, C15_TICKS = 4, 40, 24
+
+
+def _forced_logits(bundle, params, prompt, forced):
+    """float32 logits (len(forced) + 1, V): a prefill of ``prompt``, then
+    a decode tick on each forced token; row t predicts token t.  A TP
+    bundle's vocab slices are concatenated in shard order."""
+    def whole(lg):
+        return (torch.cat([x.float().cpu() for x in lg], -1)
+                if isinstance(lg, list) else lg.float())
+
+    cache, lg = bundle.prefill(params, dict(tokens=prompt[None]))
+    rows = [whole(lg)[0]]
+    for i in range(len(forced)):
+        lg, cache = bundle.decode_step(params, cache, forced[None, i:i + 1],
+                                       torch.tensor(len(prompt) + i))
+        rows.append(whole(lg)[0])
+    return torch.stack(rows)
+
+
+def test_tp2_bf16_ssd_rounds_as_tp1():
+    """Smoke mamba2-130m at 4 layers in bfloat16, at TP=2 over ["cpu",
+    "cpu"] and at TP=1 on the same weights, and in float32 at TP=1 on
+    those weights upcast (exact): a prefill of 40 tokens and 24 decode
+    ticks on the same forced tokens.  The float32 logits are the
+    reference's (its prefill and decode_step, atol 1e-5).  At every
+    position the largest absolute error of the TP=2 logits against the
+    float32 ones is at most twice TP=1's: the shards keep TP=1's
+    precision (float32 SSD state and norm sums), and only the
+    row-parallel output projection's partial sums round once more.
+    Wherever the two layouts' greedy tokens part, TP=1's top-2 gap there
+    is at most the layouts' largest logit difference."""
+    arch = "mamba2-130m"
+    kw = dict(num_layers=C15_LAYERS)
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg32 = t_override(t_smoke(T_ARCHS[arch]), **kw)
+    cfg16 = t_override(cfg32, **bf16)
+    drawn = t_build(cfg32, device="cpu").init(torch.Generator().manual_seed(7))
+    # the bfloat16 weights, and the same values in float32
+    w = _nest({k: v.bfloat16().float().numpy()
+               for k, v in flatten(drawn).items()})
+    b16 = t_build(cfg16, device="cpu")
+    p16 = params_from_numpy(w, cfg16, "cpu")
+    mesh = ServeMesh.tp(2, CPU2)
+    b2, p2 = mesh.bind(b16), mesh.shard_params(b16, p16)
+    b32 = t_build(cfg32, device="cpu")
+    p32 = params_from_numpy(w, cfg32, "cpu")
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(0, cfg32.vocab_size, C15_PROMPT))
+    forced = torch.from_numpy(rng.integers(0, cfg32.vocab_size, C15_TICKS))
+    tp2 = _forced_logits(b2, p2, prompt, forced)
+    tp1 = _forced_logits(b16, p16, prompt, forced)
+    f32 = _forced_logits(b32, p32, prompt, forced)
+
+    jb = j_build(j_override(j_smoke(J_ARCHS[arch]), **kw), JFlags())
+    jw = jax.tree.map(jnp.asarray, w)
+    jcache, jl = jb.prefill(jw, dict(tokens=jnp.asarray(prompt[None])))
+    want = [np.asarray(jl)[0]]
+    for i in range(C15_TICKS):
+        jl, jcache = jb.decode_step(jw, jcache,
+                                    jnp.asarray(forced[None, i:i + 1]),
+                                    jnp.asarray(C15_PROMPT + i, jnp.int32))
+        want.append(np.asarray(jl)[0])
+    np.testing.assert_allclose(f32.numpy(), np.stack(want), atol=1e-5)
+
+    err2 = (tp2 - f32).abs().amax(-1)
+    err1 = (tp1 - f32).abs().amax(-1)
+    assert bool((err1 > 0).all()), "bfloat16 TP=1 logits equal float32's"
+    ratio = err2 / err1
+    assert float(ratio.max()) <= 2.0, ratio
+    top = tp1.topk(2, dim=-1).values
+    margin = top[:, 0] - top[:, 1]
+    diff = (tp2 - tp1).abs().amax(-1)
+    parted = tp2.argmax(-1) != tp1.argmax(-1)
+    assert bool((margin[parted] <= diff[parted]).all()), (
+        margin[parted], diff[parted])
+
+
+@pytest.mark.parametrize("step", [True, False], ids=["decode", "prefill"])
+def test_tp2_bf16_ssd_mixer_keeps_tp1_precision(step):
+    """Layer 0's SSD mixer of bfloat16 smoke mamba2-130m over the
+    engine's two shards of its weights (``ServeMesh.shard_params``)
+    against TP=1 on the same input (one token, or a 40-token chunk) and
+    the same carried state: the new float32 state equals TP=1's within
+    float32 rounding (1e-5 of its largest; a shard that kept or read it
+    in bfloat16 would part by about 1e-3 of it), the conv state exactly,
+    and the output within two bfloat16 ulps of its largest (the
+    row-parallel output projection's partials each round once before
+    they add)."""
+    cfg = t_override(t_smoke(T_ARCHS["mamba2-130m"]), param_dtype="bfloat16",
+                     compute_dtype="bfloat16")
+    bundle = t_build(cfg, device="cpu")
+    params = bundle.init(torch.Generator().manual_seed(7))
+    shards = ServeMesh.tp(2, CPU2).shard_params(bundle, params)
+    one = {k: v[0] for k, v in params["blocks"]["p0"]["ssd"].items()}
+    two = [{k: v[0] for k, v in p["blocks"]["p0"]["ssd"].items()}
+           for p in shards]
+    gen = torch.Generator().manual_seed(1)
+    bsz, seq = 4, (1 if step else 40)
+    x = torch.randn((bsz, seq, cfg.d_model), generator=gen).bfloat16()
+    zero = t_ssm.init_state(cfg, bsz, torch.bfloat16, "cpu")
+    st = t_ssm.SSDState(
+        state=torch.randn(zero.state.shape, generator=gen),
+        conv=torch.randn(zero.conv.shape, generator=gen).bfloat16())
+    g = tp_mod.DeviceGroup([torch.device("cpu")] * 2)
+    if step:
+        want, new = t_ssm.decode_step(one, x, st, cfg)
+        got, news = t_ssm.decode_step_tp(two, [x, x], [st, st], cfg, g)
+    else:
+        want, new = t_ssm.forward(one, x, cfg, return_state=True, state=st)
+        got, news = t_ssm.forward_tp(two, [x, x], cfg, g, return_state=True,
+                                     states=[st, st])
+    for s in news:
+        assert s.state.dtype == torch.float32
+        gap = float((s.state - new.state).abs().max())
+        assert gap <= 1e-5 * float(new.state.abs().max()), gap
+        assert torch.equal(s.conv, new.conv)
+    top = float(want.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) <= 2 * ulp
